@@ -17,3 +17,8 @@ except ImportError:  # ... and a deterministic shim otherwise
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (skips without them)")
