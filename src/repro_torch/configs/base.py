@@ -2,7 +2,7 @@
 
 Field-for-field copy of ``repro.configs.base`` (which imports jax): a bank
 artifact's ``pcfg`` and a config's fields mean the same in both packages.
-Only ``llama3.2-1b`` has a config module in this package so far.
+Config modules so far: ``llama3.2-1b`` and ``mixtral-8x22b``.
 """
 from __future__ import annotations
 

@@ -3,12 +3,18 @@
 The reference's params come from threefry draws, which torch cannot replay,
 so a test that compares the two packages on the same weights initialises
 them in JAX, pulls them to the host (``jax.device_get``: a tree of numpy
-arrays) and converts them here.  This module imports neither jax nor
-``repro``: it only sees numpy.
+arrays) and converts them here.  The trained benchmark models the reference
+cached under ``results/bench_models/*.pkl`` are such numpy trees already
+(:func:`load_params_pickle`).  Expert banks (layers, E, d_in, d_out) and an
+untied ``lm_head`` carry across like every other leaf.  This module imports
+neither jax nor ``repro``: it only sees numpy.
 """
 from __future__ import annotations
 
 from typing import Any
+
+import pathlib
+import pickle
 
 import numpy as np
 import torch
@@ -30,3 +36,11 @@ def params_from_numpy(t: Any, *, device="cpu") -> Any:
     """Numpy tree (nested dicts/lists, the reference's layout and key
     paths) -> the same tree of torch tensors on ``device``."""
     return tree.tree_map(lambda a: _leaf(a, device), t)
+
+
+def load_params_pickle(path, *, device="cpu") -> Any:
+    """A params tree the repository pickled as plain numpy (the reference's
+    ``results/bench_models/<name>.pkl``) -> torch tensors on ``device``.
+    Unpickling runs code, so only the repository's own files go here."""
+    with open(pathlib.Path(path), "rb") as f:
+        return params_from_numpy(pickle.load(f), device=device)

@@ -1,7 +1,8 @@
 """Which parameters UniPruning prunes.  Port of ``repro.core.prunable``.
 
 Every 2-D+ projection kernel, excluding embeddings, routers, convs, norms,
-positional tables and small adapters.
+positional tables and small adapters.  Expert banks (E, d_in, d_out) are
+included, their leading expert dim treated as batch.
 """
 from __future__ import annotations
 

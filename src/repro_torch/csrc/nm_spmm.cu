@@ -1,25 +1,36 @@
 // 2:4 compressed matmul for Hopper: out (M, N) = x (M, K) @ W (K, N), with W
 // pruned 2:4 along K and given compressed as vals (K/2, N) plus in-group
-// positions, either packed 4-per-byte (K/8, N) uint8 or int8 (K/2, N).
+// positions, either packed 4-per-byte (K/8, N) uint8 or int8 (K/2, N); and
+// its expert-banked form, out (E, M, N) = x (E, M, K) @ W (E, K, N), one such
+// product per expert of an MoE bank.
 //
-// Replaces the TPU kernel src/repro/kernels/nm_spmm.py::nm_matmul
-// (_nm_matmul_kernel).  On the TPU the compressed tile was expanded to dense
-// with a masked select, because the VPU has no gather, and fed to the MXU.
-// Here nothing is expanded: each thread owns two adjacent output columns and
-// walks the 2:4 groups along K, reading its two bf16 values per group and
-// the group's index bits, and gathers the matching x entries from shared
-// memory.  Sums are kept in f32 registers.
+// Replaces the TPU kernels src/repro/kernels/nm_spmm.py::nm_matmul
+// (_nm_matmul_kernel) and ::nm_matmul_expert (_nm_matmul_expert_kernel).  On
+// the TPU the compressed tile was expanded to dense with a masked select,
+// because the VPU has no gather, and fed to the MXU; the expert variant grew
+// the grid a leading expert dimension.  Here nothing is expanded: each thread
+// owns two adjacent output columns and walks the 2:4 groups along K, reading
+// its two bf16 values per group and the group's index bits, and gathers the
+// matching x entries from shared memory.  Sums are kept in f32 registers.
+// The expert axis is folded into the grid's z dimension with the row tiles
+// (z = expert * row_tiles + row_tile); each block offsets x, vals, idx, out
+// and the split-K workspace by its expert's stride.  The 2-D product is the
+// one-expert case of the same kernel, instantiated without those offsets
+// (kExperts = false): with them it ran ~7% slower at llama's decode shapes
+// on an H100.
 //
-// What bounds it: at decode (M = serving slots, a handful) the work is
-// ~M flops per weight byte, far under the ~295 flops/byte at which the
-// H100's data-sheet bf16 rate and HBM rate balance, so the
-// bound is the bytes of the compressed weight (1.125 B per weight with the
-// packed index plane).  The design keeps those reads coalesced along N
-// (32 lanes x 2 columns = 128 contiguous bytes of bf16 values per row) and
-// splits K over the 8 warps of a block and, when the N x M grid is too small
-// to fill the card, over blocks (deterministic second pass, no atomics).
-// Prefill-sized M re-reads the weight once per 16-row tile of x; tensor
-// cores (mma.sp / wgmma) are not used yet.
+// What bounds it: at decode (M = serving slots, or the MoE capacity C, a
+// handful) the work is ~M flops per weight byte, far under the ~295
+// flops/byte at which the H100's data-sheet bf16 rate and HBM rate balance,
+// so the bound is the bytes of the compressed weight (1.125 B per weight
+// with the packed index plane): one Mixtral-8x22B expert bank, 8 x 6144 x
+// 16384 weights, is 0.906 GB, 0.27 ms at 3.35 TB/s.  The design keeps those
+// reads coalesced along N (32 lanes x 2 columns = 128 contiguous bytes of
+// bf16 values per row) and splits K over the 8 warps of a block and, when
+// the expert x N x M grid is too small to fill the card, over blocks
+// (deterministic second pass, no atomics).  Prefill-sized M re-reads the
+// weight once per 16-row tile of x; tensor cores (mma.sp / wgmma) are not
+// used yet.
 //
 // Plain C interface for ctypes: the caller allocates the output and the
 // split-K workspace, the launch goes on the caller's stream, and the
@@ -59,22 +70,38 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// grid: (ceil(N / kBN), ksplit, ceil(M / BM)).  Block (bx, s, bz) computes
-// columns [bx*kBN, bx*kBN + kBN) of rows [bz*BM, bz*BM + BM) over the s-th
+// grid: (ceil(N / kBN), ksplit, E * ceil(M / BM)).  Block (bx, s, z) with
+// z = e * ceil(M / BM) + bz computes, for expert e, columns
+// [bx*kBN, bx*kBN + kBN) of rows [bz*BM, bz*BM + BM) over the s-th
 // contiguous range of 2:4 groups.  With ksplit == 1 it writes `out`;
-// otherwise f32 partial sums go to ws[s] and splitk_reduce adds them.
-template <typename TIn, typename TOut, bool kPacked, int BM>
+// otherwise f32 partial sums go to ws[s][e] and splitk_reduce adds them.
+// kExperts = false is the E = 1 case: z is the row tile, no offsets.
+template <typename TIn, typename TOut, bool kPacked, int BM, bool kExperts>
 __global__ void __launch_bounds__(kThreads)
 nm_matmul_kernel(const TIn* __restrict__ x, const TIn* __restrict__ vals,
                  const uint8_t* __restrict__ idx, TOut* __restrict__ out,
-                 float* __restrict__ ws, int M, int K, int N, int ksplit) {
+                 float* __restrict__ ws, int E, int M, int K, int N,
+                 int ksplit) {
   __shared__ float smem[kSmemFloats];
   using P = typename Pair<TIn>::type;
+
+  const size_t mn = (size_t)M * N;
+  int e = 0;
+  if (kExperts) {
+    // this expert's operands: x (M, K), vals (K/2, N), idx (K/8 | K/2, N),
+    // out and each split's workspace slice (M, N)
+    e = blockIdx.z / ((M + BM - 1) / BM);
+    x += (size_t)e * M * K;
+    vals += (size_t)e * (K / 2) * N;
+    idx += (size_t)e * (kPacked ? K / 8 : K / 2) * N;
+    out += (size_t)e * mn;
+  }
+  if (ws != nullptr) ws += ((size_t)blockIdx.y * E + e) * mn;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n0 = blockIdx.x * kBN + 2 * lane;  // N is even: n0 + 1 < N too
-  const int m0 = blockIdx.z * BM;
+  const int m0 = (blockIdx.z - e * ((M + BM - 1) / BM)) * BM;
   const int mt = min(BM, M - m0);
   const int groups = K / 4;
   const int per_split = (groups + ksplit - 1) / ksplit;
@@ -147,7 +174,7 @@ nm_matmul_kernel(const TIn* __restrict__ x, const TIn* __restrict__ vals,
     if (ksplit == 1) {
       out[o] = from_float<TOut>(s);
     } else {
-      ws[(size_t)blockIdx.y * M * N + o] = s;
+      ws[o] = s;
     }
   }
 }
@@ -162,62 +189,69 @@ __global__ void splitk_reduce(const float* __restrict__ ws,
   out[i] = from_float<TOut>(s);
 }
 
+struct Args {
+  const void* x;
+  const void* vals;
+  const void* idx;
+  void* out;
+  void* ws;
+  int E, M, K, N, ksplit;
+};
+
 template <typename TIn, typename TOut, bool kPacked, int BM>
-cudaError_t launch(const void* x, const void* vals, const void* idx,
-                   void* out, void* ws, int M, int K, int N, int ksplit,
-                   cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, ksplit, (M + BM - 1) / BM);
-  nm_matmul_kernel<TIn, TOut, kPacked, BM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const TIn*>(vals),
-      static_cast<const uint8_t*>(idx), static_cast<TOut*>(out),
-      static_cast<float*>(ws), M, K, N, ksplit);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const long long z = (long long)a.E * ((a.M + BM - 1) / BM);
+  if (z > 65535 || a.ksplit > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((a.N + kBN - 1) / kBN, a.ksplit, (unsigned)z);
+  auto kernel = a.E > 1 ? nm_matmul_kernel<TIn, TOut, kPacked, BM, true>
+                        : nm_matmul_kernel<TIn, TOut, kPacked, BM, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const TIn*>(a.x), static_cast<const TIn*>(a.vals),
+      static_cast<const uint8_t*>(a.idx), static_cast<TOut*>(a.out),
+      static_cast<float*>(a.ksplit > 1 ? a.ws : nullptr), a.E, a.M, a.K, a.N,
+      a.ksplit);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ksplit == 1) return err;
-  const size_t mn = (size_t)M * N;
-  splitk_reduce<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<TOut*>(out), ksplit, mn);
+  if (err != cudaSuccess || a.ksplit == 1) return err;
+  const size_t emn = (size_t)a.E * a.M * a.N;
+  splitk_reduce<TOut><<<(unsigned)((emn + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(a.ws), static_cast<TOut*>(a.out), a.ksplit,
+      emn);
   return cudaGetLastError();
 }
 
 template <typename TIn, typename TOut, bool kPacked>
-cudaError_t launch_bm(const void* x, const void* vals, const void* idx,
-                      void* out, void* ws, int M, int K, int N, int ksplit,
-                      cudaStream_t s) {
-  if (M <= 1) return launch<TIn, TOut, kPacked, 1>(x, vals, idx, out, ws, M, K, N, ksplit, s);
-  if (M <= 2) return launch<TIn, TOut, kPacked, 2>(x, vals, idx, out, ws, M, K, N, ksplit, s);
-  if (M <= 4) return launch<TIn, TOut, kPacked, 4>(x, vals, idx, out, ws, M, K, N, ksplit, s);
-  if (M <= 8) return launch<TIn, TOut, kPacked, 8>(x, vals, idx, out, ws, M, K, N, ksplit, s);
-  return launch<TIn, TOut, kPacked, kMaxBM>(x, vals, idx, out, ws, M, K, N, ksplit, s);
+cudaError_t launch_bm(const Args& a, cudaStream_t s) {
+  if (a.M <= 1) return launch<TIn, TOut, kPacked, 1>(a, s);
+  if (a.M <= 2) return launch<TIn, TOut, kPacked, 2>(a, s);
+  if (a.M <= 4) return launch<TIn, TOut, kPacked, 4>(a, s);
+  if (a.M <= 8) return launch<TIn, TOut, kPacked, 8>(a, s);
+  return launch<TIn, TOut, kPacked, kMaxBM>(a, s);
 }
 
 template <typename TIn, typename TOut>
-cudaError_t launch_layout(const void* x, const void* vals, const void* idx,
-                          void* out, void* ws, int M, int K, int N,
-                          int packed, int ksplit, cudaStream_t s) {
-  return packed
-      ? launch_bm<TIn, TOut, true>(x, vals, idx, out, ws, M, K, N, ksplit, s)
-      : launch_bm<TIn, TOut, false>(x, vals, idx, out, ws, M, K, N, ksplit, s);
+cudaError_t launch_layout(const Args& a, int packed, cudaStream_t s) {
+  return packed ? launch_bm<TIn, TOut, true>(a, s)
+                : launch_bm<TIn, TOut, false>(a, s);
 }
 
 }  // namespace
 
-// in_bf16: x and vals are bf16 (else f32); out_bf16: out is bf16 (else
-// f32; bf16 out needs bf16 in).  packed: idx is the (K/8, N) packed plane
-// (K % 8 == 0), else the (K/2, N) int8 plane.  ws: ksplit x M x N f32
-// scratch when ksplit > 1.  Requires N even, K % 4 == 0, rows contiguous.
-extern "C" int repro_nm_matmul(const void* x, const void* vals,
-                               const void* idx, void* out, void* ws, int M,
-                               int K, int N, int in_bf16, int out_bf16,
-                               int packed, int ksplit, void* stream) {
+// out (E, M, N) = x (E, M, K) @ W (E, K, N), per expert, W given as vals
+// (E, K/2, N) and idx (E, K/8, N) packed or (E, K/2, N) int8; the 2-D
+// product is E = 1.  in_bf16: x and vals are bf16 (else f32); out_bf16: out
+// is bf16 (else f32; bf16 out needs bf16 in).  packed: the packed plane
+// (K % 8 == 0), else the int8 plane.  ws: ksplit x E x M x N f32 scratch
+// when ksplit > 1.  Requires N even, K % 4 == 0, every operand contiguous.
+extern "C" int repro_nm_matmul_expert(const void* x, const void* vals,
+                                      const void* idx, void* out, void* ws,
+                                      int E, int M, int K, int N,
+                                      int in_bf16, int out_bf16, int packed,
+                                      int ksplit, void* stream) {
+  const Args a{x, vals, idx, out, ws, E, M, K, N, ksplit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16 && out_bf16)
-    return (int)launch_layout<__nv_bfloat16, __nv_bfloat16>(
-        x, vals, idx, out, ws, M, K, N, packed, ksplit, s);
-  if (in_bf16)
-    return (int)launch_layout<__nv_bfloat16, float>(
-        x, vals, idx, out, ws, M, K, N, packed, ksplit, s);
-  if (!out_bf16)
-    return (int)launch_layout<float, float>(
-        x, vals, idx, out, ws, M, K, N, packed, ksplit, s);
+    return (int)launch_layout<__nv_bfloat16, __nv_bfloat16>(a, packed, s);
+  if (in_bf16) return (int)launch_layout<__nv_bfloat16, float>(a, packed, s);
+  if (!out_bf16) return (int)launch_layout<float, float>(a, packed, s);
   return (int)cudaErrorInvalidValue;
 }

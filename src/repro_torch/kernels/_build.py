@@ -1,12 +1,13 @@
 """Build the CUDA kernels under ``csrc/`` at first use and load them.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``: pointers
-and the stream go as ``c_void_p``, sizes as ``c_int``/``c_longlong``, and
-each C function returns ``cudaGetLastError()``, which the wrappers raise on.
-The library lands in ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the existing file.
+Each ``csrc/<name>.cu`` compiles for ``sm_90a`` into a shared library of its
+own with a plain C interface, loaded with ``ctypes``: pointers and the
+stream go as ``c_void_p``, sizes as ``c_int``/``c_longlong``, and each C
+function returns ``cudaGetLastError()``, which the wrappers raise on.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for every one.  The libraries land in ``build/repro_torch_kernels/``
+at the repository root, named by a hash of their source and the flags, so
+an edited source rebuilds and an unchanged one loads the existing file.
 
 Nothing here runs at import: a machine without the CUDA toolkit, where the
 CPU tests run, has no ``nvcc``, and only a wrapper handed a CUDA tensor
@@ -28,6 +29,17 @@ BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points of each source: name -> argtypes (every restype is int)
+ENTRY_POINTS = {
+    "nm_spmm": {
+        "repro_nm_matmul_expert": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    },
+    "nm_mask24": {
+        "repro_nm_mask24": [_P, _P, _LL, _I, _I, _P],
+    },
+}
+
 
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -40,36 +52,47 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _so_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_{name}_{h.hexdigest()[:16]}.so"
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_nm_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.repro_nm_matmul.restype = i
-    lib.repro_nm_mask24.argtypes = [p, p, ll, i, i, p]
-    lib.repro_nm_mask24.restype = i
-    return lib
+def build(names=None) -> None:
+    """Compile every named source (default: all) whose library is missing,
+    one ``nvcc`` each, started together; raise if any of them fails."""
+    names = list(ENTRY_POINTS) if names is None else list(names)
+    todo = [(n, _so_path(n)) for n in names if not _so_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    running = []
+    for name, so in todo:
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running.append((cmd, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for cmd, so, tmp, proc in running:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if it is missing."""
-    srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    so = BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                f"{r.stdout}\n{r.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-    return _declare(ctypes.CDLL(str(so)))
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    build([name])
+    lib = ctypes.CDLL(str(_so_path(name)))
+    for fn, argtypes in ENTRY_POINTS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    return lib

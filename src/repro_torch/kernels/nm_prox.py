@@ -44,7 +44,7 @@ def nm_mask24(s: torch.Tensor) -> torch.Tensor:
     if keep.numel() == 0:
         return keep
     from repro_torch.kernels._build import library
-    err = library().repro_nm_mask24(
+    err = library("nm_mask24").repro_nm_mask24(
         s.data_ptr(), keep.data_ptr(), R, N, code,
         ctypes.c_void_p(torch.cuda.current_stream(s.device).cuda_stream))
     if err:

@@ -1,19 +1,22 @@
-"""2:4 compressed matmul: ``x (M, K) @ W (K, N)`` with W pruned 2:4 along K.
+"""2:4 compressed matmul: ``x (M, K) @ W (K, N)`` with W pruned 2:4 along K,
+and its expert-banked form ``x (E, M, K) @ W (E, K, N)``.
 
-Port of ``repro.kernels.nm_spmm.nm_matmul``.  W is given compressed as
-``vals`` (K/2, N), the two kept values of every group of 4 along K, and
-their in-group positions in one of two index layouts:
+Port of ``repro.kernels.nm_spmm.nm_matmul`` and ``nm_matmul_expert``.  W is
+given compressed as ``vals`` (K/2, N), the two kept values of every group
+of 4 along K, and their in-group positions in one of two index layouts:
 
   LAYOUT_INT8:    idx (K/2, N) int8, one position per byte
   LAYOUT_PACKED2: idx (K/8, N) uint8, bits 2j..2j+1 of byte row r hold the
                   position of compressed row 4r+j
 
-For CUDA tensors :func:`nm_matmul` launches the hand-written kernel in
-``csrc/nm_spmm.cu`` (one thread per pair of output columns, f32
-accumulation, split-K when the grid is small; see the source for the
-design and its bound).  For CPU tensors it runs :func:`nm_matmul_plain`,
-the decompress-then-matmul version the tests and ``chip_smoke.py`` hold the
-kernel against.
+For CUDA tensors :func:`nm_matmul` and :func:`nm_matmul_expert` launch the
+hand-written kernel in ``csrc/nm_spmm.cu`` (one thread per pair of output
+columns, f32 accumulation, the expert axis folded into the grid, split-K
+when the grid is small; see the source for the design and its bound).  For
+CPU tensors they run :func:`nm_matmul_plain` and
+:func:`nm_matmul_expert_plain`, the decompress-then-matmul versions the
+tests and ``chip_smoke.py`` hold the kernel against.  The expert axis leads
+every operand.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ LAYOUT_PACKED2 = "packed2"
 
 _BN, _BM = 64, 16        # the kernel's column and row tile (nm_spmm.cu)
 _MIN_SPLIT_GROUPS = 64   # 2:4 groups a split-K slice covers at least
+_MAX_GRID_Z = 65535      # experts x row tiles share the grid's z dimension
 
 
 def unpack_idx2(packed: torch.Tensor) -> torch.Tensor:
@@ -53,37 +57,51 @@ def infer_layout(K: int, idx_shape: tuple[int, ...]) -> str:
                      f"for K={K}")
 
 
-def _check_shapes(x, vals, idx, layout):
-    if x.dim() != 2 or vals.dim() != 2 or idx.dim() != 2:
-        raise ValueError("nm_matmul takes 2-D x, vals and idx, got "
+def _check_plane(K: int, N: int, idx_shape: tuple[int, ...],
+                 layout: str | None) -> str:
+    """Layout of one (expert's) index plane, checked against (K, N)."""
+    layout = infer_layout(K, idx_shape) if layout is None else layout
+    if layout == LAYOUT_PACKED2:
+        if K % 8 or idx_shape != (K // 8, N):
+            raise ValueError(f"packed2 index plane must be (K/8, N) = "
+                             f"({K // 8}, {N}) with K % 8 == 0, got "
+                             f"{idx_shape}")
+    elif layout == LAYOUT_INT8:
+        if idx_shape != (K // 2, N):
+            raise ValueError(f"int8 index plane must be (K/2, N) = "
+                             f"({K // 2}, {N}), got {idx_shape}")
+    else:
+        raise ValueError(f"unknown index layout {layout!r}")
+    return layout
+
+
+def _check_shapes(x, vals, idx, layout, *, experts: bool = False):
+    """(E, M, K, N, layout), E = 1 for the 2-D product."""
+    nd = 3 if experts else 2
+    name = "nm_matmul_expert" if experts else "nm_matmul"
+    if x.dim() != nd or vals.dim() != nd or idx.dim() != nd:
+        raise ValueError(f"{name} takes {nd}-D x, vals and idx, got "
                          f"{tuple(x.shape)}, {tuple(vals.shape)}, "
                          f"{tuple(idx.shape)}")
-    M, K = x.shape
-    half_k, N = vals.shape
+    E = x.shape[0] if experts else 1
+    if experts and not (vals.shape[0] == idx.shape[0] == E):
+        raise ValueError(f"{name}: expert axes of x {tuple(x.shape)}, vals "
+                         f"{tuple(vals.shape)} and idx {tuple(idx.shape)} "
+                         "differ")
+    M, K = x.shape[-2:]
+    half_k, N = vals.shape[-2:]
     if half_k * 2 != K or K % 4:
         raise ValueError(f"x {tuple(x.shape)} does not match vals "
                          f"{tuple(vals.shape)} (need K = 2 * vals rows, "
                          "K % 4 == 0)")
-    layout = infer_layout(K, tuple(idx.shape)) if layout is None else layout
-    if layout == LAYOUT_PACKED2:
-        if K % 8 or tuple(idx.shape) != (K // 8, N):
-            raise ValueError(f"packed2 index plane must be (K/8, N) = "
-                             f"({K // 8}, {N}) with K % 8 == 0, got "
-                             f"{tuple(idx.shape)}")
-    elif layout == LAYOUT_INT8:
-        if tuple(idx.shape) != (half_k, N):
-            raise ValueError(f"int8 index plane must be (K/2, N) = "
-                             f"({half_k}, {N}), got {tuple(idx.shape)}")
-    else:
-        raise ValueError(f"unknown index layout {layout!r}")
-    return M, K, N, layout
+    return E, M, K, N, _check_plane(K, N, tuple(idx.shape[-2:]), layout)
 
 
 def nm_matmul_plain(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                     *, layout: str | None = None,
                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Decompress, then one dense matmul: the kernel's plain version."""
-    _, _, _, layout = _check_shapes(x, vals, idx, layout)
+    *_, layout = _check_shapes(x, vals, idx, layout)
     pos = unpack_idx2(idx) if layout == LAYOUT_PACKED2 else idx
     if out_dtype in (None, x.dtype):
         return ref.nm_matmul_ref(x, vals, pos)
@@ -91,17 +109,93 @@ def nm_matmul_plain(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     return (x.float() @ ref.decompress_24(vals, pos).float()).to(out_dtype)
 
 
+def nm_matmul_expert_plain(x: torch.Tensor, vals: torch.Tensor,
+                           idx: torch.Tensor, *, layout: str | None = None,
+                           out_dtype: torch.dtype | None = None
+                           ) -> torch.Tensor:
+    """Decompress every expert, then one batched matmul: the expert
+    kernel's plain version.  One ``torch.bmm`` in x.dtype, the op the
+    masked-dense expert path (``models.common.expert_dense``) runs on the
+    dense bank, so compressed and masked-dense serving agree bit for bit
+    on the CPU, as one interpret-mode tile per expert does in the
+    reference."""
+    *_, layout = _check_shapes(x, vals, idx, layout, experts=True)
+    pos = unpack_idx2(idx) if layout == LAYOUT_PACKED2 else idx
+    w = ref.decompress_24(vals, pos)
+    if out_dtype in (None, x.dtype):
+        return torch.bmm(x, w.to(x.dtype))
+    return torch.bmm(x.float(), w.float()).to(out_dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(M: int, K: int, N: int, sm_count: int) -> int:
-    """Blocks along K: enough for ~2 blocks per SM when the N x M grid
-    alone is smaller, each still covering >= 64 groups of 4."""
-    blocks = -(-N // _BN) * -(-M // _BM)
+def split_k(M: int, K: int, N: int, sm_count: int, experts: int = 1) -> int:
+    """Blocks along K: enough for ~2 blocks per SM when the expert x N x M
+    grid alone is smaller, each still covering >= 64 groups of 4."""
+    blocks = experts * -(-N // _BN) * -(-M // _BM)
     want = -(-2 * sm_count // blocks)
     return max(1, min(want, (K // 4) // _MIN_SPLIT_GROUPS))
+
+
+def _launch(name: str, x, vals, idx, E: int, M: int, K: int, N: int,
+            layout: str, out_dtype) -> torch.Tensor:
+    """Validate CUDA operands (E, M, K) / (E, K/2, N) / (E, ., N) and launch
+    the kernel over E experts -> (E, M, N)."""
+    out_dtype = out_dtype or x.dtype
+    if x.dtype not in (torch.bfloat16, torch.float32) or vals.dtype != x.dtype:
+        raise TypeError(f"{name} kernel takes bf16 or f32 x and vals of one "
+                        f"dtype, got {x.dtype} and {vals.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"{name} kernel writes {x.dtype} or float32, not "
+                        f"{out_dtype}")
+    packed = layout == LAYOUT_PACKED2
+    want_idx = torch.uint8 if packed else torch.int8
+    if idx.dtype != want_idx:
+        raise TypeError(f"{layout} index plane must be {want_idx}, got "
+                        f"{idx.dtype}")
+    if not (x.is_contiguous() and vals.is_contiguous()
+            and idx.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous x, vals and idx")
+    if N % 2 or vals.data_ptr() % (2 * vals.element_size()) \
+            or idx.data_ptr() % 2:
+        raise ValueError(f"{name} kernel reads column pairs: N must be even "
+                         "and vals/idx aligned to a pair")
+    if E * -(-M // _BM) > _MAX_GRID_Z:
+        raise ValueError(f"{name}: {E} experts x {-(-M // _BM)} row tiles "
+                         f"exceed the grid's {_MAX_GRID_Z} z-blocks")
+    out = torch.empty((E, M, N), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    ksplit = split_k(M, K, N, _sm_count(x.device.index), experts=E)
+    ws = (torch.empty((ksplit, E, M, N), dtype=torch.float32,
+                      device=x.device) if ksplit > 1 else None)
+    from repro_torch.kernels._build import library
+    err = library("nm_spmm").repro_nm_matmul_expert(
+        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), E, M, K, N,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(packed), ksplit,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
+    """True for CPU operands (the plain version); CUDA operands on one
+    device go to the kernel; anything else raises."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: x, vals and idx must lie on one device, "
+                         f"got {', '.join(str(t.device) for t in ts)}")
+    return False
 
 
 def nm_matmul(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, *,
@@ -118,52 +212,38 @@ def nm_matmul(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, *,
     bf16 or f32 of one dtype, idx uint8 (packed2) or int8, all contiguous
     on one device, N even.
     """
-    kinds = {x.device.type, vals.device.type, idx.device.type}
-    if kinds == {"cpu"}:
+    if _on_cpu("nm_matmul", x, vals, idx):
         return nm_matmul_plain(x, vals, idx, layout=layout,
                                out_dtype=out_dtype)
-    if kinds != {"cuda"} or not (x.device == vals.device == idx.device):
-        raise ValueError("nm_matmul: x, vals and idx must lie on one device, "
-                         f"got {x.device}, {vals.device}, {idx.device}")
-    M, K, N, layout = _check_shapes(x, vals, idx, layout)
-    out_dtype = out_dtype or x.dtype
-    if x.dtype not in (torch.bfloat16, torch.float32) or vals.dtype != x.dtype:
-        raise TypeError(f"nm_matmul kernel takes bf16 or f32 x and vals of "
-                        f"one dtype, got {x.dtype} and {vals.dtype}")
-    if out_dtype not in (x.dtype, torch.float32):
-        raise TypeError(f"nm_matmul kernel writes {x.dtype} or float32, "
-                        f"not {out_dtype}")
-    packed = layout == LAYOUT_PACKED2
-    want_idx = torch.uint8 if packed else torch.int8
-    if idx.dtype != want_idx:
-        raise TypeError(f"{layout} index plane must be {want_idx}, got "
-                        f"{idx.dtype}")
-    if not (x.is_contiguous() and vals.is_contiguous()
-            and idx.is_contiguous()):
-        raise ValueError("nm_matmul kernel needs contiguous x, vals and idx")
-    if N % 2 or vals.data_ptr() % (2 * vals.element_size()) \
-            or idx.data_ptr() % 2:
-        raise ValueError("nm_matmul kernel reads column pairs: N must be "
-                         "even and vals/idx aligned to a pair")
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    if M == 0 or N == 0:
-        return out
-    if K == 0:
-        return out.zero_()
-    ksplit = split_k(M, K, N, _sm_count(x.device.index))
-    ws = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-          if ksplit > 1 else None)
-    from repro_torch.kernels._build import library
-    err = library().repro_nm_matmul(
-        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, K, N,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        int(packed), ksplit,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err:
-        raise RuntimeError(f"nm_matmul kernel launch failed: CUDA error {err}")
+    _, M, K, N, layout = _check_shapes(x, vals, idx, layout)
+    out = _launch("nm_matmul", x[None], vals[None], idx[None], 1, M, K, N,
+                  layout, out_dtype)[0]
     nm_matmul.launches += 1
     return out
 
 
 nm_matmul.launches = 0
+
+
+def nm_matmul_expert(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                     *, layout: str | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Per-expert batch x: (E, M, K) @ 2:4-compressed bank (E, K, N)
+    -> (E, M, N) in x.dtype (float32 with ``out_dtype``).
+
+    vals (E, K/2, N); idx (E, K/8, N) uint8 packed2 or (E, K/2, N) int8.
+    CPU tensors take :func:`nm_matmul_expert_plain`.  CUDA tensors launch
+    the kernel once for every expert (``nm_matmul_expert.launches`` counts
+    each launch) or raise, on the terms of :func:`nm_matmul`.
+    """
+    if _on_cpu("nm_matmul_expert", x, vals, idx):
+        return nm_matmul_expert_plain(x, vals, idx, layout=layout,
+                                      out_dtype=out_dtype)
+    E, M, K, N, layout = _check_shapes(x, vals, idx, layout, experts=True)
+    out = _launch("nm_matmul_expert", x, vals, idx, E, M, K, N, layout,
+                  out_dtype)
+    nm_matmul_expert.launches += 1
+    return out
+
+
+nm_matmul_expert.launches = 0

@@ -30,16 +30,19 @@ def compress_24(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def decompress_24(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(K/2, N) vals + int8 positions -> dense (K, N), zeros elsewhere."""
-    half_k, N = vals.shape
+    """(..., K/2, N) vals + int8 positions -> dense (..., K, N), zeros
+    elsewhere.  Leading dims (experts, layers) pass through."""
+    *lead, half_k, N = vals.shape
     g = half_k // 2
-    v = vals.reshape(g, 2, N)
-    p = idx.reshape(g, 2, N).long()
-    r = torch.arange(4, device=vals.device)[None, :, None]
-    dense = torch.zeros((g, 4, N), dtype=vals.dtype, device=vals.device)
+    v = vals.reshape(*lead, g, 2, N)
+    p = idx.reshape(*lead, g, 2, N).long()
+    r = torch.arange(4, device=vals.device)[:, None]
+    dense = torch.zeros((*lead, g, 4, N), dtype=vals.dtype,
+                        device=vals.device)
     for j in range(2):
-        dense = dense + torch.where(p[:, j:j + 1] == r, v[:, j:j + 1], 0)
-    return dense.reshape(g * 4, N)
+        dense = dense + torch.where(p[..., j:j + 1, :] == r,
+                                    v[..., j:j + 1, :], 0)
+    return dense.reshape(*lead, g * 4, N)
 
 
 def nm_matmul_ref(x: torch.Tensor, vals: torch.Tensor,

@@ -11,10 +11,13 @@ their slices):
   same masks masked-dense, for A/B checks; ``--idx-bits 8`` stores the
   int8 index plane).
 
-Runs on the card; ``--device cpu`` runs the plain CPU path.
+Runs on the card; ``--device cpu`` runs the plain CPU path.  Any ported
+arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --smoke --device cpu
 """
 from __future__ import annotations
 

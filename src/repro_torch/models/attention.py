@@ -1,6 +1,7 @@
-"""Attention: GQA + RoPE.  Port of ``repro.models.attention`` for the
-``attn`` kind (global causal attention; windows, softcap, QK-norm and MLA
-come with the families that use them).
+"""Attention: GQA + RoPE + sliding window.  Port of
+``repro.models.attention`` for the ``attn`` and ``local`` kinds (global and
+sliding-window causal attention; softcap, QK-norm and MLA come with the
+families that use them).
 
 Two execution paths, both plain torch as in the reference, which leaves
 them to XLA:
@@ -10,7 +11,8 @@ them to XLA:
   mask; kv blocks with a running (m, l, acc) state), f32 logits and
   accumulator, probabilities rounded to the value dtype before PV.
 * :func:`decode_attend`   - one query per row against the KV ring, with
-  per-row positions.  It rounds ``p / l`` to the cache dtype (bf16) before
+  per-row positions; a windowed layer's ring holds min(capacity, window)
+  slots.  It rounds ``p / l`` to the cache dtype (bf16) before
   PV, as the reference's ``decode_attend`` does (the TPU ``flash_decode``
   kernel keeps f32 probabilities; serving does not call it).
 
@@ -35,9 +37,14 @@ NEG_INF = -1e30
 # Flash attention (forward only)
 # ---------------------------------------------------------------------------
 
-def _causal_bias(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
-    """Additive causal mask bias (0 or NEG_INF). qpos: (Sq,), kpos: (Sk,)."""
-    return torch.where(kpos[None, :] <= qpos[:, None], 0.0, NEG_INF)
+def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, *,
+               window: int = 0) -> torch.Tensor:
+    """Additive causal (and sliding-window) mask bias, 0 or NEG_INF.
+    qpos: (Sq,), kpos: (Sk,)."""
+    ok = kpos[None, :] <= qpos[:, None]
+    if window:
+        ok &= qpos[:, None] - kpos[None, :] < window
+    return torch.where(ok, 0.0, NEG_INF)
 
 
 def _qk(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -45,7 +52,7 @@ def _qk(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
 
 
-def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block):
+def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window):
     """One query block vs all (needed) kv blocks -> normalized f32 output."""
     B, Sq, K, G, _ = q_blk.shape
     Dv = v.shape[-1]
@@ -57,7 +64,7 @@ def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block):
         sl = slice(ikv * kv_block, (ikv + 1) * kv_block)
         kpos = ikv * kv_block + torch.arange(kv_block, device=dev)
         s = _qk(q_blk, k[:, sl], scale)
-        s = s + _causal_bias(qpos, kpos)[None, None, None]
+        s = s + _mask_bias(qpos, kpos, window=window)[None, None, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -69,9 +76,11 @@ def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block):
     return acc / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
 
 
-def flash_attention(q, k, v, *, scale=None, q_block=None, kv_block=None):
-    """Causal attention.  q: (B,Sq,H,D) or (B,Sq,K,G,D); k,v: (B,Sk,K,D).
-    Returns (B,Sq,H,Dv) (or grouped) in q.dtype."""
+def flash_attention(q, k, v, *, window=0, scale=None, q_block=None,
+                    kv_block=None):
+    """Causal attention, over the last ``window`` positions when window > 0.
+    q: (B,Sq,H,D) or (B,Sq,K,G,D); k,v: (B,Sk,K,D).  Returns (B,Sq,H,Dv)
+    (or grouped) in q.dtype."""
     squeeze = q.dim() == 4
     if squeeze:
         B, Sq, H, D = q.shape
@@ -92,7 +101,7 @@ def flash_attention(q, k, v, *, scale=None, q_block=None, kv_block=None):
         n = -(-hi // kv_block) * kv_block
         outs.append(_flash_fwd_block(
             q[:, iq * q_block:(iq + 1) * q_block], k[:, :n], v[:, :n],
-            qpos=qpos, scale=scale, kv_block=kv_block))
+            qpos=qpos, scale=scale, kv_block=kv_block, window=window))
     out = torch.cat(outs, dim=1).to(q.dtype)
     return out.reshape(B, Sq, K * G, v.shape[-1]) if squeeze else out
 
@@ -123,9 +132,11 @@ def make_kv_cache(batch: int, capacity: int, num_kv: int, head_dim: int, *,
 def attn_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
                     num_heads: int, num_kv: int, head_dim: int,
                     rope_theta: float = 1e4, use_rope: bool = True,
-                    scale: float | None = None, cache_capacity: int = 0,
+                    window: int = 0, scale: float | None = None,
+                    cache_capacity: int = 0,
                     ) -> tuple[torch.Tensor, PyTree | None]:
-    """Prefill path. Returns (y, kv_cache or None)."""
+    """Prefill path. Returns (y, kv_cache or None); a windowed layer's
+    cache ring holds min(cache_capacity, window) slots."""
     B, S, _ = x.shape
     q = cm.dense(p["wq"], x).reshape(B, S, num_heads, head_dim)
     k = cm.dense(p["wk"], x).reshape(B, S, num_kv, head_dim)
@@ -133,12 +144,12 @@ def attn_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
     if use_rope:
         q = cm.rope(q, positions, theta=rope_theta)
         k = cm.rope(k, positions, theta=rope_theta)
-    o = flash_attention(q, k, v, scale=scale)
+    o = flash_attention(q, k, v, window=window, scale=scale)
     y = cm.dense(p["wo"], o.reshape(B, S, num_heads * head_dim))
     cache = None
     if cache_capacity:
-        cache = {"k": _ring_store(k, cache_capacity),
-                 "v": _ring_store(v, cache_capacity)}
+        C = min(cache_capacity, window) if window else cache_capacity
+        cache = {"k": _ring_store(k, C), "v": _ring_store(v, C)}
     return y, cache
 
 
@@ -172,12 +183,12 @@ def ring_positions(t: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.where(p >= 0, p, tt + 1 + capacity)
 
 
-def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None):
+def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0):
     """One-token attention against a cache.
 
     q: (B, H, D); cache_k/v: (B, C, K, D); kpos: position of each slot,
     (C,) or (B, C); t: current position, scalar or (B,).  Valid slots:
-    kpos <= t.
+    kpos <= t, and t - kpos < window when window > 0.
     """
     B, H, D = q.shape
     K = cache_k.shape[2]
@@ -187,7 +198,10 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None):
     kb = kpos if kpos.dim() == 2 else kpos[None]             # (1|B, C)
     tq = t.to(torch.int32)
     tb = tq[:, None] if tq.dim() == 1 else tq                # (B, 1) | ()
-    s = torch.where((kb <= tb)[:, None, None, :], s, NEG_INF)
+    ok = kb <= tb
+    if window:
+        ok &= tb - kb < window
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -199,7 +213,8 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None):
 def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
                       t: torch.Tensor, *, num_heads: int, num_kv: int,
                       head_dim: int, rope_theta: float = 1e4,
-                      use_rope: bool = True, scale: float | None = None,
+                      use_rope: bool = True, window: int = 0,
+                      scale: float | None = None,
                       ) -> tuple[torch.Tensor, PyTree]:
     """Decode one token per row.  x: (B, 1, d); t: (B,) per-row positions.
 
@@ -222,6 +237,7 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
     cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     kpos = ring_positions(t, C)
-    o = decode_attend(q[:, 0], cache["k"], cache["v"], kpos, t, scale=scale)
+    o = decode_attend(q[:, 0], cache["k"], cache["v"], kpos, t, scale=scale,
+                      window=window)
     y = cm.dense(p["wo"], o.reshape(B, 1, num_heads * head_dim))
     return y, cache

@@ -83,6 +83,39 @@ def dense(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     return x @ k.to(COMPUTE_DTYPE)
 
 
+def expert_dense(params: PyTree, buf: torch.Tensor) -> torch.Tensor:
+    """Expert-banked FFN matmul: MoE dispatch buffer (G, E, C, d_in) against
+    an (E, d_in, d_out) kernel -> (G, E, C, d_out).
+
+    Compressed banks run the hand-written ``nm_matmul_expert``; dense banks
+    one ``torch.bmm`` over the same per-expert rows, the op the kernel's
+    plain version runs, so masked-dense and compressed serving agree bit for
+    bit on the CPU.
+    """
+    from repro_torch.sparse import apply as sparse_apply
+    k = params["kernel"]
+    if isinstance(k, SparseTensor):
+        return sparse_apply.sparse_moe_dense(k, buf)
+    y = torch.bmm(sparse_apply.per_expert(buf), k.to(COMPUTE_DTYPE))
+    return sparse_apply.from_per_expert(y, buf.shape[0])
+
+
+def expert_dense_pair(p_up: PyTree, p_gate: PyTree, buf: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Up + gate expert banks over one dispatch buffer.  On one device the
+    reference runs them as two :func:`expert_dense` calls; so does this
+    (the fused K-sharded pair comes with tensor parallelism)."""
+    return expert_dense(p_up, buf), expert_dense(p_gate, buf)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: ``x * logistic(x)``
+    with ``logistic(x) = 1 / (1 + exp(-x))``, each op rounded to x.dtype.
+    ``F.silu`` rounds once, and so differs from the reference in a third
+    of bf16 inputs by an ulp."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

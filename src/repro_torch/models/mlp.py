@@ -6,7 +6,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
@@ -35,7 +34,7 @@ def mlp_apply(p: PyTree, x: torch.Tensor, *, act: str = "silu"
     else:
         h = cm.dense(p["up"], x)
         g = cm.dense(p["gate"], x)
-    return cm.dense(p["down"], F.silu(g) * h)
+    return cm.dense(p["down"], cm.silu(g) * h)
 
 
 def _both_sparse(a: PyTree, b: PyTree) -> bool:

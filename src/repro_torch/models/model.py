@@ -6,7 +6,8 @@ the reference; per-layer parameters are stacked on a leading "layers" axis
 ``SparseTensor``s pair one-to-one with the reference's.  A Python loop over
 the layers slices ``[l]`` where the reference runs ``lax.scan``.
 
-Only the dense decoder families with global attention (llama) are ported:
+Ported: the decoder families built from the ``attn``, ``local``, ``moe``
+and ``moe_local`` kinds (llama, mixtral), tied or untied embeddings;
 :func:`check_supported` names what is missing for any other config.
 """
 from __future__ import annotations
@@ -30,13 +31,13 @@ PyTree = Any
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for config features this package does not port yet."""
     missing = [name for name, on in (
-        ("layer kinds other than attn", set(cfg.layer_kinds) - {"attn"}),
-        ("sliding_window", cfg.sliding_window),
+        (f"layer kinds other than {', '.join(blk.KINDS)}",
+         set(cfg.layer_kinds) - set(blk.KINDS)),
+        ("shared experts", cfg.num_shared_experts),
         ("attn_softcap", cfg.attn_softcap),
         ("final_softcap", cfg.final_softcap),
         ("qk_norm", cfg.qk_norm),
         ("sandwich_norm", cfg.sandwich_norm),
-        ("untied embeddings", not cfg.tie_embeddings),
         ("scale_embed", cfg.scale_embed),
         ("norm other than rmsnorm", cfg.norm != "rmsnorm"),
         ("encoder-decoder", cfg.is_encoder_decoder),
@@ -71,6 +72,9 @@ def _build(cfg: ModelConfig, b: Builder) -> PyTree:
          for j, kind in enumerate(pattern)}
         for pattern, repeats in make_stages(cfg)]
     p["final_norm"] = blk._norm_init(b, cfg)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = cm.dense_init(b, cfg.d_model, cfg.vocab_size,
+                                     ("embed", "vocab"))
     return p
 
 
@@ -98,12 +102,15 @@ def param_shapes(cfg: ModelConfig) -> PyTree:
 
 
 def serving_params(params: PyTree) -> PyTree:
-    """The tree with its embedding table and dense kernels cast to the
-    compute dtype once.  The forward casts them to bf16 on every call, as
-    the reference does; casting ahead gives the same values without
-    re-reading the f32 copies each step.  Norm scales stay f32."""
+    """The tree with its embedding table and dense kernels (expert banks
+    and ``lm_head`` included) cast to the compute dtype once.  The forward
+    casts them to bf16 on every call, as the reference does; casting ahead
+    gives the same values without re-reading the f32 copies each step.
+    Norm scales and the MoE router stay f32: the reference computes the
+    router logits in f32."""
     def leaf(path: str, x):
         if (isinstance(x, torch.Tensor) and x.is_floating_point()
+                and "['router']" not in path
                 and (path.endswith("['kernel']")
                      or path.endswith("['table']"))):
             return x.to(cm.COMPUTE_DTYPE)
@@ -127,12 +134,14 @@ def _tokens(params: PyTree, tokens) -> torch.Tensor:
 
 
 def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int):
-    """Embed + every layer: (hidden states before the final norm, caches)."""
+    """Embed + every layer: (hidden states before the final norm, summed
+    MoE aux loss, caches)."""
     tokens = _tokens(params, tokens)
     x = cm.embed_lookup(params["embed"], tokens)
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
     ctx = Ctx(positions=pos, cache_capacity=cache_capacity)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for (pattern, repeats), sp in zip(make_stages(cfg), params["stages"],
                                       strict=True):
@@ -141,22 +150,29 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int):
             lp = _layer(sp, i)
             out = {}
             for j, kind in enumerate(pattern):
-                x, out[str(j)] = blk.block_apply_full(kind, cfg, lp[str(j)],
-                                                      x, ctx)
+                x, aux, out[str(j)] = blk.block_apply_full(
+                    kind, cfg, lp[str(j)], x, ctx)
+                if aux is not None:
+                    aux_total = aux_total + aux
             per_layer.append(out)
         caches.append(_stack(per_layer) if cache_capacity else None)
-    return x, caches
+    return x, aux_total, caches
+
+
+def _unembed(cfg: ModelConfig, params: PyTree, x: torch.Tensor):
+    """Logits (f32): the tied table, or the ``lm_head`` dense kernel."""
+    if cfg.tie_embeddings:
+        return cm.unembed(params["embed"], x)
+    return cm.dense(params["lm_head"], x).float()
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: dict, *,
             cache_capacity: int = 0):
-    """Full forward. Returns (logits fp32 (B, S, V), aux, caches); aux, the
-    MoE load-balancing loss in the reference, is 0 for these dense
-    models."""
-    x, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
+    """Full forward. Returns (logits fp32 (B, S, V), aux, caches); aux is
+    the MoE load-balancing loss summed over layers (0 without MoE)."""
+    x, aux, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
     x = blk._norm(cfg, params["final_norm"], x)
-    logits = cm.unembed(params["embed"], x)
-    return logits, torch.zeros((), device=logits.device), caches
+    return _unembed(cfg, params, x), aux, caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
@@ -173,9 +189,9 @@ def prefill(cfg: ModelConfig, params: PyTree, batch: dict, *,
 
     Only the last position goes through the final norm and unembedding
     (both are row-wise, so the values are the reference's)."""
-    x, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
+    x, _, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
     x = blk._norm(cfg, params["final_norm"], x[:, -1:])
-    return cm.unembed(params["embed"], x)[:, 0], caches
+    return _unembed(cfg, params, x)[:, 0], caches
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t):
@@ -198,4 +214,4 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t):
                 x, _ = blk.block_apply_decode(kind, cfg, lp[str(j)], x,
                                               lc[str(j)], t)
     x = blk._norm(cfg, params["final_norm"], x)
-    return cm.unembed(params["embed"], x)[:, 0], caches
+    return _unembed(cfg, params, x)[:, 0], caches

@@ -11,9 +11,11 @@ max_tokens or on emitting the eos token and are reused by queued requests.
 
 Weights may be dense or 2:4-compressed (``sparse.apply.sparsify_params``):
 ``models.common.dense`` dispatches per leaf, so the same engine serves
-both, every compressed projection through the ``nm_matmul`` kernel on the
-card.  ``ServeEngine.from_artifact`` builds the sparse engine straight from
-a saved mask bank.  Request validation happens at ``submit()``: an empty
+both, every compressed projection through the ``nm_matmul`` kernel and
+every compressed MoE expert bank through ``nm_matmul_expert`` on the card.
+Caches are per layer kind: a sliding-window layer keeps a ring of
+min(capacity, window) slots.  ``ServeEngine.from_artifact`` builds the
+sparse engine straight from a saved mask bank.  Request validation happens at ``submit()``: an empty
 prompt, a prompt at or over cache capacity, or ``max_tokens <= 0`` never
 claims a slot.  Caches are updated in place.
 """
@@ -30,6 +32,14 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+
+# layer kinds whose prompt padding is invisible: position-masked attention
+# rings, where a junk slot past the prompt is masked until overwritten.  MoE
+# kinds are not: padding tokens would route, take expert capacity (C grows
+# with the token count) and change which real tokens are dropped, so their
+# prefill runs at the exact prompt length, as in the reference.
+_PAD_SAFE_KINDS = {"attn", "local"}
+
 
 @dataclasses.dataclass
 class Request:
@@ -101,6 +111,11 @@ class ServeEngine:
         self.queue: collections.deque[Request] = collections.deque()
         self._done_unslotted: list[Request] = []  # finished without a slot
         self._next_rid = 0
+        self._pad_prefill = set(cfg.layer_kinds) <= _PAD_SAFE_KINDS
+        # sliding-window layers cap their ring at min(capacity, window), so
+        # a padded bucket must fit that ring
+        self._min_ring = (min(capacity, cfg.sliding_window)
+                          if cfg.sliding_window else capacity)
         self.fns = EngineFns(cfg, capacity, device)
         # work counters: prefill forwards run and fused decode steps taken
         self.prefill_calls = 0
@@ -180,9 +195,13 @@ class ServeEngine:
 
     def _prefill_bucket(self, n: int) -> int:
         """Padded prompt length: the next power of two (at least 8), capped
-        at the ring.  Sound for position-masked attention rings, the only
-        cache kind ported."""
-        return min(max(8, 1 << (n - 1).bit_length()), self.capacity)
+        at the capacity; the exact length where padding is not invisible
+        (MoE kinds) or the bucket would overrun the smallest ring (it would
+        evict real in-window tokens)."""
+        if not self._pad_prefill:
+            return n
+        bucket = min(max(8, 1 << (n - 1).bit_length()), self.capacity)
+        return bucket if bucket <= self._min_ring else n
 
     def _prefill_slot(self, s: int, req: Request) -> None:
         """Prefill all prompt tokens but the last into slot s's cache rows.

@@ -1,12 +1,15 @@
 """Sparse execution: route ``SparseTensor`` kernels through ``nm_matmul``.
 
-Port of ``repro.sparse.apply`` (single device; the MoE expert-bank and
-tensor-parallel routes come with those slices).  ``models.common.dense``
-dispatches on leaf type, so a params tree whose prunable kernels
-:func:`sparsify_params` replaced serves through the compressed kernel while
-every dense leaf keeps its matmul.  The leaf's ``kernel_layout`` decides
-what the kernel reads: packed 2-bit planes (K % 8 == 0) as stored, padded
-or int8 storage as an int8 plane unpacked at dispatch.
+Port of ``repro.sparse.apply`` (single device; the tensor-parallel routes
+come with that slice).  ``models.common.dense`` dispatches on leaf type, so
+a params tree whose prunable kernels :func:`sparsify_params` replaced
+serves through the compressed kernel while every dense leaf keeps its
+matmul.  MoE expert banks (E, d_in, d_out) dispatch the same way through
+``models.common.expert_dense`` -> :func:`sparse_moe_dense`, which runs the
+dispatch buffer through ``nm_matmul_expert``, one launch for every expert.
+The leaf's ``kernel_layout`` decides what the kernel reads: packed 2-bit
+planes (K % 8 == 0) as stored, padded or int8 storage as an int8 plane
+unpacked at dispatch.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from typing import Any
 import torch
 
 from repro_torch import tree
-from repro_torch.kernels.nm_spmm import LAYOUT_PACKED2, nm_matmul
+from repro_torch.kernels.nm_spmm import (LAYOUT_PACKED2, nm_matmul,
+                                         nm_matmul_expert)
 from repro_torch.sparse import pack as pack_mod
 from repro_torch.sparse.formats import SparseTensor
 
@@ -39,6 +43,39 @@ def sparse_dense(st: SparseTensor, x: torch.Tensor) -> torch.Tensor:
     idx, layout = _kernel_operand(st)
     y = nm_matmul(x.reshape(-1, k), st.vals.to(x.dtype), idx, layout=layout)
     return y.reshape(*lead, st.shape[-1])
+
+
+def per_expert(buf: torch.Tensor) -> torch.Tensor:
+    """MoE dispatch buffer (G, E, C, d) -> per-expert rows (E, G*C, d),
+    contiguous: the operand layout of both expert-bank paths."""
+    G, E, C, d = buf.shape
+    return buf.transpose(0, 1).reshape(E, G * C, d).contiguous()
+
+
+def from_per_expert(y: torch.Tensor, G: int) -> torch.Tensor:
+    """(E, G*C, N) -> (G, E, C, N), the inverse regrouping."""
+    E, GC, N = y.shape
+    return y.reshape(E, G, GC // G, N).transpose(0, 1)
+
+
+def sparse_moe_dense(st: SparseTensor, buf: torch.Tensor) -> torch.Tensor:
+    """MoE dispatch buffer (G, E, C, d) @ compressed expert bank (E, d, N)
+    -> (G, E, C, N) in buf.dtype.
+
+    Tokens regroup per expert to (E, G*C, d) and run through
+    ``nm_matmul_expert``: one launch covers every expert's product.
+    """
+    if st.ndim != 3:
+        raise ValueError("expert banks are (E, K, N); slice stacked "
+                         f"(layers, E, K, N) leaves first (got {st.shape})")
+    G, E, C, d = buf.shape
+    if st.shape[:2] != (E, d):
+        raise ValueError(f"expert bank {st.shape} does not match the "
+                         f"dispatch buffer {tuple(buf.shape)}")
+    idx, layout = _kernel_operand(st)
+    y = nm_matmul_expert(per_expert(buf), st.vals.to(buf.dtype), idx,
+                         layout=layout)
+    return from_per_expert(y, G)
 
 
 def sparse_dense2(st_a: SparseTensor, st_b: SparseTensor, x: torch.Tensor
@@ -72,6 +109,13 @@ def _aligned(params: PyTree, other: PyTree, name: str) -> list:
     return [leaf for _, leaf in flat]
 
 
+def _is_expert_bank(path: str, eff_ndim: int) -> bool:
+    """A 3-D-per-layer MoE expert bank (E, d_in, d_out)?  Keyed on the
+    ``['moe']`` subtree, whose consumer (``moe_apply`` ->
+    :func:`sparse_moe_dense`) dispatches over the leading expert axis."""
+    return eff_ndim == 3 and "['moe']" in path
+
+
 def _is_nm(mask: torch.Tensor, m: int = 4, n: int = 2) -> bool:
     """Exactly n kept per contiguous group of m along the K dim."""
     if mask.shape[-2] % m:
@@ -87,8 +131,9 @@ def sparsify_params(params: PyTree, masks: PyTree, *, axes: PyTree = None,
     """Replace 2:4-maskable kernels with SparseTensor leaves; mask the rest.
 
     A kernel is compressed when its mask is 2:4 along the reduction dim and
-    it is 2-D per layer (``axes``, the ``models.model.param_axes`` tree,
-    marks stacked leaves, whose leading "layers" axis the layer loop slices).
+    it is, per layer, 2-D or a 3-D MoE expert bank (E, d_in, d_out)
+    (``axes``, the ``models.model.param_axes`` tree, marks stacked leaves,
+    whose leading "layers" axis the layer loop slices).
     Other masked leaves become ``W * mask``; None-mask leaves pass through.
     masks/axes must mirror params, or this raises with the first offending
     key path.
@@ -103,7 +148,8 @@ def sparsify_params(params: PyTree, masks: PyTree, *, axes: PyTree = None,
             out[path] = w
             continue
         eff_ndim = w.dim() - (1 if _stacked(ax) else 0)
-        compressible = eff_ndim == 2 and _is_nm(mk)
+        compressible = ((eff_ndim == 2 or _is_expert_bank(path, eff_ndim))
+                        and _is_nm(mk))
         if compressible:
             out[path] = pack_mod.pack_nm(w, mk, idx_bits=idx_bits,
                                          dtype=dtype)

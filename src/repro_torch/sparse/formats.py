@@ -8,12 +8,15 @@ the serving compute dtype plus the in-group positions, either int8
 (``idx_bits=8``: (..., K/2, N)) or packed 4 per byte (``idx_bits=2``:
 (..., ceil(K/8), N) uint8, zero-padded to the byte boundary when
 K % 8 != 0).  Leading dims pass through: a stacked layer kernel keeps its
-"layers" axis, and :meth:`SparseTensor.select` slices one layer out.
+"layers" axis, and :meth:`SparseTensor.select` slices one layer out; an
+MoE expert bank keeps its expert axis, (E, K/2, N) per layer, which
+``nm_matmul_expert`` consumes as is.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.nm_spmm import (LAYOUT_INT8, LAYOUT_PACKED2,
                                          unpack_idx2 as _unpack_idx2)
 
@@ -97,18 +100,7 @@ class SparseTensor:
 
     def to_dense(self) -> torch.Tensor:
         """Decompress to the dense (..., K, N) tensor (masked positions 0)."""
-        vals, idx = self.vals, self.unpacked_idx()
-        *lead, half_k, n = vals.shape
-        g = half_k // 2
-        v = vals.reshape(*lead, g, 2, n)
-        p = idx.reshape(*lead, g, 2, n).long()
-        r = torch.arange(4, device=vals.device)[:, None]
-        dense = torch.zeros((*lead, g, 4, n), dtype=vals.dtype,
-                            device=vals.device)
-        for j in range(2):
-            dense = dense + torch.where(p[..., j:j + 1, :] == r,
-                                        v[..., j:j + 1, :], 0)
-        return dense.reshape(*lead, g * 4, n)
+        return ref.decompress_24(self.vals, self.unpacked_idx())
 
     def __repr__(self):
         return (f"SparseTensor(shape={self.shape}, dtype={self.dtype}, "

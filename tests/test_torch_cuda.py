@@ -17,7 +17,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.nm_prox import nm_mask24
 from repro_torch.kernels.nm_spmm import (LAYOUT_INT8, LAYOUT_PACKED2,
-                                         nm_matmul, nm_matmul_plain)
+                                         nm_matmul, nm_matmul_expert,
+                                         nm_matmul_expert_plain,
+                                         nm_matmul_plain)
 from repro_torch.sparse.formats import _pack_idx2
 
 
@@ -74,6 +76,47 @@ def test_nm_matmul_kernel_matches_plain(cuda_device, layout, mkn):
         want32 = nm_matmul_plain(x, v, plane, layout=layout,
                                  out_dtype=torch.float32)
         torch.testing.assert_close(got32.cpu(), want32, rtol=1e-4, atol=1e-4)
+
+
+# (E, M, K, N): decode (M = 4 slots, 1) and prefill (M = 40, the capacity of
+# one 128-token prompt) rows, ragged N, K % 8 == 4 (int8 only), and a grid
+# small enough to split K
+_EXPERT_CASES = [(layout, emkn)
+                 for emkn in [(8, 4, 256, 130), (8, 1, 512, 64),
+                              (8, 40, 256, 192), (4, 40, 132, 66),
+                              (2, 4, 8192, 64)]
+                 for layout in (LAYOUT_INT8, LAYOUT_PACKED2)
+                 if layout == LAYOUT_INT8 or emkn[2] % 8 == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,emkn", _EXPERT_CASES)
+def test_nm_matmul_expert_kernel_matches_plain(cuda_device, layout, emkn):
+    E, M, K, N = emkn
+    g = torch.Generator().manual_seed(E + M + K + N)
+    comp = [ref.compress_24(torch.randn((K, N), generator=g))
+            for _ in range(E)]
+    vals = torch.stack([v for v, _ in comp])
+    idx = torch.stack([i for _, i in comp])
+    plane = _pack_idx2(idx) if layout == LAYOUT_PACKED2 else idx
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        x = (0.1 * torch.randn((E, M, K), generator=g)).to(dtype)
+        v = vals.to(dtype)
+        dev = [t.to(cuda_device) for t in (x, v, plane)]
+        before = nm_matmul_expert.launches
+        got = nm_matmul_expert(*dev, layout=layout)
+        torch.cuda.synchronize()
+        assert nm_matmul_expert.launches == before + 1
+        torch.testing.assert_close(
+            got.cpu().float(),
+            nm_matmul_expert_plain(x, v, plane, layout=layout).float(),
+            rtol=tol, atol=tol)
+        got32 = nm_matmul_expert(*dev, layout=layout,
+                                 out_dtype=torch.float32)
+        want32 = nm_matmul_expert_plain(x, v, plane, layout=layout,
+                                        out_dtype=torch.float32)
+        torch.testing.assert_close(got32.cpu(), want32, rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """repro_torch stands alone: it imports neither jax nor the JAX package,
-runs its CPU path with both unimportable, and its entry points refuse to
-run silently on the CPU when no card is present."""
+runs its CPU path with both unimportable (llama from the committed bank,
+2:4 mixtral smoke), and its entry points refuse to run silently on the CPU
+when no card is present."""
 import ast
 import os
 import pathlib
@@ -52,6 +53,22 @@ def test_cpu_serve_with_jax_and_repro_unimportable():
         rids = [eng.submit([1, 2, 3, 4], 3), eng.submit([5, 6], 2)]
         out = eng.run()
         assert [len(out[r]) for r in rids] == [3, 2], out
+        # 2:4-compressed mixtral smoke: MoE expert banks, sliding window,
+        # untied lm_head
+        from repro_torch import tree
+        from repro_torch.core.calibrate import baseline_masks
+        from repro_torch.sparse.apply import sparsify_params
+        cfg = get_smoke_config("mixtral-8x22b")
+        params = M.init_params(cfg, 0, device="cpu")
+        masks = baseline_masks("magnitude", params,
+                               tree.tree_map(lambda _: None, params), 0.5,
+                               mode="nm")
+        params = sparsify_params(params, masks, axes=M.param_axes(cfg),
+                                 idx_bits=2)
+        eng = ServeEngine(cfg, params, slots=2, capacity=24, device="cpu")
+        rids = [eng.submit(list(range(1, 21)), 4), eng.submit([7, 8], 3)]
+        out = eng.run()
+        assert [len(out[r]) for r in rids] == [4, 3], out
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
