@@ -14,7 +14,10 @@ result line):
               each main path's shapes, with its device time (CUDA graph of
               back-to-back launches over enough weight bytes to defeat the
               50 MB L2), the plain version's, one PyTorch library call's,
-              and the least time the card could take (bytes or operations).
+              and the least time the card could take (bytes or operations);
+              the calibration kernels (prox24, saliency_fused_step) at every
+              prunable leaf of full-width and smoke llama3.2-1b, bit for
+              bit.
 4. llama    - the first main path at full width: llama3.2-1b (16 layers,
               d 2048) from random weights (``torch.Generator`` seed 0), 2:4
               masks by ``baseline_masks("magnitude", mode="nm")`` through
@@ -27,10 +30,23 @@ result line):
               2 layers (memory) and nothing else, through the same phase,
               every expert bank through nm_matmul_expert; the routing of
               compressed and masked-dense compared too.
-6. bank     - the committed mask bank at smoke width through
+6. calibrate - the calibration main path at full width: llama3.2-1b from
+              random weights (seed 0), the launcher's defaults (wanda, 2:4,
+              median-normalised scores, 30 steps, 8 calibration batches of
+              4 x 64 tokens, stats over the first 4) through
+              ``calibrate_to_bank``, then
+              ``MaskBank.load``, ``masks_at`` (nm_mask24), ``sparse_params``
+              and ``ServeEngine`` serving 2 requests x 16 tokens through
+              nm_matmul; launch counts asserted; the first call at every
+              distinct kernel signature of the run held against its plain
+              version; per-step time and a profiler breakdown; peak memory.
+              Then the same calibration at smoke width on the card and on
+              the CPU, Gamma/V within the CPU tests' tolerance and masks
+              equal but for counted near-ties.
+7. bank     - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-7. summary  - a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+8. summary  - a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
               line last.
 
 It imports nothing of jax or of the JAX package ``repro``.
@@ -39,8 +55,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -319,6 +337,166 @@ def phase_nm_matmul_expert(torch, dev) -> dict:
         del vals, idx, dense, plane
         torch.cuda.empty_cache()
     return {"max_abs_err": max_err, **_layer_totals(rows, EXPERT_SHAPES)}
+
+
+# the calibration path's search constants (PruneConfig defaults)
+PROX_LAM, V_LR, LAM = 1e-2, 0.1, 1e-3
+PROX_OPS = 11 * 12         # f32 ops per element: 11 per iteration, 12 iters
+FUSED_OPS = 10             # wanda with the median divisor
+
+
+def calib_leaves(cfg) -> dict:
+    """The prunable leaves of ``cfg``: name -> (L, K, N).  The search
+    kernels take each as its (L*K, N) view."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.prunable import is_prunable_path
+    from repro_torch.models import model as M
+    out = {}
+    for path, shp in tree.flatten_with_path(M.param_shapes(cfg)):
+        if is_prunable_path(path, torch.empty(shp, device="meta")):
+            out[path.split("']['")[-2]] = tuple(shp)
+    return out
+
+
+def _with_zeros(w):
+    """Exact zeros and signed zeros in every group position."""
+    w[0::13] = 0.0
+    w[1::17] = -0.0
+    return w
+
+
+def _per_step(rows: list, leaves: dict) -> dict:
+    """One search step: every prunable leaf once, at its shape's row."""
+    by = {r["LKN"]: r for r in rows}
+    tot = {k: sum(by[lkn][k] for lkn in leaves.values())
+           for k in ("ms", "plain_ms", "bound_ms")}
+    kinds = {by[lkn]["bound_by"] for lkn in leaves.values()}
+    return {**tot, "bound_by": kinds.pop() if len(kinds) == 1
+            else "operations", "library_ms": None}
+
+
+def phase_prox24(torch, dev, paths: dict) -> dict:
+    """prox24 in place (as the search runs it) against ref.prox24_ref, bit
+    for bit, at each leaf shape of each calibration path."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.nm_prox import prox24
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    rows, out = [], {}
+    for path, leaves in paths.items():
+        path_rows = []
+        for L, K, N in sorted(set(leaves.values())):
+            R = L * K
+            w = _with_zeros(torch.randn((R, N), generator=g, device=dev)
+                            * K ** -0.5)
+            want = ref.prox24_ref(w, PROX_LAM)
+            got = w.clone()
+            prox24(got, lam=PROX_LAM, out=got)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want) and torch.equal(
+                torch.signbit(got), torch.signbit(want)),
+                f"prox24 ({R}, {N}): differs from its plain version (max "
+                f"err {err})")
+            del want, got
+            copies = max(1, -(-2 * L2_BYTES // (R * N * 4)))
+            ws = [w.clone() for _ in range(copies)]
+            ms = device_ms(torch, lambda i: prox24(ws[i], lam=PROX_LAM,
+                                                   out=ws[i]), copies)
+            plain = device_ms(torch, lambda i: ref.prox24_ref(
+                ws[i], PROX_LAM), copies)
+            del ws, w
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound(R * N * 8, R * N * PROX_OPS, F32_OPS_PER_S)
+            path_rows.append({"LKN": (L, K, N), "max_abs_err": err,
+                              "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                              "bound_by": b_by})
+            print(f"  prox24 f32 ({R:6d}, {N:5d}) in place  bit-identical  "
+                  f"kernel {ms:8.4f} ms  plain {plain:8.4f} ms  bound "
+                  f"{b_ms:7.4f} ms ({b_by})  {b_ms / ms:6.1%} of bound")
+        out[path] = _per_step(path_rows, leaves)
+        rows += path_rows
+        print(f"  prox24, one {path} search step (7 leaves): kernel "
+              f"{out[path]['ms']:.4f} ms, plain {out[path]['plain_ms']:.4f}"
+              f" ms, bound {out[path]['bound_ms']:.4f} ms; no single "
+              "PyTorch call computes it (the plain version is the unfused "
+              "torch chain)")
+    first = next(iter(paths))
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), **out[first],
+            "by_path": out}
+
+
+def phase_saliency(torch, dev, paths: dict) -> dict:
+    """saliency_fused_step against its plain version, bit for bit, at each
+    leaf shape of each calibration path: wanda, magnitude and ria, with
+    and without the median divisor; timed as the search runs it (wanda,
+    divisor, in place over V and Gamma)."""
+    from repro_torch.core.metrics import median_element
+    from repro_torch.kernels.saliency_fuse import (saliency_fused_step,
+                                                   saliency_fused_step_plain)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    rows, out = [], {}
+    for path, leaves in paths.items():
+        path_rows = []
+        for L, K, N in sorted(set(leaves.values())):
+            R = L * K
+            w = _with_zeros(torch.randn((R, N), generator=g, device=dev)
+                            * K ** -0.5)
+            a = torch.rand((R,), generator=g, device=dev) * 8 + 0.05
+            v = torch.randn((R, N), generator=g, device=dev) * 0.5
+            gam = torch.copysign(torch.clamp_min(v.abs() - LAM, 0.0), v)
+            aw = w.abs().reshape(L, K, N)
+            rowsum, colsum = aw.sum(-1).reshape(R), aw.sum(-2)
+            del aw
+            s_div = median_element(w.abs() * a[:, None]) + 1e-12
+            for metric in ("wanda", "magnitude", "ria"):
+                for div in (s_div, None):
+                    kw = dict(metric=metric, v_lr=V_LR, lam=LAM,
+                              rowsum=rowsum if metric == "ria" else None,
+                              colsum=colsum if metric == "ria" else None,
+                              s_div=div)
+                    am = None if metric == "magnitude" else a
+                    want = saliency_fused_step_plain(w, am, gam, v, **kw)
+                    got = saliency_fused_step(w, am, gam, v, **kw)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(x, y) for x, y in zip(got, want))
+                    err = max(float((x - y).abs().max())
+                              for x, y in zip(got, want))
+                    check(same, f"saliency_fused_step {metric} "
+                          f"{'/ median ' if div is not None else ''}({R}, "
+                          f"{N}): differs from its plain version (max err "
+                          f"{err})")
+                    del want, got
+            elem = R * N * 20 + R * 4
+            copies = max(1, -(-2 * L2_BYTES // elem))
+            states = [(v.clone(), gam.clone()) for _ in range(copies)]
+            kw = dict(metric="wanda", v_lr=V_LR, lam=LAM, s_div=s_div)
+            ms = device_ms(torch, lambda i: saliency_fused_step(
+                w, a, states[i][1], states[i][0], inplace=True, **kw),
+                copies)
+            plain = device_ms(torch, lambda i: saliency_fused_step_plain(
+                w, a, states[i][1], states[i][0], **kw), copies)
+            del states, w, v, gam, a, rowsum, colsum
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound(elem, R * N * FUSED_OPS, F32_OPS_PER_S)
+            path_rows.append({"LKN": (L, K, N), "max_abs_err": 0.0,
+                              "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                              "bound_by": b_by})
+            print(f"  saliency_fused_step ({R:6d}, {N:5d}) 6 variants "
+                  f"bit-identical; wanda / median in place: kernel {ms:8.4f}"
+                  f" ms  plain {plain:8.4f} ms  bound {b_ms:7.4f} ms "
+                  f"({b_by})  {b_ms / ms:6.1%} of bound")
+        out[path] = _per_step(path_rows, leaves)
+        rows += path_rows
+        print(f"  saliency_fused_step, one {path} search step (7 leaves): "
+              f"kernel {out[path]['ms']:.4f} ms, plain "
+              f"{out[path]['plain_ms']:.4f} ms, bound "
+              f"{out[path]['bound_ms']:.4f} ms; no single PyTorch call "
+              "computes it (the plain version is the unfused torch chain)")
+    first = next(iter(paths))
+    return {"max_abs_err": 0.0, **out[first], "by_path": out}
 
 
 # ---------------------------------------------------------------------------
@@ -635,7 +813,424 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the committed bank, card against CPU
+# Phase 6: calibration at full width, then serving from its bank
+# ---------------------------------------------------------------------------
+
+CALIB_STEPS = 30            # the launcher's default; cut steps, not widths
+SEARCH_KERNELS = ("prox24", "saliency_fused_step")
+# the CPU tests' tolerance for a calibration held against another one that
+# computes its own stats: Gamma/V within BF16_ULP (|V_ref| + lam) + 1e-4
+# max|V_ref| elementwise (tests/test_torch_calibrate.py)
+BF16_ULP = 2.0 ** -8
+
+
+def _banks_dir():
+    d = ROOT / "build" / "chip_smoke_banks"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+@contextlib.contextmanager
+def search_calls_checked(torch, seen: dict):
+    """While open, the first call at every distinct signature of the two
+    search kernels (in ``core/mirror.py``) is held against its plain
+    version on a copy of the same inputs, bit for bit, before the kernel
+    runs on them in place; every call still launches and counts."""
+    from repro_torch.core import mirror
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.saliency_fuse import saliency_fused_step_plain
+    saved = {name: getattr(mirror, name) for name in SEARCH_KERNELS}
+
+    def prox(w, *, lam, out=None, **kw):
+        key = ("prox24", tuple(w.shape), w.dtype, out is w)
+        if key not in seen:
+            want = ref.prox24_ref(w, lam, **kw)
+            got = saved["prox24"](w, lam=lam, out=out, **kw)
+            torch.cuda.synchronize()
+            seen[key] = float((got - want).abs().max())
+            check(torch.equal(got, want) and torch.equal(
+                torch.signbit(got), torch.signbit(want)),
+                f"prox24 at {key} on the calibration path differs from its "
+                f"plain version (max err {seen[key]})")
+            return got
+        return saved["prox24"](w, lam=lam, out=out, **kw)
+
+    def fused(w, a, gamma, v, *, inplace=False, **kw):
+        key = ("saliency_fused_step", tuple(w.shape), w.dtype,
+               kw.get("metric"), kw.get("s_div") is not None, inplace)
+        if key not in seen:
+            want = saliency_fused_step_plain(w, a, gamma, v, **kw)
+            got = saved["saliency_fused_step"](w, a, gamma, v,
+                                               inplace=inplace, **kw)
+            torch.cuda.synchronize()
+            seen[key] = max(float((x - y).abs().max())
+                            for x, y in zip(got, want))
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"saliency_fused_step at {key} on the calibration path "
+                  f"differs from its plain version (max err {seen[key]})")
+            return got
+        return saved["saliency_fused_step"](w, a, gamma, v, inplace=inplace,
+                                            **kw)
+
+    mirror.prox24, mirror.saliency_fused_step = prox, fused
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(mirror, name, fn)
+
+
+@contextlib.contextmanager
+def timed_steps(torch, times: list):
+    """Each ``mirror.search_step`` fenced and timed on the host clock."""
+    from repro_torch.core import mirror
+    step = mirror.search_step
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    mirror.search_step = timed
+    try:
+        yield times
+    finally:
+        mirror.search_step = step
+
+
+def _bucket(name: str) -> str:
+    n = name.lower()
+    if "prox24" in n:
+        return "prox24"
+    if "saliency_fuse" in n:
+        return "fused step"
+    if any(k in n for k in ("topk", "radix", "kthvalue", "sort", "blockwise")):
+        return "median selection (topk)"
+    if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90_",
+                            "cublas")):
+        return "matmuls (forward + backward)"
+    return "other (elementwise, reductions, copies)"
+
+
+# where a search step's time goes: functions of the step, each timed
+# exclusive of the others nested in it, fenced with a synchronize
+STEP_PARTS = (("forward + backward", "mirror", "_task_value_and_grad"),
+              ("alignment gradient", "mirror", "_align_leaf"),
+              ("median selection", "metrics", "median_element"),
+              ("prox24", "mirror", "prox24"),
+              ("fused step", "mirror", "saliency_fused_step"))
+
+
+@contextlib.contextmanager
+def step_parts(torch, acc: dict):
+    from repro_torch.core import metrics, mirror
+    mods = {"mirror": mirror, "metrics": metrics}
+    saved = [(mods[m], fn, getattr(mods[m], fn)) for _, m, fn in STEP_PARTS]
+    stack = []
+
+    def timed(label, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stack.append(0.0)
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            inner = stack.pop()
+            acc[label] = acc.get(label, 0.0) + dt - inner
+            if stack:
+                stack[-1] += dt
+            return out
+        return call
+
+    for (label, _, _), (mod, name, fn) in zip(STEP_PARTS, saved):
+        setattr(mod, name, timed(label, fn))
+    try:
+        yield acc
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profile_steps(torch, cfg, pcfg, params0, stats, batch, n: int) -> dict:
+    """Over ``n`` more search steps from a fresh state: the wall time of
+    each part of a step (fenced, exclusive), then, over another ``n``
+    under the profiler, the kernels' device time by kind."""
+    from functools import partial
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.core import mirror
+    from repro_torch.core.metrics import median_element
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.optim.losses import lm_loss
+    state = mirror.init_search(params0, 17)
+    prunable = prunable_map(params0)
+    loss_fn = partial(lm_loss, cfg)
+
+    def steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mirror.search_step(pcfg, loss_fn, state, batch, stats, prunable)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    steps()                                             # warm-up
+    parts = {}
+    with step_parts(torch, parts):
+        fenced = steps()
+    parts = {k: v / n * 1e3 for k, v in parts.items()}
+    parts["other"] = fenced - sum(parts.values())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = steps()
+    # the median selection: what topk costs against a full sort and
+    # kthvalue, on the largest leaf's scores
+    path, w = max(((p, x) for p, x in tree.flatten_with_path(state.W)
+                   if x.dim() == 3), key=lambda px: px[1].numel())
+    a = dict(tree.flatten_with_path(stats))[path]
+    flat = (w.abs() * a[..., None]).reshape(-1)
+    del state, w
+    n_el = flat.numel()
+    sel = {"topk (median_element)": lambda: median_element(flat),
+           "sort": lambda: torch.sort(flat).values[n_el // 2],
+           "kthvalue": lambda: torch.kthvalue(flat, n_el // 2 + 1).values}
+    median = {}
+    for name, fn in sel.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        med = fn()
+        torch.cuda.synchronize()
+        median[name] = ((time.perf_counter() - t0) * 1e3, float(med))
+        torch.cuda.empty_cache()
+    check(len({v for _, v in median.values()}) == 1,
+          f"median selections disagree: {median}")
+    del flat
+    buckets, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            b = _bucket(e.key)
+            buckets[b] = buckets.get(b, 0.0) + e.self_device_time_total / n
+            launches += e.count
+    return {"fenced_ms": fenced, "parts_ms": parts, "wall_ms": wall,
+            "median_ms": {k: v for k, (v, _) in median.items()},
+            "median_n": n_el,
+            "device_ms": sum(buckets.values()) / 1e3,
+            "buckets_ms": {k: v / 1e3 for k, v in sorted(
+                buckets.items(), key=lambda kv: -kv[1])},
+            "kernels_per_step": launches / n}
+
+
+def phase_calibrate(torch, dev, card: str) -> dict:
+    """The calibration main path at full width, then serving from its bank
+    through nm_matmul."""
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig, get_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.nm_prox import nm_mask24, prox24
+    from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
+    from repro_torch.kernels.saliency_fuse import saliency_fused_step
+    from repro_torch.launch.calibrate import calibrate_to_bank
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sparse.apply import compressed_report
+    from repro_torch.sparse.bank import MaskBank
+
+    cfg = get_config("llama3.2-1b")
+    pcfg = PruneConfig(local_metric="wanda", mode="nm", steps=CALIB_STEPS,
+                       stats_batches=4)
+    calib = batches_for(cfg, n=8, batch=4, seq=64, split="calib")
+    params0 = M.init_params(cfg, 0, device=dev)
+    n_pr = sum(L * K * N for L, K, N in calib_leaves(cfg).values())
+    banks = _banks_dir()
+    print(f"  {cfg.name}: {sum(x.numel() for x in tree.leaves(params0))} "
+          f"params, {n_pr} prunable; {pcfg.local_metric}, {pcfg.mode}, "
+          f"score_norm {pcfg.score_norm}, {pcfg.steps} steps, calib 8 x 4 x "
+          f"64, stats over {pcfg.stats_batches} batches; bank to {banks} "
+          f"({shutil.disk_usage(banks).free / 1e9:.0f} GB free)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path, counted ---------------------------------------------
+    seen, steps = {}, []
+    prox24.launches = saliency_fused_step.launches = 0
+    nm_mask24.launches = nm_matmul.launches = nm_matmul_expert.launches = 0
+    t0 = time.perf_counter()
+    with search_calls_checked(torch, seen), timed_steps(torch, steps):
+        bank = calibrate_to_bank(banks / "full", cfg=cfg, pcfg=pcfg,
+                                 params=params0, calib=calib,
+                                 arch=cfg.name, smoke=False, log_every=10)
+    t_calib = time.perf_counter() - t0
+    peak_search = torch.cuda.max_memory_allocated()
+    stats, meta = bank.stats, bank.meta
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loaded = MaskBank.load(banks / "full", device=dev)
+    t_load = time.perf_counter() - t0
+    check(loaded.meta["steps_run"] == CALIB_STEPS
+          and loaded.meta["checksum"] == meta["checksum"],
+          f"reloaded bank: steps_run {loaded.meta['steps_run']}, checksum "
+          f"{loaded.meta['checksum']} vs {meta['checksum']}")
+    sparse, masks = loaded.sparse_params(params0, with_masks=True)
+    rep = compressed_report(sparse, masks)
+    del loaded, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine(cfg, sparse, slots=2, capacity=64, device=dev)
+    prompts = batches_for(cfg, n=1, batch=2, seq=40, split="valid")[0][
+        "tokens"]
+    rids = [eng.submit(prompts[0, :24], 16), eng.submit(prompts[1, :40], 16)]
+    calls = {}
+    with first_call_per_signature(calls):
+        out = eng.run()
+    torch.cuda.synchronize()
+    launches = {"prox24": prox24.launches,
+                "saliency_fused_step": saliency_fused_step.launches,
+                "nm_mask24": nm_mask24.launches,
+                "nm_matmul": nm_matmul.launches,
+                "nm_matmul_expert": nm_matmul_expert.launches}
+    # -----------------------------------------------------------------------
+    forwards = eng.decode_steps + eng.prefill_calls
+    print(f"  main path launches: {launches} over {CALIB_STEPS} search steps"
+          f", one mask export and {eng.prefill_calls} prefills + "
+          f"{eng.decode_steps} decode steps")
+    for name in SEARCH_KERNELS:
+        check(launches[name] == 7 * CALIB_STEPS,
+              f"{name} launched {launches[name]} times, want "
+              f"{7 * CALIB_STEPS}")
+    check(launches["nm_mask24"] == 7,
+          f"nm_mask24 launched {launches['nm_mask24']} times, want 7")
+    check(launches["nm_matmul"] == 7 * cfg.num_layers * forwards,
+          f"nm_matmul launched {launches['nm_matmul']} times, want "
+          f"{7 * cfg.num_layers * forwards}")
+    check(launches["nm_matmul_expert"] == 0, "nm_matmul_expert launched")
+    check(all(len(out[r]) == 16 for r in rids),
+          f"requests finished with {[len(out[r]) for r in rids]} tokens")
+    print(f"  {len(seen)} distinct search-kernel calls held against their "
+          f"plain versions, all bit-identical: "
+          + "; ".join(f"{k[0]} {k[1]}" for k in sorted(seen)))
+    print("  " + check_path_calls(torch, calls))
+    del calls
+    hist = meta["history"]
+    check(len(hist) == CALIB_STEPS // 10 and all(
+        all(map(lambda x: x == x and abs(x) < float("inf"), h.values()))
+        for h in hist), f"history not finite: {hist}")
+    for h in hist:
+        print("  history: " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                        sorted(h.items())))
+    check(rep["fallback_leaves"] == 0 and rep["ratio"] == 0.5625,
+          f"compression: {rep['fallback_leaves']} fallbacks, ratio "
+          f"{rep['ratio']}")
+    step_ms = statistics.median(steps[1:]) * 1e3
+    print(f"  [{card}] stats {meta['stats_seconds']:.3f} s; search "
+          f"{meta['search_seconds']:.3f} s for {CALIB_STEPS} steps (step 0, "
+          f"with the plain-version checks, {steps[0] * 1e3:.1f} ms; the "
+          f"others median {step_ms:.1f} ms, {min(steps[1:]) * 1e3:.1f}-"
+          f"{max(steps[1:]) * 1e3:.1f}); calibrate_to_bank {t_calib:.1f} s "
+          f"in all (bank save included), reload + checksum {t_load:.1f} s; "
+          f"max memory allocated through the search "
+          f"{peak_search / 2 ** 30:.2f} GiB")
+    del eng, sparse, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- where a search step's time goes (extra steps, not counted) ---------
+    prof = profile_steps(torch, cfg, pcfg, params0,
+                         stats, {"tokens": torch.from_numpy(
+                             calib[0]["tokens"]).to(dev)}, 2)
+    print(f"  2 search steps, each part fenced: {prof['fenced_ms']:.1f} ms "
+          "per step: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                   prof["parts_ms"].items()))
+    print(f"  profiler, 2 search steps: wall {prof['wall_ms']:.1f} ms per "
+          f"step, device {prof['device_ms']:.1f} ms in "
+          f"{prof['kernels_per_step']:.0f} kernels (idle "
+          f"{1 - prof['device_ms'] / prof['wall_ms']:.1%}); kernels by kind,"
+          " ms per step: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       prof["buckets_ms"].items()))
+    print(f"  the exact median of {prof['median_n']} scores (the largest "
+          "leaf), one call each, ms: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in prof["median_ms"].items()))
+    del params0, stats
+    shutil.rmtree(banks / "full", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms,
+            "stats_s": meta["stats_seconds"],
+            "search_s": meta["search_seconds"],
+            "peak_gib": peak_search / 2 ** 30, "profile": prof}
+
+
+def phase_calibrate_card_vs_cpu(torch, dev) -> None:
+    """The same smoke-width calibration on the card and on the CPU."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig, get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.calibrate import calibrate_to_bank
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("llama3.2-1b")
+    pcfg = PruneConfig(local_metric="wanda", mode="nm", steps=CALIB_STEPS,
+                       stats_batches=4)
+    calib = batches_for(cfg, n=8, batch=4, seq=64, split="calib")
+    params = M.init_params(cfg, 0, device="cpu")
+    banks = _banks_dir()
+    on = {}
+    for d in (dev, "cpu"):
+        name = "card" if d is dev else "cpu"
+        on[name] = calibrate_to_bank(
+            banks / name, cfg=cfg, pcfg=pcfg,
+            params=tree.to_device(params, d), calib=calib, arch=cfg.name,
+            smoke=True, log_every=10)
+    card, cpu = on["card"], on["cpu"]
+    worst, ties, n = 0.0, 0, 0
+    masks_card, masks_cpu = card.masks_at(), cpu.masks_at()
+    for (path, vc), (_, vg) in zip(tree.flatten_with_path(cpu.V),
+                                   tree.flatten_with_path(card.V)):
+        if vc is None:
+            continue
+        vref = vc.abs()
+        tol = BF16_ULP * (vref + pcfg.lam) + 1e-4 * vref.max()
+        gc_ = dict(tree.flatten_with_path(cpu.Gamma))[path]
+        gg = dict(tree.flatten_with_path(card.Gamma))[path].cpu()
+        for got, want in ((vg.cpu(), vc), (gg, gc_)):
+            ratio = float(((got - want).abs() / tol).max())
+            check(ratio <= 1, f"card vs CPU calibration at {path}: "
+                  f"{ratio:.3f} of the tolerance")
+            worst = max(worst, ratio)
+        # masks: equal but for near-ties of the CPU run's own scores
+        mk = dict(tree.flatten_with_path(masks_cpu))[path].numpy()
+        mg = dict(tree.flatten_with_path(masks_card))[path].cpu().numpy()
+        *_, K, N = mk.shape
+        diff = (mk != mg).reshape(-1, K // 4, 4, N).any(axis=2)
+        score = gc_.abs().numpy().reshape(-1, K // 4, 4, N)
+        t = tol.numpy().reshape(-1, K // 4, 4, N)
+        kc = mk.reshape(-1, K // 4, 4, N)
+        kg = mg.reshape(-1, K // 4, 4, N)
+        for l, r, c in zip(*np.nonzero(diff)):
+            a, b = kc[l, r, :, c], kg[l, r, :, c]
+            sc = score[l, r, :, c]
+            margin = sc[a & ~b].min() - sc[b & ~a].max()
+            check(margin <= 2 * t[l, r, :, c][a ^ b].max(),
+                  f"card vs CPU masks at {path}[{l}, {r}, {c}]: margin "
+                  f"{margin} is no near-tie")
+            ties += 1
+        n += mk.size // 4
+    print(f"  smoke calibration, card vs CPU ({CALIB_STEPS} steps): Gamma/V "
+          f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
+          f"differ in the 2:4 masks, each a near-tie")
+    shutil.rmtree(banks, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the committed bank, card against CPU
 # ---------------------------------------------------------------------------
 
 def phase_bank(torch, dev) -> None:
@@ -717,7 +1312,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/7] device")
+    print("[1/8] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -729,7 +1324,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/7] build")
+    print("[2/8] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -738,23 +1333,28 @@ def main() -> int:
     print(f"  kernels built ({', '.join(ENTRY_POINTS)}: one nvcc each, in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
 
-    print(f"[3/7] kernels against their plain versions [{card}]")
+    print(f"[3/8] kernels against their plain versions [{card}]")
+    from repro_torch.configs.base import get_config, get_smoke_config
     t0 = time.perf_counter()
     mm = phase_nm_matmul(torch, dev)
     mask = phase_nm_mask24(torch, dev)
     expert = phase_nm_matmul_expert(torch, dev)
+    calib_paths = {"llama3.2-1b": calib_leaves(get_config("llama3.2-1b")),
+                   "llama3.2-1b smoke": calib_leaves(
+                       get_smoke_config("llama3.2-1b"))}
+    prox = phase_prox24(torch, dev, calib_paths)
+    fused = phase_saliency(torch, dev, calib_paths)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
-    from repro_torch.configs.base import get_config
     torch.cuda.empty_cache()
-    print(f"[4/7] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/8] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         {"nm_matmul": 7, "nm_matmul_expert": 0})
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/7] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/8] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -763,12 +1363,21 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[6/7] committed mask bank at smoke width, card vs CPU")
+    print(f"[6/8] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    calib = phase_calibrate(torch, dev, card)
+    phase_calibrate_card_vs_cpu(torch, dev)
+    print(f"  phase took {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.empty_cache()
+    print("[7/8] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
-    print("[7/7] summary")
+    print("[8/8] summary")
     paths = {"llama3.2-1b": llama["launches"],
-             "mixtral-8x22b": moe["launches"]}
+             "mixtral-8x22b": moe["launches"],
+             "calibrate llama3.2-1b": calib["launches"]}
 
     def counts(name):
         by = {k: v[name] for k, v in paths.items() if name in v}
@@ -793,6 +1402,20 @@ def main() -> int:
          "replaces": "src/repro/kernels/nm_prox.py:82",
          **counts("nm_mask24"), **mask,
          "work": "f32 scores (16*2048, 8192) -> bool keep-mask"},
+        {"name": "prox24", "route": "cuda",
+         "source": "src/repro_torch/csrc/prox24.cu",
+         "replaces": "src/repro/kernels/nm_prox.py:46",
+         **counts("prox24"), **prox,
+         "work": "one full-width llama3.2-1b search step: the 7 prunable "
+                 "leaves as (16*K, N) f32 views, in place, lam 1e-2, 12 "
+                 "iterations; by_path: one step on each calibration path"},
+        {"name": "saliency_fused_step", "route": "cuda",
+         "source": "src/repro_torch/csrc/saliency_fuse.cu",
+         "replaces": "src/repro/kernels/saliency_fuse.py:49",
+         **counts("saliency_fused_step"), **fused,
+         "work": "one full-width llama3.2-1b search step: the 7 prunable "
+                 "leaves, wanda scores over the median divisor, V and Gamma "
+                 "f32 in place; by_path: one step on each calibration path"},
     ]
     print(f"  {time.perf_counter() - t_start:.1f} s in all")
     print(card)

@@ -1,13 +1,107 @@
-"""One-shot local-metric masks.  Port of ``repro.core.calibrate``'s
-``baseline_masks``; the calibration drivers (stats, mirror-descent search)
-come with calibration."""
+"""End-to-end UniPruning calibration pipeline.  Port of
+``repro.core.calibrate``.
+
+collect_stats    - activation stats over the calibration set (Algorithm 1,
+                   line 1): ``models.model.stats_sumsq`` per batch, summed,
+                   square-rooted.
+run_search       - N mirror-descent steps (lines 3-12), one
+                   ``mirror.search_step`` per step with the state updated in
+                   place.
+unipruning_prune - stats -> search -> Gamma -> masks(W0) at any requested
+                   sparsity levels (one search, many budgets).
+baseline_masks   - one-shot local-metric baselines sharing the same stats
+                   and mask machinery.
+
+Process-level entry point: ``repro_torch.launch.calibrate`` runs stats ->
+search once and writes a ``sparse.bank.MaskBank`` artifact.  The reference
+runs the search as jitted ``lax.scan`` chunks of ``pcfg.scan_chunk`` steps;
+eager torch has no such dispatch, and the chunking does not change the
+result (the reference's own test holds scanned against eager), so
+``scan_chunk`` is kept in the config only for the bank's ``pcfg``.
+"""
 from __future__ import annotations
 
-from typing import Any
+from functools import partial
+from typing import Any, Callable, Iterable
 
+import torch
+
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig, PruneConfig
 from repro_torch.core import masks as masks_mod
 from repro_torch.core import metrics as metrics_mod
+from repro_torch.core import mirror
 from repro_torch.core.prunable import prunable_map
+from repro_torch.optim.losses import lm_loss
+
+PyTree = Any
+SEARCH_SEED = 17      # the reference's jax.random.key(17)
+
+
+def _device_batch(b: dict, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+@torch.no_grad()
+def collect_stats(cfg: ModelConfig, params: PyTree, batches: Iterable[dict],
+                  *, pcfg: PruneConfig | None = None) -> PyTree:
+    """Per-input-feature ||X_j||_2 over the calibration set (f32 sums of
+    squares per batch, summed over batches, then square-rooted).
+
+    pcfg: when given, only the first ``pcfg.stats_batches`` batches feed the
+    pass.  Configs with MoE layers raise (``stats_sumsq``).
+    """
+    from repro_torch.models import model as M
+    batches = list(batches)
+    if pcfg is not None:
+        batches = batches[:pcfg.stats_batches]
+    if not batches:
+        raise ValueError("collect_stats needs at least one calibration batch")
+    dev = tree.device_of(params)
+    acc = None
+    for b in batches:
+        ss = M.stats_sumsq(cfg, params, _device_batch(b, dev))
+        acc = ss if acc is None else tree.tree_map(
+            lambda a, s: None if a is None else a + s, acc, ss)
+    return tree.tree_map(lambda a: None if a is None else torch.sqrt(a), acc)
+
+
+def run_search(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
+               batches: list[dict], stats: PyTree, *,
+               log_every: int = 0, loss_fn: Callable | None = None,
+               seed: int = SEARCH_SEED):
+    """Returns (final state, history): ``pcfg.steps`` steps over the
+    batches in turn; history holds every ``log_every``-th step's metrics,
+    read from the device once, after the last step."""
+    prunable = prunable_map(params0)
+    loss_fn = loss_fn or partial(lm_loss, cfg)
+    state = mirror.init_search(params0, seed)
+    dev = tree.device_of(params0)
+    batches = [_device_batch(b, dev) for b in batches]
+    logged = []
+    for n in range(pcfg.steps):
+        state, m = mirror.search_step(pcfg, loss_fn, state,
+                                      batches[n % len(batches)], stats,
+                                      prunable)
+        if log_every and n % log_every == 0:
+            logged.append(m)
+    history = [{k: float(v) for k, v in m.items()} for m in logged]
+    return state, history
+
+
+def unipruning_prune(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
+                     calib_batches: list[dict],
+                     sparsities: Iterable[float] = (0.5,),
+                     loss_fn: Callable | None = None):
+    """Full pipeline.  Returns ({sparsity: pruned_params}, state, history)."""
+    stats = collect_stats(cfg, params0, calib_batches, pcfg=pcfg)
+    state, history = run_search(cfg, pcfg, params0, calib_batches, stats,
+                                log_every=10, loss_fn=loss_fn)
+    out = {}
+    for s in sparsities:
+        masks = mirror.export_masks(pcfg, state.Gamma, s, V=state.V)
+        out[s] = masks_mod.apply_masks(params0, masks)
+    return out, state, history
 
 
 def baseline_masks(method: str, params0: Any, stats: Any, sparsity: float,

@@ -1,45 +1,161 @@
 """Local saliency metrics S(W, X).  Port of ``repro.core.metrics``.
 
-Only the weight-only ``magnitude`` metric is ported so far: it is what the
-one-shot ``baseline_masks`` path needs.  The activation-aware metrics
-(wanda, ria, stochria) and score normalisation come with calibration.
+All metrics operate on a kernel W of shape (*lead, d_in, d_out) with
+optional activation stats a of shape (*lead, d_in) = per-input-feature L2
+norm over the calibration set.  When a is None they degrade to their
+weight-only form (magnitude).
+
+  magnitude : |W|                                     (Zhu & Gupta 2017)
+  wanda     : |W| * a[..., None]                      (Sun et al. 2024)
+  ria       : (|W|/rowsum + |W|/colsum) * a^0.5       (Zhang et al. 2024)
+  stochria  : RIA with subsampled row/col sums        (Yi & Richtarik 2025)
+
+They are differentiable in W (abs subgradient), which the mirror-descent
+alignment term relies on.  The f32 arithmetic is the reference's, op for op.
+
+Randomness: ``key`` is an integer seed where the reference takes a threefry
+key (``metric_tree`` gives leaf i the stream ``fold_in(key, i)``).  The
+Bernoulli row/column draws of stochria come from a CPU ``torch.Generator``
+seeded with it, so the card and the CPU draw the same masks; threefry
+cannot be replayed, so tests feed both packages the same ``row_w``/``col_w``
+through :func:`_ria_core`.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import torch
 
 from repro_torch import tree
+from repro_torch.kernels.ref import sqrt_f32
 
-METRICS = ("magnitude",)
+METRICS = ("magnitude", "wanda", "ria", "stochria")
+_MASK64 = (1 << 64) - 1
 
 
-def magnitude(w: torch.Tensor, a=None) -> torch.Tensor:
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit seed from (key, data): splitmix64 of their mix, the
+    port's stand-in for ``jax.random.fold_in``."""
+    z = (key * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def magnitude(w: torch.Tensor, a=None, *, key=None) -> torch.Tensor:
     return w.float().abs()
 
 
-def get_metric(name: str):
+def wanda(w: torch.Tensor, a=None, *, key=None) -> torch.Tensor:
+    s = w.float().abs()
+    if a is not None:
+        s = s * a[..., None]
+    return s
+
+
+def ria_sums(w, row_w=None, col_w=None):
+    """RIA's normalisers of |w|: rowsum over d_out for each input row,
+    colsum over d_in per output column (keepdim), or their subsampled
+    estimates over the row_w (d_out,) / col_w (d_in, 1) weights."""
+    aw = w.float().abs()
+    if row_w is None:
+        return aw.sum(dim=-1, keepdim=True), aw.sum(dim=-2, keepdim=True)
+    return ((aw * row_w).sum(dim=-1, keepdim=True) / row_w.mean(),
+            (aw * col_w).sum(dim=-2, keepdim=True) / col_w.mean())
+
+
+def _ria_core(w, a, row_w=None, col_w=None, eps=1e-12):
+    aw = w.float().abs()
+    rowsum, colsum = ria_sums(w, row_w, col_w)
+    s = aw / (rowsum + eps) + aw / (colsum + eps)
+    if a is not None:
+        s = s * sqrt_f32(torch.clamp_min(a, 1e-12))[..., None]
+    return s
+
+
+def ria(w: torch.Tensor, a=None, *, key=None) -> torch.Tensor:
+    return _ria_core(w, a)
+
+
+def stoch_weights(key: int, shape: tuple[int, ...], frac: float,
+                  device) -> tuple[torch.Tensor, torch.Tensor]:
+    """stochria's Bernoulli(frac) row weights (d_out,) and column weights
+    (d_in, 1) for a (..., d_in, d_out) kernel, f32 on ``device``."""
+    g = torch.Generator().manual_seed(key)
+    row_w = (torch.rand(shape[-1:], generator=g) < frac).float()
+    col_w = (torch.rand(shape[-2:-1], generator=g) < frac).float()
+    return row_w.to(device), col_w[:, None].to(device)
+
+
+def stochria(w: torch.Tensor, a=None, *, key=None,
+             frac: float = 0.9) -> torch.Tensor:
+    """RIA with Bernoulli-subsampled row/col sums (stochastic normalizers)."""
+    if key is None:
+        return _ria_core(w, a)
+    row_w, col_w = stoch_weights(key, tuple(w.shape), frac, w.device)
+    return _ria_core(w, a, row_w=row_w, col_w=col_w)
+
+
+def get_metric(name: str, stoch_frac: float = 0.9):
     if name == "magnitude":
         return magnitude
-    raise ValueError(f"metric {name!r} is not ported yet; options: "
-                     f"{METRICS}")
+    if name == "wanda":
+        return wanda
+    if name == "ria":
+        return ria
+    if name == "stochria":
+        return partial(stochria, frac=stoch_frac)
+    raise ValueError(f"unknown metric {name!r}; options: {METRICS}")
 
 
-def metric_tree(name: str, params: Any, stats: Any, prunable: Any) -> Any:
+def median_element(s: torch.Tensor) -> torch.Tensor:
+    """``sort(s.flatten())[s.numel() // 2]``, exactly, as a device scalar.
+
+    The largest n - n // 2 entries are sorted[n // 2:], so their minimum is
+    that element: a multi-block radix selection (``torch.topk``) instead of
+    a full sort, and no host sync.  (``torch.kthvalue`` gives one thread
+    block to a whole slice on the card, far slower at 268M entries.)
+    """
+    flat = s.detach().reshape(-1)
+    n = flat.numel()
+    return torch.topk(flat, n - n // 2, sorted=False).values.min()
+
+
+def normalize_scores(s: torch.Tensor, how: str) -> torch.Tensor:
+    """Per-tensor scale normalization: makes saliency cross-layer comparable
+    so one global budget can redistribute sparsity across layers.  The
+    normaliser is a constant (detached, as ``stop_gradient`` in JAX)."""
+    if how == "none":
+        return s
+    if how == "mean":
+        return s / (s.detach().mean() + 1e-12)
+    if how == "median":
+        return s / (median_element(s) + 1e-12)
+    raise ValueError(how)
+
+
+def metric_tree(name: str, params: Any, stats: Any, prunable: Any,
+                key: int | None = None, stoch_frac: float = 0.9,
+                norm: str = "none") -> Any:
     """Apply the metric leafwise over prunable kernels; None elsewhere.
 
     ``stats`` and ``prunable`` must mirror the params structure (a stats
-    tree of None leaves for the weight-only metric).
+    tree of None leaves for the weight-only metric).  Leaf i (in flatten
+    order over all leaves) draws from ``fold_in(key, i)``.
     """
-    fn = get_metric(name)
-    leaves = tree.leaves(params)
+    fn = get_metric(name, stoch_frac)
+    flat = tree.flatten_with_path(params)
     flat_stats = tree.leaves(stats)
     flat_pr = tree.leaves(prunable)
-    if len(flat_stats) != len(leaves) or len(flat_pr) != len(leaves):
+    if len(flat_stats) != len(flat) or len(flat_pr) != len(flat):
         raise ValueError(
-            f"metric_tree leaf mismatch: params={len(leaves)} "
+            f"metric_tree leaf mismatch: params={len(flat)} "
             f"stats={len(flat_stats)} prunable={len(flat_pr)} leaves - the "
             "stats/prunable trees must mirror the params structure")
-    return tree.tree_map(lambda w, a, pr: fn(w, a) if pr else None,
-                         params, stats, prunable)
+    out = {}
+    for i, ((path, w), a, pr) in enumerate(zip(flat, flat_stats, flat_pr)):
+        if pr:
+            k = None if key is None else fold_in(key, i)
+            out[path] = normalize_scores(fn(w, a, key=k), norm)
+    return tree.map_with_path(lambda path, _: out.get(path), params)

@@ -1,14 +1,231 @@
-"""Mask export from the mirror-descent state.  Port of
-``repro.core.mirror.export_masks``; the search itself comes with
-calibration."""
+"""UniPruning mirror-descent search (paper Algorithm 1, Eqs. 5-7) and mask
+export.  Port of ``repro.core.mirror``.
+
+State: an f32 copy W of the pretrained weights, the saliency variable Gamma
+and its dual V (both only on prunable leaves).  Per step:
+
+  g_task = grad_W L_task(W^n)
+  g_align= rho * grad_W 0.5||Gamma - S(W)||^2
+  W     <- W - kappa*alpha*(g_task + g_align)
+  W     <- Prox_{R_{2:4}}(W)                          [N:M mode only]
+  S      = S(W, X)                                    local metric
+  V     <- V - alpha*rho*(Gamma - S)
+  Gamma <- soft_threshold(V, lam)                     prox of lam*L1
+
+The pretrained W0 is never written; masks come from Gamma and are applied to
+W0 (``core/masks.py``).  The last three lines run as one pass per prunable
+leaf, the hand-written ``saliency_fused_step`` on the card (its plain
+version on the CPU), and the prox as ``prox24``: the kernels compute the
+reference's functions op for op.  Where JAX returns new trees, this search
+updates W, Gamma and V in place, leaf by leaf, and takes the alignment
+gradient one leaf at a time, so no second copy of a full tree is held.
+"""
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
 from repro_torch import tree
+from repro_torch.configs.base import PruneConfig
 from repro_torch.core import masks as masks_mod
+from repro_torch.core import metrics as metrics_mod
+from repro_torch.core.prunable import prunable_map
+from repro_torch.kernels.nm_prox import prox24
+from repro_torch.kernels.saliency_fuse import saliency_fused_step
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class SearchState:
+    W: PyTree          # f32 copy of the full params tree
+    Gamma: PyTree      # saliency variable (prunable leaves, else None)
+    V: PyTree          # dual variable (prunable leaves, else None)
+    step: int
+    rng: int           # search seed (the reference's threefry key)
+
+
+def init_search(params0: PyTree, key: int) -> SearchState:
+    pr = prunable_map(params0)
+    zeros = lambda w, p: (torch.zeros(w.shape, dtype=torch.float32,
+                                      device=w.device) if p else None)
+    return SearchState(
+        # a copy, never an alias: the search writes W in place
+        W=tree.tree_map(lambda x: x.detach().to(torch.float32, copy=True),
+                        params0),
+        Gamma=tree.tree_map(zeros, params0, pr),
+        V=tree.tree_map(zeros, params0, pr),
+        step=0, rng=int(key))
+
+
+def _scalar(x: float, device) -> torch.Tensor:
+    """An f32 device scalar, made without a host-to-device copy."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def _leaf_score(pcfg: PruneConfig, w, a, key):
+    """S(w) of one leaf, normalised (the reference's metric_tree leaf)."""
+    fn = metrics_mod.get_metric(pcfg.local_metric, pcfg.stoch_frac)
+    return metrics_mod.normalize_scores(fn(w, a, key=key), pcfg.score_norm)
+
+
+def _align_leaf(pcfg: PruneConfig, w, gamma, a, key):
+    """One leaf's term of 0.5*rho*sum ||Gamma - S(W)||_F^2: (its
+    sum ||Gamma - S||^2, the W-gradient of 0.5*rho times it)."""
+    with torch.enable_grad():
+        wg = w.detach().requires_grad_(True)
+        sq = torch.sum(torch.square(gamma - _leaf_score(pcfg, wg, a, key)))
+        grad, = torch.autograd.grad((0.5 * pcfg.rho) * sq, wg)
+    return sq.detach(), grad
+
+
+def _align_value_and_grad(pcfg: PruneConfig, W, Gamma, stats, prunable,
+                          key: int):
+    """0.5*rho*sum_leaves ||Gamma - S(W)||_F^2 and its W-gradient (zeros on
+    leaves that are not prunable)."""
+    flat_w = tree.leaves(W)
+    acc = _scalar(0.0, flat_w[0].device)
+    grads = []
+    for i, (w, g, a, p) in enumerate(zip(
+            flat_w, tree.leaves(Gamma), tree.leaves(stats),
+            tree.leaves(prunable), strict=True)):
+        if p:
+            sq, ga = _align_leaf(pcfg, w, g, a, metrics_mod.fold_in(key, i))
+            acc = acc + sq
+            grads.append(ga)
+        else:
+            grads.append(torch.zeros_like(w))
+    return 0.5 * pcfg.rho * acc, tree.unflatten_like(W, grads)
+
+
+def _task_value_and_grad(pcfg: PruneConfig, loss_fn: Callable, W: PyTree,
+                         batch: dict):
+    """((loss, metrics), grad), optionally accumulated over microbatches.
+
+    grad_accum > 1 splits the batch dim into microbatch slices and runs the
+    backward once per slice, so peak activation memory is that of one
+    microbatch while the averaged gradient matches the full batch.
+    """
+    accum = max(1, int(pcfg.grad_accum))
+    leaves = [w.detach().requires_grad_(True) for w in tree.leaves(W)]
+    Wg = tree.unflatten_like(W, leaves)
+
+    def one(b):
+        with torch.enable_grad():
+            loss, metrics = loss_fn(Wg, b)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for w, g in zip(leaves, grads)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    if accum == 1:
+        loss, metrics, grads = one(batch)
+        return (loss, metrics), tree.unflatten_like(W, grads)
+    rows = batch["tokens"].shape[0]
+    if rows % accum:
+        raise ValueError(f"grad_accum={accum} must divide the calibration "
+                         f"batch dim {rows}")
+    m = rows // accum
+    tot = None
+    for j in range(accum):
+        part = one({k: v[j * m:(j + 1) * m] for k, v in batch.items()})
+        tot = part if tot is None else (
+            tot[0] + part[0], {k: tot[1][k] + part[1][k] for k in tot[1]},
+            [x + y for x, y in zip(tot[2], part[2])])
+    div = lambda x: x / _scalar(float(accum), x.device)
+    return ((div(tot[0]), {k: div(v) for k, v in tot[1].items()}),
+            tree.unflatten_like(W, [div(g) for g in tot[2]]))
+
+
+def _fused_leaf(pcfg: PruneConfig, w, gamma, v, a, key) -> None:
+    """V, Gamma <- the fused metric + dual + prox step, in place."""
+    lead = w.shape[:-2]
+    K, N = w.shape[-2:]
+    R = K * (lead.numel() if lead else 1)
+    metric = pcfg.local_metric
+    if metric == "wanda" and a is None:
+        metric = "magnitude"          # wanda without stats is |W|
+    ria = metric in ("ria", "stochria")
+    if ria and a is None:
+        a = torch.ones(w.shape[:-1], dtype=torch.float32, device=w.device)
+    s_div = None
+    if pcfg.score_norm != "none":
+        raw = metrics_mod.get_metric(pcfg.local_metric, pcfg.stoch_frac)(
+            w, a, key=key)
+        s_div = (metrics_mod.median_element(raw) if pcfg.score_norm ==
+                 "median" else raw.mean()) + 1e-12
+        del raw
+    rowsum = colsum = None
+    if ria:   # the RIA normalisers, with stochria's draws for this step
+        weights = (metrics_mod.stoch_weights(key, tuple(w.shape),
+                                             pcfg.stoch_frac, w.device)
+                   if pcfg.local_metric == "stochria" else ())
+        rowsum, colsum = metrics_mod.ria_sums(w.reshape(-1, K, N), *weights)
+        rowsum, colsum = rowsum.reshape(R), colsum.reshape(-1, N)
+    saliency_fused_step(
+        w.reshape(R, N), None if a is None else a.reshape(R),
+        gamma.reshape(R, N), v.reshape(R, N), metric=metric,
+        v_lr=pcfg.v_lr, lam=pcfg.lam, rowsum=rowsum, colsum=colsum,
+        s_div=s_div, inplace=True)
+
+
+@torch.no_grad()
+def search_step(pcfg: PruneConfig, loss_fn: Callable, state: SearchState,
+                batch: dict, stats: PyTree, prunable: PyTree):
+    """One mirror-descent iteration, updating ``state`` in place.
+    loss_fn(W, batch) -> (loss, metrics).  Returns (state, metrics): device
+    scalars, read by the caller when it wants them."""
+    key = metrics_mod.fold_in(state.rng, state.step)
+    (loss, loss_metrics), g_task = _task_value_and_grad(
+        pcfg, loss_fn, state.W, batch)
+    flat_w = tree.leaves(state.W)
+    dev = flat_w[0].device
+    klr = pcfg.kappa * pcfg.lr
+    acc = _scalar(0.0, dev)
+    nz, flips, absum, abslogsum = (_scalar(0.0, dev) for _ in range(4))
+    tot = 0
+    for i, (w, gt, gamma, v, a, p) in enumerate(zip(
+            flat_w, tree.leaves(g_task), tree.leaves(state.Gamma),
+            tree.leaves(state.V), tree.leaves(stats), tree.leaves(prunable),
+            strict=True)):
+        if not p:
+            w.sub_(klr * gt)              # its alignment gradient is zero
+            continue
+        k_i = metrics_mod.fold_in(key, i)
+        sq, ga = _align_leaf(pcfg, w, gamma, a, k_i)
+        acc = acc + sq
+        w.sub_(klr * (gt + ga))
+        del ga
+        if pcfg.mode == "nm" and w.shape[-2] % 4 == 0:
+            w2 = w.view(-1, w.shape[-1])
+            prox24(w2, lam=pcfg.nm_prox_weight, out=w2)
+        was_nz = gamma != 0
+        _fused_leaf(pcfg, w, gamma, v, a, k_i)
+        # convergence observables (reference: search_step's loop)
+        now_nz = gamma != 0
+        nz += now_nz.sum()
+        flips += (was_nz != now_nz).sum()
+        del was_nz, now_nz
+        ab = gamma.abs()
+        absum += ab.sum()
+        pos = ab > 0
+        abslogsum += torch.where(pos, ab * torch.log(torch.where(
+            pos, ab, 1.0)), 0.0).sum()
+        tot += gamma.numel()
+        del ab, pos
+    g_task = None
+    z = torch.clamp_min(absum, 1e-30)
+    entropy = torch.where(absum > 0, torch.log(z) - abslogsum / z, 0.0)
+    entropy = entropy / torch.log(_scalar(float(max(tot, 2)), dev))
+    state.step += 1
+    frac = lambda x: x / _scalar(float(max(tot, 1)), dev)
+    metrics = {"loss": loss, "align": 0.5 * pcfg.rho * acc,
+               "gamma_nonzero_frac": frac(nz), "mask_churn": frac(flips),
+               "gamma_entropy": entropy, **loss_metrics}
+    return state, metrics
 
 
 def _absmax(leaves: list[torch.Tensor]) -> torch.Tensor:

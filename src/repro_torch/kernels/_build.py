@@ -29,7 +29,8 @@ BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry points of each source: name -> argtypes (every restype is int)
 ENTRY_POINTS = {
     "nm_spmm": {
@@ -38,7 +39,21 @@ ENTRY_POINTS = {
     "nm_mask24": {
         "repro_nm_mask24": [_P, _P, _LL, _I, _I, _P],
     },
+    "prox24": {
+        "repro_prox24": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P],
+    },
+    "saliency_fuse": {
+        "repro_saliency_fused_step": [_P] * 9 + [_LL] + [_I] * 4
+                                     + [_F, _F, _P],
+    },
 }
+# flags of one source on top of NVCC_FLAGS: the elementwise search passes
+# round every op on its own, as their plain PyTorch versions do
+EXTRA_FLAGS = {"prox24": ("-fmad=false",), "saliency_fuse": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -54,7 +69,7 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_{name}_{h.hexdigest()[:16]}.so"
 
@@ -71,7 +86,7 @@ def build(names=None) -> None:
     running = []
     for name, so in todo:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         running.append((cmd, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -1,11 +1,16 @@
-"""2:4 keep-mask: top-2 |s| of every contiguous group of 4 along K.
+"""Group-of-4 kernels: the R_{2:4} proximal operator and the 2:4 keep-mask.
 
-Port of ``repro.kernels.nm_prox.nm_mask24`` (the proximal operator
-``prox24`` of the same file comes with calibration).  For CUDA tensors
-:func:`nm_mask24` launches the hand-written kernel in ``csrc/nm_mask24.cu``;
-for CPU tensors it runs ``ref.nm_mask_ref``, its plain version.  Both
-compute the integer function of ``core.masks.nm_masks`` (ties go to the
-lower position), so the masks are bit-identical.
+Port of ``repro.kernels.nm_prox``.  Both wrappers run their plain version
+for CPU tensors and launch their hand-written kernel for CUDA tensors:
+
+* :func:`prox24` - ``csrc/prox24.cu``, plain version ``ref.prox24_ref``
+  (``core.prox.prox_nm24``): the prox the N:M search applies to every
+  prunable leaf each step.  Each op rounds on its own in both, so the
+  outputs are bit-identical.
+* :func:`nm_mask24` - ``csrc/nm_mask24.cu``, plain version
+  ``ref.nm_mask_ref``.  Both compute the integer function of
+  ``core.masks.nm_masks`` (ties go to the lower position), so the masks are
+  bit-identical.
 """
 from __future__ import annotations
 
@@ -16,6 +21,59 @@ import torch
 from repro_torch.kernels import ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def prox24(w: torch.Tensor, *, lam: float, iters: int = 12,
+           damping: float = 0.7, out: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """Prox of lam*R_{2:4} on each contiguous group of 4 along K.
+
+    w: (K, N) f32, bf16 or f16 with K % 4 == 0 -> the same shape and dtype.
+    A stacked (L, K, N) leaf goes through as its (L*K, N) view: with
+    K % 4 == 0 no group crosses a layer.  ``out`` receives the result (it
+    may be ``w`` itself: the search overwrites W in place).  CUDA tensors
+    launch the kernel (``prox24.launches`` counts each launch) or raise:
+    contiguous, f32, bf16 or f16.
+    """
+    if w.dim() != 2 or w.shape[0] % 4:
+        raise ValueError(f"prox24 takes (K, N) weights with K % 4 == 0, "
+                         f"got {tuple(w.shape)}")
+    if out is not None and (out.shape != w.shape or out.dtype != w.dtype
+                            or out.device != w.device):
+        raise ValueError("prox24: out must match w in shape, dtype and "
+                         "device")
+    if w.device.type == "cpu":
+        res = ref.prox24_ref(w, lam, iters=iters, damping=damping)
+        return res if out is None else out.copy_(res)
+    if w.device.type != "cuda":
+        raise ValueError(f"prox24: no kernel for device {w.device}")
+    code = _DTYPE_CODES.get(w.dtype)
+    if code is None:
+        raise TypeError(f"prox24 kernel takes f32, bf16 or f16 weights, "
+                        f"not {w.dtype}")
+    if not w.is_contiguous() or (out is not None
+                                 and not out.is_contiguous()):
+        raise ValueError("prox24 kernel needs contiguous arrays")
+    R, N = w.shape
+    if out is None:
+        out = torch.empty_like(w)
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels._build import library
+    err = library("prox24").repro_prox24(
+        w.data_ptr(), out.data_ptr(), R, N, code, lam, damping, 1 - damping,
+        iters, _stream(w))
+    if err:
+        raise RuntimeError(f"prox24 kernel launch failed: CUDA error {err}")
+    prox24.launches += 1
+    return out
+
+
+prox24.launches = 0
 
 
 def nm_mask24(s: torch.Tensor) -> torch.Tensor:
@@ -45,8 +103,7 @@ def nm_mask24(s: torch.Tensor) -> torch.Tensor:
         return keep
     from repro_torch.kernels._build import library
     err = library("nm_mask24").repro_nm_mask24(
-        s.data_ptr(), keep.data_ptr(), R, N, code,
-        ctypes.c_void_p(torch.cuda.current_stream(s.device).cuda_stream))
+        s.data_ptr(), keep.data_ptr(), R, N, code, _stream(s))
     if err:
         raise RuntimeError(f"nm_mask24 kernel launch failed: CUDA error {err}")
     nm_mask24.launches += 1

@@ -51,6 +51,46 @@ def nm_matmul_ref(x: torch.Tensor, vals: torch.Tensor,
     return (x @ w.to(x.dtype)).to(x.dtype)
 
 
+# --- saliency_fuse ---------------------------------------------------------
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as ``jnp.sqrt`` and CUDA's
+    ``sqrtf`` give it.  torch's vectorised CPU ``sqrt`` is off by an ulp in
+    about 0.5% of f32 inputs; the f64 root rounded to f32 is exact."""
+    return torch.sqrt(x.double()).float()
+
+
+def saliency_step_ref(w, a, gamma, v, *, v_lr: float, lam: float,
+                      rowsum=None, colsum=None, s_div=None):
+    """One fused local-metric + dual + prox step (f32 math).
+
+    w, gamma, v: (..., K, N); a: (..., K) input-feature norms, or None for
+    magnitude; rowsum (..., K, 1) and colsum (..., 1, N) for the RIA family.
+
+    S = |w| * a[..., None]                        (wanda; a = ||X_j||_2)
+    or S = |w|                                    (magnitude; a is None)
+    or, when rowsum/colsum are given (RIA family):
+    S = (|w|/rowsum + |w|/colsum) * sqrt(a)[..., None]
+    then S = S / s_div when the search normalises the scores (s_div is the
+    device scalar med + 1e-12 of ``normalize_scores``).
+    V' = v - v_lr * (gamma - S);  Gamma' = soft(V', lam).
+    """
+    wf = w.float().abs()
+    if rowsum is not None:
+        af = a.float()
+        s = (wf / (rowsum.float() + 1e-12) + wf / (colsum.float() + 1e-12)) \
+            * sqrt_f32(torch.clamp_min(af, 1e-12))[..., None]
+    elif a is not None:
+        s = wf * a.float()[..., None]
+    else:
+        s = wf
+    if s_div is not None:
+        s = s / s_div
+    v_new = v.float() - v_lr * (gamma.float() - s)
+    gamma_new = torch.copysign(torch.clamp_min(v_new.abs() - lam, 0.0), v_new)
+    return v_new, gamma_new
+
+
 # --- nm mask ---------------------------------------------------------------
 
 def nm_mask_ref(s: torch.Tensor, n: int = 2, m: int = 4) -> torch.Tensor:
@@ -67,3 +107,11 @@ def nm_mask_ref(s: torch.Tensor, n: int = 2, m: int = 4) -> torch.Tensor:
     j_earlier = pos[None, None, :, None] < pos[None, :, None, None]
     rank = ((gj > gi) | ((gj == gi) & j_earlier)).sum(dim=2)
     return (rank < n).reshape(K, N)
+
+
+def prox24_ref(w: torch.Tensor, lam: float, *, iters: int = 12,
+               damping: float = 0.7) -> torch.Tensor:
+    """The plain version of the ``prox24`` kernel: ``core.prox.prox_nm24``
+    on a 2-D (K, N) input, as the reference's oracle is."""
+    from repro_torch.core.prox import prox_nm24
+    return prox_nm24(w, lam, iters=iters, damping=damping)

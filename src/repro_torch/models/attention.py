@@ -6,10 +6,14 @@ families that use them).
 Two execution paths, both plain torch as in the reference, which leaves
 them to XLA:
 
-* :func:`flash_attention` - prefill.  The reference's chunked online-softmax
-  forward (query blocks in a Python loop, triangle-exact under the causal
-  mask; kv blocks with a running (m, l, acc) state), f32 logits and
-  accumulator, probabilities rounded to the value dtype before PV.
+* :func:`flash_attention` - prefill and calibration.  The reference's
+  chunked online-softmax forward (query blocks in a Python loop,
+  triangle-exact under the causal mask; kv blocks with a running
+  (m, l, acc) state), f32 logits and accumulator, probabilities rounded to
+  the value dtype before PV.  Under autograd its backward is the
+  reference's ``custom_vjp`` (:class:`_Flash`): it recomputes
+  p = exp(s + bias - L) in f32 from the saved logsumexp, where autograd
+  through the forward would differentiate the bf16-rounded p.
 * :func:`decode_attend`   - one query per row against the KV ring, with
   per-row positions; a windowed layer's ring holds min(capacity, window)
   slots.  It rounds ``p / l`` to the cache dtype (bf16) before
@@ -34,7 +38,7 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (forward only)
+# Flash attention (forward; backward under autograd)
 # ---------------------------------------------------------------------------
 
 def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, *,
@@ -53,7 +57,8 @@ def _qk(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window):
-    """One query block vs all (needed) kv blocks -> normalized f32 output."""
+    """One query block vs all (needed) kv blocks -> (normalized f32 output,
+    m, l)."""
     B, Sq, K, G, _ = q_blk.shape
     Dv = v.shape[-1]
     dev = q_blk.device
@@ -73,7 +78,90 @@ def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window):
                           v[:, sl].float())
         acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
-    return acc / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
+    o = acc / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
+    return o, m, l
+
+
+def _q_blocks(Sq, Sk, q_block, kv_block, device):
+    """(query slice, qpos, visible kv length n) per query block: only kv
+    blocks whose start can be visible (static causal bound)."""
+    for iq in range(Sq // q_block):
+        qpos = (Sk - Sq) + iq * q_block + torch.arange(q_block, device=device)
+        hi = min(Sk, (Sk - Sq) + (iq + 1) * q_block)
+        yield (slice(iq * q_block, (iq + 1) * q_block), qpos,
+               -(-hi // kv_block) * kv_block)
+
+
+def _flash_fwd(q, k, v, window, scale, q_block, kv_block):
+    """Grouped q (B,Sq,K,G,D) -> (out in q.dtype, logsumexp L (B,K,G,Sq))."""
+    os_, Ls = [], []
+    for sl, qpos, n in _q_blocks(q.shape[1], k.shape[1], q_block, kv_block,
+                                 q.device):
+        o, m, l = _flash_fwd_block(q[:, sl], k[:, :n], v[:, :n], qpos=qpos,
+                                   scale=scale, kv_block=kv_block,
+                                   window=window)
+        os_.append(o)
+        Ls.append(m + torch.log(torch.clamp_min(l, 1e-30)))
+    return torch.cat(os_, dim=1).to(q.dtype), torch.cat(Ls, dim=3)
+
+
+def _flash_bwd_block(q_blk, k, v, o_blk, L_blk, do_blk, *, qpos, scale,
+                     kv_block, window):
+    """Backward for one query block: (dq_blk, dk, dv), f32, dk/dv over the
+    block's visible kv length."""
+    B, Sq, K, G, D = q_blk.shape
+    Sk = k.shape[1]
+    dev = q_blk.device
+    do_f = do_blk.float()
+    Drow = (do_f * o_blk.float()).sum(dim=-1).permute(0, 2, 3, 1)
+    dq = torch.zeros((B, Sq, K, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Sk, K, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, K, v.shape[-1]), dtype=torch.float32, device=dev)
+    for ikv in range(Sk // kv_block):
+        sl = slice(ikv * kv_block, (ikv + 1) * kv_block)
+        kpos = ikv * kv_block + torch.arange(kv_block, device=dev)
+        ks, vs = k[:, sl].float(), v[:, sl].float()
+        s = _qk(q_blk, k[:, sl], scale)
+        bias = _mask_bias(qpos, kpos, window=window)[None, None, None]
+        p = torch.exp(s + bias - L_blk[..., None])          # (B,K,G,Sq,Sk)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", do_f, vs)
+        dv[:, sl] += torch.einsum("bkgqs,bqkgd->bskd", p, do_f)
+        ds = p * (dp - Drow[..., None]) * scale
+        dq += torch.einsum("bkgqs,bskd->bqkgd", ds, ks)
+        dk[:, sl] += torch.einsum("bkgqs,bqkgd->bskd", ds, q_blk.float())
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` ``_flash``: forward saves
+    (q, k, v, out, L); backward recomputes the probabilities in f32 per
+    query block and kv block (nothing quadratic is saved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale, q_block, kv_block):
+        out, L = _flash_fwd(q, k, v, window, scale, q_block, kv_block)
+        ctx.save_for_backward(q, k, v, out, L)
+        ctx.cfg = (window, scale, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, L = ctx.saved_tensors
+        window, scale, q_block, kv_block = ctx.cfg
+        dqs = []
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for sl, qpos, n in _q_blocks(q.shape[1], k.shape[1], q_block,
+                                     kv_block, q.device):
+            dq_blk, dk_p, dv_p = _flash_bwd_block(
+                q[:, sl], k[:, :n], v[:, :n], out[:, sl], L[..., sl],
+                do[:, sl], qpos=qpos, scale=scale, kv_block=kv_block,
+                window=window)
+            dqs.append(dq_blk)
+            dk[:, :n] += dk_p
+            dv[:, :n] += dv_p
+        return (torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None)
 
 
 def flash_attention(q, k, v, *, window=0, scale=None, q_block=None,
@@ -92,17 +180,16 @@ def flash_attention(q, k, v, *, window=0, scale=None, q_block=None,
     kv_block = kv_block or min(512, Sk)
     if Sq % q_block or Sk % kv_block:
         raise ValueError((Sq, q_block, Sk, kv_block))
-    outs = []
-    for iq in range(Sq // q_block):
-        qpos = (Sk - Sq) + iq * q_block + torch.arange(q_block,
-                                                       device=q.device)
-        # only kv blocks whose start can be visible (static causal bound)
-        hi = min(Sk, (Sk - Sq) + (iq + 1) * q_block)
-        n = -(-hi // kv_block) * kv_block
-        outs.append(_flash_fwd_block(
-            q[:, iq * q_block:(iq + 1) * q_block], k[:, :n], v[:, :n],
-            qpos=qpos, scale=scale, kv_block=kv_block, window=window))
-    out = torch.cat(outs, dim=1).to(q.dtype)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = _Flash.apply(q, k, v, window, scale, q_block, kv_block)
+    else:
+        out = torch.cat([
+            _flash_fwd_block(q[:, sl], k[:, :n], v[:, :n], qpos=qpos,
+                             scale=scale, kv_block=kv_block,
+                             window=window)[0]
+            for sl, qpos, n in _q_blocks(Sq, Sk, q_block, kv_block,
+                                         q.device)], dim=1).to(q.dtype)
     return out.reshape(B, Sq, K * G, v.shape[-1]) if squeeze else out
 
 

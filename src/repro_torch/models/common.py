@@ -74,12 +74,20 @@ def dense_init(b: Builder, d_in: int, d_out: int,
     return {"kernel": b.param((d_in, d_out), axes, scale=scale)}
 
 
-def dense(params: PyTree, x: torch.Tensor) -> torch.Tensor:
+def dense(params: PyTree, x: torch.Tensor, *,
+          tape_x: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ kernel.  While a stats tape records (the calibration stats
+    pass), the tape sees x, or ``tape_x`` where the caller has the input
+    before its rounding to x.dtype."""
     k = params["kernel"]
     if isinstance(k, SparseTensor):
         # 2:4-compressed kernel: the hand-written nm_matmul
         from repro_torch.sparse import apply as sparse_apply
         return sparse_apply.sparse_dense(k, x)
+    from repro_torch.core import tape as _tape
+    t = _tape.current_tape()
+    if t is not None:
+        t.record(k, x if tape_x is None else tape_x)
     return x @ k.to(COMPUTE_DTYPE)
 
 
@@ -108,12 +116,37 @@ def expert_dense_pair(p_up: PyTree, p_gate: PyTree, buf: torch.Tensor
     return expert_dense(p_up, buf), expert_dense(p_gate, buf)
 
 
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+class _Silu(torch.autograd.Function):
+    """silu whose backward is ``jax.grad``'s rule for ``x * logistic(x)``:
+    e = logistic(x), then g * e + (x * g) * (e * (1 - e)), each op rounded
+    to x.dtype.  (Autograd through the forward's ops would differentiate
+    ``reciprocal(1 + exp(-x))`` instead, with other bf16 roundings.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = _logistic(x)
+        ctx.save_for_backward(x, e)
+        return x * e
+
+    @staticmethod
+    def backward(ctx, g):
+        x, e = ctx.saved_tensors
+        return g * e + (x * g) * (e * (1 - e))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as the reference computes it: ``x * logistic(x)``
     with ``logistic(x) = 1 / (1 + exp(-x))``, each op rounded to x.dtype.
     ``F.silu`` rounds once, and so differs from the reference in a third
-    of bf16 inputs by an ulp."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    of bf16 inputs by an ulp.  Under autograd the gradient is the
+    reference's too (:class:`_Silu`)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Silu.apply(x)
+    return x * _logistic(x)
 
 
 # ---------------------------------------------------------------------------

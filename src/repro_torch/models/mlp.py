@@ -7,6 +7,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import tape as _tape
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
 from repro_torch.sparse.formats import SparseTensor
@@ -34,7 +35,14 @@ def mlp_apply(p: PyTree, x: torch.Tensor, *, act: str = "silu"
     else:
         h = cm.dense(p["up"], x)
         g = cm.dense(p["gate"], x)
-    return cm.dense(p["down"], cm.silu(g) * h)
+    a = cm.silu(g)
+    tape_x = None
+    if _tape.current_tape() is not None:
+        # the jitted reference's stats pass fuses this product into the
+        # down projection's sum of squares and keeps it in f32 there
+        # (XLA's excess precision): give the tape the unrounded product
+        tape_x = a.float() * h.float()
+    return cm.dense(p["down"], a * h, tape_x=tape_x)
 
 
 def _both_sparse(a: PyTree, b: PyTree) -> bool:

@@ -124,6 +124,17 @@ def _layer(stacked: PyTree, i: int) -> PyTree:
         stacked)
 
 
+def _unstack(stacked: PyTree, repeats: int) -> list[PyTree]:
+    """Every layer's slice of a stage's stacked params.  ``unbind`` gives
+    all the views of a leaf at once, so under autograd one node stacks the
+    layers' gradients (indexing each layer would add a zero-filled
+    full-size gradient per layer)."""
+    cols = tree.tree_map(
+        lambda a: tuple(a.select(i) for i in range(repeats))
+        if isinstance(a, SparseTensor) else a.unbind(0), stacked)
+    return [tree.tree_map(lambda c: c[i], cols) for i in range(repeats)]
+
+
 def _stack(layers: list[PyTree]) -> PyTree:
     return tree.tree_map(lambda *xs: torch.stack(xs), *layers)
 
@@ -146,8 +157,7 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int):
     for (pattern, repeats), sp in zip(make_stages(cfg), params["stages"],
                                       strict=True):
         per_layer = []
-        for i in range(repeats):
-            lp = _layer(sp, i)
+        for lp in _unstack(sp, repeats):
             out = {}
             for j, kind in enumerate(pattern):
                 x, aux, out[str(j)] = blk.block_apply_full(
@@ -173,6 +183,48 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, *,
     x, aux, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux, caches
+
+
+def stats_sumsq(cfg: ModelConfig, params: PyTree, batch: dict) -> PyTree:
+    """One calibration batch -> per-input-feature activation sum of squares
+    (f32), as a tree matching ``params``.
+
+    Each layer's sliced params are registered with a
+    :class:`~repro_torch.core.tape.JitTape` while its blocks run, and each
+    kernel's sums are stacked back along the layer axis, as the reference's
+    scanned pass returns them.  Covers every kernel inside the layer
+    stacks; leaves the pass does not project through (embeddings, heads,
+    norms) come back None.  Accumulate over batches and sqrt to get
+    ||X_j||_2.  MoE layers raise: their expert-bank hook (routed-row
+    rescale) is not ported, and wanda would silently degrade to magnitude
+    on every expert bank.
+    """
+    from repro_torch.core import tape as tape_mod
+    moe = sorted({k for k in cfg.layer_kinds if k.startswith("moe")})
+    if moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the stats pass of MoE layers ({', '.join(moe)}) "
+            "is not ported yet")
+    tokens = _tokens(params, batch["tokens"])
+    x = cm.embed_lookup(params["embed"], tokens)
+    B, S, _ = x.shape
+    ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S))
+    by_path: dict[str, torch.Tensor] = {}
+    for s, ((pattern, repeats), sp) in enumerate(zip(
+            make_stages(cfg), params["stages"], strict=True)):
+        per_layer = []
+        for lp in _unstack(sp, repeats):
+            t = tape_mod.JitTape()
+            t.register_layer(lp, "", 0)
+            with tape_mod.recording(t):
+                for j, kind in enumerate(pattern):
+                    x, _, _ = blk.block_apply_full(kind, cfg, lp[str(j)], x,
+                                                   ctx)
+            per_layer.append(t.stats(0))
+        for path in per_layer[0]:
+            by_path[f"['stages'][{s}]" + path] = torch.stack(
+                [ss[path] for ss in per_layer])
+    return tree.map_with_path(lambda path, _: by_path.get(path), params)
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,

@@ -1,9 +1,10 @@
 """Persistent mask bank: one calibration, arbitrary budgets.
 
-Port of ``repro.sparse.bank`` (loading and re-thresholding; writing a bank
-comes with calibration).  The artifact holds the post-search state -
+Port of ``repro.sparse.bank``.  The artifact holds the post-search state -
 Gamma, the dual V, the activation stats - in the model's params structure,
-with a crc32 checksum over every leaf.  ``masks_at`` re-thresholds it via
+with a crc32 checksum over every leaf, the ``PruneConfig`` and the steps
+run; the schema is the reference's, so a bank either package writes loads
+in the other.  ``masks_at`` re-thresholds it via
 ``core.mirror.export_masks`` in one shot.
 """
 from __future__ import annotations
@@ -66,6 +67,26 @@ class MaskBank:
         self.stats = stats
         self.meta = meta
         self._mask_cache: OrderedDict[tuple, PyTree] = OrderedDict()
+
+    @classmethod
+    def save(cls, directory, *, arch: str, smoke: bool, state,
+             stats: PyTree = None, pcfg: PruneConfig,
+             extra: dict | None = None, cfg=None) -> "MaskBank":
+        """state: ``core.mirror.SearchState`` (or anything with Gamma/V).
+
+        cfg: explicit ModelConfig for archs outside the registry; registry
+        archs resolve from ``arch``."""
+        t = {"Gamma": state.Gamma, "V": state.V, "stats": stats}
+        meta = {"schema": SCHEMA, "format_version": FORMAT_VERSION,
+                "arch": arch, "smoke": bool(smoke),
+                "pcfg": dataclasses.asdict(pcfg),
+                "steps_run": (int(state.step) if hasattr(state, "step")
+                              else None),
+                "checksum": _tree_checksum(t),
+                **(extra or {})}
+        ckpt.save_artifact(directory, t, metadata=meta)
+        return cls(cfg if cfg is not None else _cfg_for(arch, smoke),
+                   pcfg, state.Gamma, state.V, stats, meta)
 
     @classmethod
     def load(cls, directory, *, cfg=None, device=None) -> "MaskBank":

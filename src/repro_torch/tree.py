@@ -32,6 +32,16 @@ def leaves(tree: PyTree) -> list:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
+def unflatten_like(template: PyTree, leaves: list) -> PyTree:
+    """``leaves``, in jax's flatten order, back in ``template``'s
+    structure."""
+    paths = [p for p, _ in flatten_with_path(template)]
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(paths)}")
+    by_path = dict(zip(paths, leaves))
+    return map_with_path(lambda p, _: by_path[p], template)
+
+
 def map_with_path(fn: Callable, tree: PyTree, prefix: str = "") -> PyTree:
     """``fn(keystr path, leaf)`` over every leaf, keeping the structure."""
     if isinstance(tree, dict):
@@ -67,6 +77,12 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
         if isinstance(r, (dict, list)):
             raise ValueError(f"tree structure differs at {where}")
     return fn(tree, *rest)
+
+
+def device_of(tree: PyTree):
+    """The device of the first tensor-like leaf (anything with
+    ``.device``)."""
+    return next(x.device for x in leaves(tree) if hasattr(x, "device"))
 
 
 def to_device(tree: PyTree, device) -> PyTree:

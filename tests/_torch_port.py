@@ -58,3 +58,33 @@ def assert_same_leaves(jax_tree, torch_tree):
         else:
             assert tuple(tv.shape) == tuple(jv.shape), path
             np.testing.assert_array_equal(bits(tv), bits(jv), err_msg=path)
+
+
+def f64(t) -> np.ndarray:
+    """A torch tensor or jax/numpy array as float64 numpy."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().double().numpy()
+    return np.asarray(t, np.float64)
+
+
+def leaf_pairs(jax_tree, torch_tree) -> list:
+    """(keystr path, jax leaf, torch leaf) over the jax tree's non-None
+    leaves."""
+    tf = dict(tree.flatten_with_path(torch_tree))
+    return [(p, jv, tf[p]) for p, jv in jax_flat(jax_tree).items()
+            if jv is not None]
+
+
+def smoke_llama():
+    """(jax cfg, torch cfg, jax params, the same params in torch, the
+    launcher's calibration batches: 8 x 4 x 64 tokens) for the smoke
+    llama3.2-1b, the reference's params from ``jax.random.key(0)``."""
+    from repro.configs.base import get_smoke_config as jax_smoke_config
+    from repro.data.synthetic import batches_for
+    from repro.models import model as JM
+    from repro_torch.configs.base import get_smoke_config
+    jcfg = jax_smoke_config("llama3.2-1b")
+    jp = JM.init_params(jcfg, jax.random.key(0))
+    calib = batches_for(jcfg, n=8, batch=4, seq=64, split="calib")
+    return (jcfg, get_smoke_config("llama3.2-1b"), jp,
+            jax_params_to_torch(jp), calib)

@@ -8,14 +8,19 @@ jax, so it runs on a machine that has only torch:
 
 (``--noconftest``: tests/conftest.py imports jax for the other files.)
 Tolerances: bf16 output rtol = atol = 2e-2 (one bf16 rounding of an f32
-sum taken in another order), f32 output 1e-4; masks exactly.
+sum taken in another order), f32 output 1e-4; masks exactly.  The search's
+elementwise kernels (``prox24``, ``saliency_fused_step``) round every op
+on its own as their plain versions do, so they must equal them bit for
+bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.nm_prox import nm_mask24
+from repro_torch.kernels.nm_prox import nm_mask24, prox24
+from repro_torch.kernels.saliency_fuse import (saliency_fused_step,
+                                               saliency_fused_step_plain)
 from repro_torch.kernels.nm_spmm import (LAYOUT_INT8, LAYOUT_PACKED2,
                                          nm_matmul, nm_matmul_expert,
                                          nm_matmul_expert_plain,
@@ -129,3 +134,69 @@ def test_nm_mask24_kernel_equals_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     assert nm_mask24.launches == before + 1
     assert torch.equal(got.cpu(), ref.nm_mask_ref(s))
+
+
+# (R, N): stacked leaf views (layers * K, N) at reduced depth, ragged N, and
+# the smoke widths
+_SEARCH_SHAPES = [(4 * 128, 128), (4 * 256, 128), (2 * 2048, 512),
+                  (2 * 8192, 2048), (12, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rn", _SEARCH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_prox24_kernel_equals_plain(cuda_device, rn, dtype):
+    g = torch.Generator().manual_seed(sum(rn))
+    w = (0.3 * torch.randn(rn, generator=g)).to(dtype)
+    w[::5] = 0.0
+    w[1::7] = -0.0
+    for lam in (1e-2, 0.5):
+        want = ref.prox24_ref(w.to(cuda_device), lam)
+        before = prox24.launches
+        got = prox24(w.to(cuda_device), lam=lam)
+        torch.cuda.synchronize()
+        assert prox24.launches == before + 1
+        assert got.dtype == dtype
+        assert torch.equal(got.cpu(), want.cpu())
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+        t = w.to(cuda_device)          # in place
+        prox24(t, lam=lam, out=t)
+        assert torch.equal(t, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rn", _SEARCH_SHAPES[:4])
+@pytest.mark.parametrize("metric", ["wanda", "magnitude", "ria"])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_saliency_fused_step_kernel_equals_plain(cuda_device, rn, metric,
+                                                 wdtype):
+    R, N = rn
+    L = 4 if R % 4 == 0 else 1
+    g = torch.Generator().manual_seed(R + N)
+    dev = cuda_device
+    w = (0.2 * torch.randn(rn, generator=g)).to(wdtype).to(dev)
+    a = (torch.randn(R, generator=g).abs() + 0.05).to(dev)
+    v = (0.01 * torch.randn(rn, generator=g)).to(dev)
+    gam = torch.copysign(torch.clamp_min(v.abs() - 1e-3, 0.0), v)
+    aw = w.float().abs().reshape(L, R // L, N)
+    ria = metric == "ria"
+    kw = dict(metric=metric, v_lr=0.1, lam=1e-3,
+              rowsum=aw.sum(-1).reshape(R) if ria else None,
+              colsum=aw.sum(-2) if ria else None)
+    s = w.float().abs() * a[:, None]
+    s_div = torch.topk(s.reshape(-1), s.numel() - s.numel() // 2).values \
+        .min() + 1e-12
+    for div in (None, s_div):
+        am = None if metric == "magnitude" else a
+        want = saliency_fused_step_plain(w, am, gam, v, s_div=div, **kw)
+        before = saliency_fused_step.launches
+        got = saliency_fused_step(w, am, gam, v, s_div=div, **kw)
+        torch.cuda.synchronize()
+        assert saliency_fused_step.launches == before + 1
+        for x, y in zip(got, want):
+            assert x.dtype == torch.float32
+            assert torch.equal(x, y)
+        v2, g2 = v.clone(), gam.clone()
+        saliency_fused_step(w, am, g2, v2, s_div=div, inplace=True, **kw)
+        assert torch.equal(v2, got[0]) and torch.equal(g2, got[1])

@@ -108,3 +108,44 @@ def test_launcher_runs_bank_backed_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "7 kernels 2:4-compressed" in out and "ratio 0.562" in out
     assert "sample continuation" in out
+
+
+def test_calibrate_launcher_raises_when_no_card(monkeypatch, tmp_path):
+    from repro_torch.launch import calibrate as launch_calibrate
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_calibrate.main(["--arch", "llama3.2-1b", "--smoke", "--out",
+                               str(tmp_path / "bank"), "--steps", "1"])
+    assert not (tmp_path / "bank").exists()
+
+
+def test_cpu_calibration_with_jax_and_repro_unimportable(tmp_path):
+    """The launcher calibrates on the CPU without jax, and the engine serves
+    2:4 weights from the bank it wrote."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        from repro_torch.configs.base import get_smoke_config
+        from repro_torch.launch import calibrate
+        from repro_torch.models import model as M
+        from repro_torch.serve.engine import ServeEngine
+        calibrate.main(["--arch", "llama3.2-1b", "--smoke", "--out",
+                        {str(tmp_path / "bank")!r}, "--steps", "2",
+                        "--calib-n", "2", "--batch", "2", "--seq", "32",
+                        "--device", "cpu"])
+        cfg = get_smoke_config("llama3.2-1b")
+        params = M.init_params(cfg, 0, device="cpu")
+        eng = ServeEngine.from_artifact({str(tmp_path / "bank")!r}, params,
+                                        slots=2, capacity=32, device="cpu")
+        rid = eng.submit([1, 2, 3, 4], 3)
+        assert len(eng.run()[rid]) == 3
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(ROOT), timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
+    assert "calibrated llama3.2-1b (smoke): 2 search steps" in r.stdout
