@@ -17,7 +17,11 @@ result line):
               and the least time the card could take (bytes or operations);
               the calibration kernels (prox24, saliency_fused_step) at every
               prunable leaf of full-width and smoke llama3.2-1b, bit for
-              bit.
+              bit; the decode attention kernels (flash_decode,
+              flash_decode_partial, the combine) at llama's serving shapes,
+              its long cache, mixtral's window and a ragged capacity, rows
+              at different positions and all-masked shards, against their
+              plain versions and ``F.scaled_dot_product_attention``'s time.
 4. llama    - the first main path at full width: llama3.2-1b (16 layers,
               d 2048) from random weights (``torch.Generator`` seed 0), 2:4
               masks by ``baseline_masks("magnitude", mode="nm")`` through
@@ -25,7 +29,14 @@ result line):
               serving 6 requests of 32-128 prompt tokens x 16 new tokens;
               launch counts asserted; the first kernel call at every
               distinct shape of the run held against its plain version;
-              then compressed vs masked-dense logits.
+              then the same requests at ``kv_shards=1`` (flash_decode) and
+              ``kv_shards=4`` (flash_decode_partial + combine), each path
+              counted on its own (one launch per layer per decode step),
+              its kernel calls held against their plain versions, its
+              logits and greedy streams against the ``kv_shards=None``
+              run; the decode step of each path timed eager and replayed
+              from a CUDA graph (replay == eager); then compressed vs
+              masked-dense logits.
 5. mixtral  - the MoE main path at full width: mixtral-8x22b cut from 56 to
               2 layers (memory) and nothing else, through the same phase,
               every expert bank through nm_matmul_expert; the routing of
@@ -46,8 +57,8 @@ result line):
 7. bank     - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-8. summary  - a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
-              line last.
+8. summary  - the card's line, a ``{"kernels": [...]}`` line (the eight
+              kernels), then the ``{"ok": true, ...}`` line last.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -339,6 +350,188 @@ def phase_nm_matmul_expert(torch, dev) -> dict:
     return {"max_abs_err": max_err, **_layer_totals(rows, EXPERT_SHAPES)}
 
 
+# decode attention: (label, B, K, G, D, C, shard counts), bf16.  llama's
+# serving shapes (4 slots x 8 kv heads x 4 query heads of 64, the serving
+# phases' capacity 256), its long cache, mixtral's heads at its 4096-slot
+# window, and the smoke heads at a C that is no multiple of any chunk of
+# the kernel.  Rows sit at different positions; row 1 sees only half of
+# the first shard, so each later shard of it is all-masked.
+FLASH_CASES = (("llama serving", 4, 8, 4, 64, 256, (1, 4)),
+               ("llama long cache", 4, 8, 4, 64, 8192, (1, 4, 16)),
+               ("mixtral window", 4, 8, 6, 128, 4096, (1, 4)),
+               ("ragged C, smoke heads", 3, 2, 2, 32, 148, (1, 4)))
+FLASH_KERNELS = ("flash_decode", "flash_decode_partial", "combine_partials")
+
+
+def flash_operands(torch, g, B, K, G, D, C, S, dev, copies=1):
+    """q, bias (0 / -1e30 from per-row positions, as decode_attend builds
+    it) and ``copies`` distinct bf16 K/V caches."""
+    n = C // S
+    pos = ([C - 1, n // 2, C // 2 + 3] + [0] * B)[:B]
+    ok = torch.arange(C, device=dev)[None, :] <= torch.tensor(
+        pos, device=dev)[:, None]
+    bias = torch.where(ok, 0.0, -1e30).to(torch.float32)
+    q = (0.5 * torch.randn((B, K, G, D), generator=g, device=dev)).to(
+        torch.bfloat16)
+    kvs = [tuple((0.5 * torch.randn((B, C, K, D), generator=g, device=dev))
+                 .to(torch.bfloat16) for _ in range(2))
+           for _ in range(copies)]
+    return q, bias, ok, kvs
+
+
+def flash_ratio(torch, name, args, got, shards=None, scale=None):
+    """The largest |kernel - plain| over its tolerance, for one call of a
+    decode attention kernel: f32 outputs 2e-4 of |plain| + the sum of the
+    absolute terms (sum p |v|: sums in another order, exp within an ulp)
+    + 2e-5; a bf16 output one bf16 ulp of |plain| more; an all-masked
+    shard's m and l exactly (-1e30 and its slot count)."""
+    from repro_torch.kernels import ref
+    if name == "combine_partials":
+        acc, m, l, dt = args
+        want = ref.combine_partials_ref(acc, m, l, torch.float32)
+        terms = ref.combine_partials_ref(acc.abs(), m, l, torch.float32)
+        outs = [(got, want, terms, dt)]
+    elif name == "flash_decode":
+        q, k, v, bias = args
+        want = ref.flash_decode_ref(q, k, v, bias, scale=scale).float()
+        terms = ref.flash_decode_ref(q, k, v.abs(), bias,
+                                     scale=scale).float()
+        outs = [(got, want, terms, q.dtype)]
+    else:
+        q, k, v, bias = args
+        wa, wm, wl = ref.flash_decode_shards_ref(q, k, v, bias, scale=scale,
+                                                 shards=shards)
+        ta = ref.flash_decode_shards_ref(q, k, v.abs(), bias, scale=scale,
+                                         shards=shards)[0]
+        acc, m, l = got
+        dead = wm == -1e30
+        n = k.shape[1] // shards
+        check(bool((m[dead] == -1e30).all()) and bool((l[dead] == n).all()),
+              f"flash_decode_partial {tuple(k.shape)} S={shards}: an "
+              "all-masked shard does not flush m = -1e30, l = its slots")
+        outs = [(acc, wa, ta, torch.float32), (m, wm, wm.abs(), torch.float32),
+                (l, wl, wl, torch.float32)]
+    worst, err = 0.0, 0.0
+    for g_, w, t, dt in outs:
+        tol = 2e-4 * (w.abs() + t) + 2e-5
+        if dt == torch.bfloat16:
+            tol = tol + w.abs() * 2 ** -7
+        e = (g_.float() - w).abs()
+        worst = max(worst, float((e / tol).max()))
+        err = max(err, float(e.max()))
+    return worst, err
+
+
+def phase_flash_decode(torch, dev) -> dict:
+    """flash_decode, flash_decode_partial and the combine against their
+    plain versions at each case; device times of the kernels, the plain
+    versions and ``F.scaled_dot_product_attention`` on the same work (the
+    port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (combine_partials,
+                                                  flash_decode,
+                                                  flash_decode_partial)
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rows = []
+    for label, B, K, G, D, C, shard_counts in FLASH_CASES:
+        kv_bytes = 2 * B * C * K * D * 2
+        copies = max(1, -(-2 * L2_BYTES // kv_bytes))
+        for S in shard_counts:
+            q, bias, ok, kvs = flash_operands(torch, g, B, K, G, D, C, S,
+                                              dev, copies)
+            k, v = kvs[0]
+            got = flash_decode(q, k, v, bias)
+            parts = flash_decode_partial(q, k, v, bias, shards=S)
+            comb = combine_partials(*parts, q.dtype)
+            torch.cuda.synchronize()
+            r_fd, e_fd = flash_ratio(torch, "flash_decode", (q, k, v, bias),
+                                     got)
+            r_p, e_p = flash_ratio(torch, "flash_decode_partial",
+                                   (q, k, v, bias), parts, S)
+            r_c, e_c = flash_ratio(torch, "combine_partials",
+                                   (*parts, q.dtype), comb)
+            # the combine of the kernel's partials against flash_decode_ref
+            r_e, _ = flash_ratio(torch, "flash_decode", (q, k, v, bias), comb)
+            for what, r in (("flash_decode", r_fd), ("flash_decode_partial",
+                                                     r_p),
+                            ("combine_partials", r_c),
+                            ("partial + combine vs flash_decode_ref", r_e)):
+                check(r <= 1, f"{what} {label} B={B} K={K} G={G} D={D} "
+                      f"C={C} S={S}: {r:.3f} of the tolerance")
+            qb, ob = B * K * G * D * 2, B * K * G * D * 2
+            base = kv_bytes + qb + B * C * 4
+            ops = 4 * B * K * G * C * D
+            part_bytes = S * B * K * G * (D + 2) * 4
+            b_fd = bound(base + ob, ops, F32_OPS_PER_S)
+            b_p = bound(base + part_bytes, ops, F32_OPS_PER_S)
+            b_c = bound(part_bytes + ob, 3 * S * B * K * G * (D + 2),
+                        F32_OPS_PER_S)
+            ms_p = device_ms(torch, lambda i: flash_decode_partial(
+                q, *kvs[i], bias, shards=S), copies)
+            plain_p = device_ms(torch, lambda i: ref.flash_decode_shards_ref(
+                q, *kvs[i], bias, shards=S), copies)
+            ms_c = device_ms(torch, lambda i: combine_partials(
+                *parts, q.dtype), 8)
+            plain_c = device_ms(torch, lambda i: ref.combine_partials_ref(
+                *parts, q.dtype), 8)
+            row = {"case": label, "B": B, "K": K, "G": G, "D": D, "C": C,
+                   "S": S, "flash_decode_partial": {
+                       "max_abs_err": e_p, "ms": ms_p, "plain_ms": plain_p,
+                       "library_ms": None, "bound_ms": b_p[0],
+                       "bound_by": b_p[1]},
+                   "combine_partials": {
+                       "max_abs_err": e_c, "ms": ms_c, "plain_ms": plain_c,
+                       "library_ms": None, "bound_ms": b_c[0],
+                       "bound_by": b_c[1]}}
+            if S == 1:
+                ms = device_ms(torch, lambda i: flash_decode(
+                    q, *kvs[i], bias), copies)
+                plain = device_ms(torch, lambda i: ref.flash_decode_ref(
+                    q, *kvs[i], bias), copies)
+                # the yardstick: SDPA, query heads k*G + g on kv head k
+                qs = q.reshape(B, K * G, 1, D)
+                mask = ok[:, None, None, :]
+                lib_args = [(kk.transpose(1, 2), vv.transpose(1, 2))
+                            for kk, vv in kvs]
+                try:
+                    lib_out = F.scaled_dot_product_attention(
+                        qs, *lib_args[0], attn_mask=mask, enable_gqa=True)
+                    lib_err = float((lib_out.reshape(B, K, G, D).float()
+                                     - got.float()).abs().max())
+                    lib = device_ms(
+                        torch, lambda i: F.scaled_dot_product_attention(
+                            qs, *lib_args[i], attn_mask=mask,
+                            enable_gqa=True), copies)
+                except RuntimeError as e:     # a backend that refuses
+                    print(f"  SDPA refused this work: {e}")
+                    lib, lib_err = None, None
+                row["flash_decode"] = {
+                    "max_abs_err": e_fd, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": b_fd[0],
+                    "bound_by": b_fd[1], "library_max_abs_diff": lib_err}
+                sdpa = ("SDPA refused" if lib is None else
+                        f"SDPA {lib * 1e3:8.2f} us (|SDPA - kernel| "
+                        f"{lib_err:.1e})")
+                print(f"  flash_decode {label:22s} B={B} K={K} G={G} D={D:3d}"
+                      f" C={C:5d}  err {e_fd:.2e}  kernel {ms * 1e3:8.2f} us"
+                      f"  plain {plain * 1e3:8.2f} us  {sdpa}  bound "
+                      f"{b_fd[0] * 1e3:6.2f} us ({b_fd[1]})  "
+                      f"{b_fd[0] / ms:6.1%} of bound")
+            print(f"  flash_decode_partial {label:22s} C={C:5d} S={S:2d}  "
+                  f"err {e_p:.2e}  kernel {ms_p * 1e3:8.2f} us  plain "
+                  f"{plain_p * 1e3:8.2f} us  bound {b_p[0] * 1e3:6.2f} us "
+                  f"({b_p[1]})  {b_p[0] / ms_p:6.1%} of bound; combine "
+                  f"err {e_c:.2e}  kernel {ms_c * 1e3:6.2f} us  plain "
+                  f"{plain_c * 1e3:7.2f} us  bound {b_c[0] * 1e3:5.2f} us; "
+                  f"partial + combine {(ms_p + ms_c) * 1e3:8.2f} us")
+            rows.append(row)
+            del kvs, k, v, parts
+            torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
 # the calibration path's search constants (PruneConfig defaults)
 PROX_LAM, V_LR, LAM = 1e-2, 0.1, 1e-3
 PROX_OPS = 11 * 12         # f32 ops per element: 11 per iteration, 12 iters
@@ -520,11 +713,38 @@ def _routed_sets(ids) -> "torch.Tensor":
 @contextlib.contextmanager
 def first_call_per_signature(calls: dict):
     """While open, every call that ``sparse/apply.py`` makes to a 2:4
-    kernel wrapper keeps, for the first call at each distinct signature
-    (kernel, shapes, dtypes, layout), its inputs and the output the path
-    went on with.  The wrappers themselves run and count as usual."""
+    kernel wrapper, and every call that ``models/attention.py`` and
+    ``kernels/shard.py`` make to a decode attention wrapper
+    (``kernels/flash_decode.py``, imported there by name), keeps, for the first call at each
+    distinct signature (kernel, shapes, dtypes, layout or shards), its
+    inputs and the output the path went on with.  The wrappers themselves
+    run and count as usual."""
+    import torch
+    from repro_torch.kernels import shard
+    from repro_torch.models import attention
     from repro_torch.sparse import apply as sparse_apply
     saved = {name: getattr(sparse_apply, name) for name in PATH_KERNELS}
+    # where the decode attention path looks its wrappers up
+    saved_fd = {(mod, name): getattr(mod, name) for mod, name in (
+        (attention, "flash_decode"), (shard, "flash_decode_partial"),
+        (shard, "combine_partials"))}
+
+    def clone(x):
+        if isinstance(x, tuple):
+            return tuple(clone(y) for y in x)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def flash_recorder(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            key = (name, tuple(tuple(a.shape) for a in args
+                               if isinstance(a, torch.Tensor)),
+                   args[0].dtype, args[-1] if name == "combine_partials"
+                   else None, kw.get("shards"))
+            if key not in calls:
+                calls[key] = (clone(args), kw, clone(out))
+            return out
+        return call
 
     def recorder(name, fn):
         def call(x, vals, idx, **kw):
@@ -538,11 +758,15 @@ def first_call_per_signature(calls: dict):
 
     for name, fn in saved.items():
         setattr(sparse_apply, name, recorder(name, fn))
+    for (mod, name), fn in saved_fd.items():
+        setattr(mod, name, flash_recorder(name, fn))
     try:
         yield calls
     finally:
         for name, fn in saved.items():
             setattr(sparse_apply, name, fn)
+        for (mod, name), fn in saved_fd.items():
+            setattr(mod, name, fn)
 
 
 def check_path_calls(torch, calls: dict) -> str:
@@ -563,9 +787,22 @@ def check_path_calls(torch, calls: dict) -> str:
                                              nm_matmul_plain)
     plain = {"nm_matmul": nm_matmul_plain,
              "nm_matmul_expert": nm_matmul_expert_plain}
-    worst, seen, n_cancel = 0.0, {name: set() for name in PATH_KERNELS}, 0
-    for key, (x, vals, idx, kw, got) in calls.items():
+    worst, n_cancel = 0.0, 0
+    seen = {name: set() for name in PATH_KERNELS + FLASH_KERNELS}
+    for key, rec in calls.items():
         name = key[0]
+        if name in FLASH_KERNELS:
+            args, kw, got = rec
+            ratio, _ = flash_ratio(torch, name, args, got, kw.get("shards"),
+                                   kw.get("scale"))
+            check(ratio <= 1, f"{name} at {key[1]} on the main path: an "
+                  f"output differs from its plain version by {ratio:.3f} "
+                  "of the tolerance")
+            worst = max(worst, ratio)
+            seen[name].add(key[1][0] if name == "combine_partials"
+                           else key[1][1] + ((key[4],) if key[4] else ()))
+            continue
+        x, vals, idx, kw, got = rec
         want = plain[name](x, vals, idx, **kw).float()
         terms = plain[name](x.abs(), vals.abs(), idx,
                             **{**kw, "out_dtype": torch.float32})
@@ -596,7 +833,217 @@ def check_path_calls(torch, calls: dict) -> str:
             f"plain version: worst {worst:.3f} of the tolerance, "
             f"{n_cancel} outputs past rtol=atol alone (cancelling sums); "
             + "; ".join(f"{name} at {sorted(s)}"
-                        for name, s in seen.items() if s))
+                        for name, s in seen.items() if s)
+            + " (decode attention: the K cache's shape and the shards; "
+            "the combine: the partials' shape)")
+
+
+@contextlib.contextmanager
+def recording_routes(routes: list):
+    """While open, every MoE routing appends (probs, sorted expert ids)
+    per token: (T, E), (T, k)."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+
+    def recording_route(router, x, top_k):
+        out = route(router, x, top_k)
+        routes.append((out[0].reshape(-1, out[0].shape[-1]),
+                       _routed_sets(out[2])))
+        return out
+
+    moe_mod.route = recording_route
+    try:
+        yield routes
+    finally:
+        moe_mod.route = route
+
+
+def record_decode(eng, routes: list) -> list:
+    """From now on, each decode step of ``eng``: (rid per slot, fed
+    tokens, positions, logits, the step's routings: what ``routes``
+    gained during it).  ``del eng.fns.decode`` stops it."""
+    steps, fn = [], eng.fns.decode
+
+    def decode(params, toks, caches, t):
+        r0 = len(routes)
+        logits, caches = fn(params, toks, caches, t)
+        steps.append(([None if r is None else r.rid for r in eng.active],
+                      toks.clone(), t.clone(), logits.clone(),
+                      routes[r0:]))
+        return logits, caches
+
+    eng.fns.decode = decode
+    return steps
+
+
+def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool):
+    """Two engine runs of the same requests, row by row, for every decode
+    row whose request has the same history in both (the same fed tokens,
+    and the same experts wherever it routed):
+
+    * if the row routes to other experts in some MoE layer, the first such
+      layer is a near-tie: the reference's margin between an expert only
+      it keeps and one only the other run keeps is at most twice the
+      largest difference of the two runs' router probabilities there; the
+      request is compared no further;
+    * else its logits are within LOGIT_ULPS_FULL bf16 ulps of the
+      reference row's largest, and where the greedy tokens differ, the
+      reference's margin between the two tokens is at most twice the
+      measured logit difference (a near-tie); the request is compared no
+      further.
+
+    ``coupled`` (MoE: the rows of a step share expert capacity): nothing
+    after the first step with a near-tie.  Returns (rows compared, worst
+    logit error over its tolerance, token near-ties, routing near-ties)."""
+    def rows(steps):
+        return {(rid, int(t[s])): (i, s, int(toks[s]), lg[s], routes)
+                for i, (rids, toks, t, lg, routes) in enumerate(steps)
+                for s, rid in enumerate(rids) if rid is not None}
+    ref_rows, got_rows = rows(ref_steps), rows(got_steps)
+    diverged, ties, rerouted, stop = set(), [], [], None
+    n, worst = 0, 0.0
+    for key in sorted(ref_rows, key=lambda k: (ref_rows[k][0], k)):
+        i, sa, tok_a, la, ra = ref_rows[key]
+        if key[0] in diverged or key not in got_rows or (
+                stop is not None and i > stop):
+            continue
+        _, sb, tok_b, lb, rb = got_rows[key]
+        if tok_a != tok_b:
+            diverged.add(key[0])
+            continue
+        flip = next((j for j, (x, y) in enumerate(zip(ra, rb, strict=True))
+                     if not torch.equal(x[1][sa], y[1][sb])), None)
+        if flip is not None:
+            pa, pb = ra[flip][0][sa], rb[flip][0][sb]
+            ia, ib = set(ra[flip][1][sa].tolist()), set(
+                rb[flip][1][sb].tolist())
+            perr = float((pa - pb).abs().max())
+            margin = float(min(pa[x] for x in ia - ib)
+                           - max(pa[y] for y in ib - ia))
+            check(margin <= 2 * perr, f"request {key[0]} at position "
+                  f"{key[1]}: experts {sorted(ia)} vs {sorted(ib)} in MoE "
+                  f"layer {flip}, margin {margin} past twice the router "
+                  f"probability difference {perr}")
+            rerouted.append((key[0], key[1], flip, margin, perr))
+        else:
+            err, tol = logit_err(torch, lb, la, LOGIT_ULPS_FULL)
+            check(err <= tol, f"request {key[0]} at position {key[1]}: "
+                  f"logits differ by {err} over {tol} ({LOGIT_ULPS_FULL} "
+                  "bf16 ulps of the row's max)")
+            n += 1
+            worst = max(worst, err / tol)
+            a, b = int(la.argmax()), int(lb.argmax())
+            if a == b:
+                continue
+            margin = float(la[a] - la[b])
+            check(margin <= 2 * err, f"request {key[0]} at position "
+                  f"{key[1]}: tokens {a} vs {b} with margin {margin} past "
+                  f"twice the logit difference {err}")
+            ties.append((key[0], key[1], a, b, margin, err))
+        diverged.add(key[0])
+        if coupled and stop is None:
+            stop = i
+    return n, worst, ties, rerouted
+
+
+def replay_matches_eager(torch, fn) -> bool:
+    """``fn()`` (a decode step: the same inputs write the same cache slot)
+    captured in a CUDA graph and replayed returns what it returns
+    eagerly."""
+    want = fn().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    del graph
+    return same
+
+
+KV_SHARDS = (1, 4)      # the kv_shards of the serving runs besides None
+
+
+def paired_graph_ms(torch, steps: dict, rounds: int = 10,
+                    reps: int = 10) -> dict:
+    """Each ``steps[key]()`` captured in a CUDA graph of its own; then
+    ``rounds`` rounds that replay every graph ``reps`` times between CUDA
+    events, in turns (the order reversed every other round).  key ->
+    (median, min, max) ms of one replay: the step's device work with no
+    host gap between its kernels, compared inside one call."""
+    graphs = {}
+    for key, fn in steps.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[key] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[key]):
+            fn()
+    times = {key: [] for key in graphs}
+    for r in range(rounds):
+        for key in (list(graphs) if r % 2 == 0 else list(graphs)[::-1]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(reps):
+                graphs[key].replay()
+            e1.record()
+            e1.synchronize()
+            times[key].append(e0.elapsed_time(e1) / reps)
+    del graphs
+    return {key: (statistics.median(t), min(t), max(t))
+            for key, t in times.items()}
+
+
+def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
+    """One path's decode step at 4 slots: the eager wall time (median of
+    steps 4-23), the step replayed from a CUDA graph against the eager
+    step, a profiler's kernels over 3 eager steps, and the step itself
+    (``step``, with its own caches) for :func:`paired_graph_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    caches = M.init_caches(cfg, 4, 256, device=dev)
+    tok = torch.from_numpy(batch[:4, 0]).to(dev)
+    steps = []
+    for i in range(24):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = M.decode_step(cfg, params, tok, caches, i,
+                                       kv_shards=kv_shards)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    t_dev = torch.full((4,), 30, dtype=torch.int32, device=dev)
+
+    def step(i=0):
+        return M.decode_step(cfg, params, tok, caches, t_dev,
+                             kv_shards=kv_shards)[0]
+
+    replay_ok = replay_matches_eager(torch, step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    # the kernels themselves (an operator's row would count them twice)
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    return {"step_ms": statistics.median(steps[4:]) * 1e3,
+            "step": step, "replay_ok": replay_ok,
+            "kernels": sum(e.count for e in evs) / 3,
+            "device_ms": sum(e.self_device_time_total for e in evs) / 3e3,
+            "top": [(e.self_device_time_total / 3, e.count / 3, e.key)
+                    for e in sorted(evs, key=lambda e:
+                                    -e.self_device_time_total)[:8]]}
 
 
 def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
@@ -607,12 +1054,16 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
     from repro_torch import tree
     from repro_torch.core.calibrate import baseline_masks
     from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.nm_prox import nm_mask24
     from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sparse.apply import compressed_report, sparsify_params
+    counted = {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
+               "nm_mask24": nm_mask24,
+               **{name: getattr(fd, name) for name in FLASH_KERNELS}}
 
     L = cfg.num_layers
     n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds)
@@ -634,7 +1085,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
 
     # -- the main path, counted ---------------------------------------------
     calls = {}
-    nm_matmul.launches = nm_matmul_expert.launches = nm_mask24.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     masks = baseline_masks("magnitude", params0, stats, 0.5, mode="nm")
@@ -643,19 +1095,22 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
     torch.cuda.synchronize()
     t_export = time.perf_counter() - t0
     eng = ServeEngine(cfg, sparse, slots=4, capacity=256, device=dev)
+    routes = []
+    steps_ref = record_decode(eng, routes)
     rids = [eng.submit(p, max_tokens) for p in prompts]
     t0 = time.perf_counter()
-    with first_call_per_signature(calls):
+    with first_call_per_signature(calls), recording_routes(routes):
         out = eng.run()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
-    launches = {"nm_matmul": nm_matmul.launches,
-                "nm_matmul_expert": nm_matmul_expert.launches,
-                "nm_mask24": nm_mask24.launches}
+    launches = {name: fn.launches for name, fn in counted.items()}
     # -----------------------------------------------------------------------
+    del eng.fns.decode
     forwards = eng.decode_steps + eng.prefill_calls
     print(f"  main path launches: {launches} over {eng.prefill_calls} "
           f"prefills + {eng.decode_steps} decode steps")
+    check(all(launches[name] == 0 for name in FLASH_KERNELS),
+          "kv_shards=None launched a decode attention kernel")
     check(all(len(out[r]) == max_tokens for r in rids),
           f"requests finished with {[len(out[r]) for r in rids]} tokens")
     check(launches["nm_mask24"] == 7,
@@ -680,6 +1135,70 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
           f"{t_serve:.3f} s (first run, cold) = {n_tok / t_serve:.1f} tok/s")
     del sparse
 
+    # -- the same requests through the decode attention kernels: kv_shards
+    # 1 (flash_decode) and S (flash_decode_partial over S capacity shards +
+    # the combine), each a path counted on its own ----------------------
+    kv_runs = {}
+    for S in KV_SHARDS:
+        calls = {}
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        e = ServeEngine(cfg, eng.params, slots=4, capacity=256, device=dev,
+                        kv_shards=S)
+        kv_routes = []
+        steps = record_decode(e, kv_routes)
+        kv_rids = [e.submit(p, max_tokens) for p in prompts]
+        t0 = time.perf_counter()
+        with first_call_per_signature(calls), recording_routes(kv_routes):
+            kv_out = e.run()
+        torch.cuda.synchronize()
+        t_kv = time.perf_counter() - t0
+        kv_launches = {name: fn.launches for name, fn in counted.items()}
+        # -------------------------------------------------------------------
+        fw = e.decode_steps + e.prefill_calls
+        print(f"  kv_shards={S}: launches {kv_launches} over "
+              f"{e.prefill_calls} prefills + {e.decode_steps} decode steps; "
+              f"engine {n_tok / t_kv:.1f} tok/s (first run)")
+        check(kv_rids == rids and all(len(kv_out[r]) == max_tokens
+                                      for r in kv_rids),
+              f"kv_shards={S}: requests finished with "
+              f"{[len(kv_out[r]) for r in kv_rids]} tokens")
+        want = {"nm_mask24": 0,
+                "flash_decode": L * e.decode_steps if S == 1 else 0,
+                "flash_decode_partial": 0 if S == 1 else L * e.decode_steps,
+                "combine_partials": 0 if S == 1 else L * e.decode_steps,
+                **{name: per_layer[name] * L * fw for name in PATH_KERNELS}}
+        check(kv_launches == want, f"kv_shards={S}: launches {kv_launches}, "
+              f"want {want} ({L} layers per decode step)")
+        print("  " + check_path_calls(torch, calls))
+        del calls
+        n_rows, worst, ties, rerouted = compare_decode_runs(
+            torch, steps_ref, steps, coupled=n_moe > 0)
+        differ = [r for r in rids if kv_out[r] != out[r]]
+        explained = len(ties) + len(rerouted)
+        # every differing stream starts at a counted near-tie; with MoE,
+        # streams are compared only up to the first one
+        check(len(differ) == len(ties) if not n_moe else
+              (not differ or explained > 0),
+              f"kv_shards={S}: streams of requests {differ} differ, "
+              f"{len(ties)} token and {len(rerouted)} routing near-ties")
+        print(f"  kv_shards={S} vs None: {n_rows} decode rows with the same "
+              f"history, logits worst {worst:.3f} of the tolerance "
+              f"({LOGIT_ULPS_FULL} bf16 ulps of the row's max); greedy "
+              f"streams identical for {len(rids) - len(differ)} of "
+              f"{len(rids)} requests; token near-ties (request, position, "
+              f"None's token, this run's, margin, logit difference): {ties}"
+              + (f"; routing near-ties (request, position, layer, margin, "
+                 f"router probability difference): {rerouted}; MoE rows "
+                 "share expert capacity, so rows are compared up to the "
+                 "first near-tie" if n_moe else ""))
+        kv_runs[S] = {"launches": kv_launches, "worst": worst,
+                      "rows": n_rows, "near_ties": explained,
+                      "differ": len(differ)}
+        del e, steps, kv_routes
+    del steps_ref, routes
+
     # -- steady-state timings (host clock around synchronised work) ---------
     with torch.inference_mode():
         rids = [eng.submit(p, max_tokens) for p in prompts]
@@ -696,52 +1215,37 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
             M.prefill(cfg, eng.params, {"tokens": toks}, cache_capacity=256)
             torch.cuda.synchronize()
             pre.append(time.perf_counter() - t0)
-        caches = M.init_caches(cfg, 4, 256, device=dev)
-        tok = torch.from_numpy(batch[:4, 0]).to(dev)
-        steps = []
-        for i in range(24):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, caches = M.decode_step(cfg, eng.params, tok, caches, i)
-            tok = logits.argmax(-1)
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t0)
-        # the step's device work alone: one decode step captured in a CUDA
-        # graph and replayed, so no host launch gap sits between kernels
-        t_dev = torch.full((4,), 30, dtype=torch.int32, device=dev)
-        step_dev_ms = device_ms(torch, lambda i: M.decode_step(
-            cfg, eng.params, tok, caches, t_dev), 1)
-        # where the device time of an eager decode step goes, by kernel
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                logits, caches = M.decode_step(cfg, eng.params, tok, caches,
-                                               t_dev)
-            torch.cuda.synchronize()
-    step_ms = statistics.median(steps[4:]) * 1e3
+        by_kv = {}
+        for S in (None,) + KV_SHARDS:
+            by_kv[S] = decode_step_times(torch, M, cfg, eng.params, batch,
+                                         dev, S)
+        graph = paired_graph_ms(torch, {S: r.pop("step")
+                                        for S, r in by_kv.items()})
+        for S, r in by_kv.items():
+            r["graph_ms"], r["graph_min_ms"], r["graph_max_ms"] = graph[S]
+    step_ms = by_kv[None]["step_ms"]
+    step_dev_ms = by_kv[None]["graph_ms"]
     prefill_ms = statistics.median(pre) * 1e3
     peak = torch.cuda.max_memory_allocated()
     print(f"  [{card}] prefill 1x128 {prefill_ms:.2f} ms; decode "
           f"{step_ms:.2f} ms/step at 4 slots = {4e3 / step_ms:.1f} tok/s; "
           f"engine (warm) {n_tok / t_warm:.1f} tok/s; max memory allocated "
           f"{peak / 2 ** 30:.2f} GiB")
-    print(f"  decode step device time under a CUDA graph {step_dev_ms:.3f} ms"
-          f" = {step_dev_ms / step_ms:.1%} of the eager step (the rest is "
-          "host time between launches)")
-    # the kernels themselves (an operator's row would count them twice)
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in evs) / 3
-    n_kern = sum(e.count for e in evs) / 3
-    print(f"  profiler, 3 eager decode steps: {n_kern:.0f} kernels and "
-          f"{dev_us / 1e3:.3f} ms of device time per step; top kernels (us "
-          "per step, launches per step):")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 3:10.1f}  {e.count / 3:5.1f}"
-              f"  {e.key[:90]}")
+    for S, r in by_kv.items():
+        print(f"  kv_shards={S}: eager decode step {r['step_ms']:.2f} ms; "
+              f"CUDA graph replayed {r['graph_ms']:.3f} ms (median of 10 "
+              f"rounds in turns with the other paths, "
+              f"{r['graph_min_ms']:.3f}-{r['graph_max_ms']:.3f}; = "
+              f"{r['graph_ms'] / r['step_ms']:.1%} of the eager step, the "
+              f"rest host time between launches); replay == eager: "
+              f"{r['replay_ok']}; profiler, 3 eager steps: "
+              f"{r['kernels']:.0f} kernels and {r['device_ms']:.3f} ms of "
+              "device time per step; top kernels (us per step, launches "
+              "per step):")
+        for us, count, key in r["top"]:
+            print(f"    {us:10.1f}  {count:5.1f}  {key[:90]}")
+        check(r["replay_ok"], f"kv_shards={S}: the decode step replayed "
+              "from a CUDA graph differs from the eager step")
 
     # -- compressed vs plain masked-dense, same fed tokens ------------------
     masked = M.serving_params(tree.tree_map(
@@ -809,7 +1313,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
           f"{MAX_REROUTED_ROWS}")
     return {"launches": launches, "step_ms": step_ms,
             "step_dev_ms": step_dev_ms, "prefill_ms": prefill_ms,
-            "peak_gib": peak / 2 ** 30}
+            "peak_gib": peak / 2 ** 30, "kv_runs": kv_runs,
+            "steps_by_kv": by_kv}
 
 
 # ---------------------------------------------------------------------------
@@ -1344,6 +1849,7 @@ def main() -> int:
                        get_smoke_config("llama3.2-1b"))}
     prox = phase_prox24(torch, dev, calib_paths)
     fused = phase_saliency(torch, dev, calib_paths)
+    flash = phase_flash_decode(torch, dev)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
@@ -1378,6 +1884,16 @@ def main() -> int:
     paths = {"llama3.2-1b": llama["launches"],
              "mixtral-8x22b": moe["launches"],
              "calibrate llama3.2-1b": calib["launches"]}
+    for name, run in (("llama3.2-1b", llama), ("mixtral-8x22b", moe)):
+        for S, r in run["kv_runs"].items():
+            paths[f"{name} kv_shards={S}"] = r["launches"]
+
+    def flash_row(name, case, S):
+        rows = [r for r in flash["rows"] if name in r]
+        head = next(r for r in rows if r["case"] == case and r["S"] == S)
+        return {**head[name], "by_case": [
+            {k: r[k] for k in ("case", "B", "K", "G", "D", "C", "S")}
+            | r[name] for r in rows]}
 
     def counts(name):
         by = {k: v[name] for k, v in paths.items() if name in v}
@@ -1416,6 +1932,29 @@ def main() -> int:
          "work": "one full-width llama3.2-1b search step: the 7 prunable "
                  "leaves, wanda scores over the median divisor, V and Gamma "
                  "f32 in place; by_path: one step on each calibration path"},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:58",
+         **counts("flash_decode"),
+         **flash_row("flash_decode", "llama serving", 1),
+         "work": "one llama3.2-1b decode layer's attention at serving: "
+                 "B=4 slots, 8 kv heads x 4 query heads of 64, C=256, bf16; "
+                 "library: F.scaled_dot_product_attention (enable_gqa)"},
+        {"name": "flash_decode_partial", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:140",
+         **counts("flash_decode_partial"),
+         **flash_row("flash_decode_partial", "llama serving", 4),
+         "work": "the same at kv_shards=4: (acc, m, l) of 4 capacity shards "
+                 "in one launch"},
+        {"name": "flash_decode_combine", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/shard.py:327",
+         **counts("combine_partials"),
+         **flash_row("combine_partials", "llama serving", 4),
+         "work": "the 4 shards' partials of the same layer -> bf16 output; "
+                 "replaces the pmax/psum combine of shard.py:327-330, which "
+                 "has no Pallas counterpart"},
     ]
     print(f"  {time.perf_counter() - t_start:.1f} s in all")
     print(card)

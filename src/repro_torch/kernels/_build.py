@@ -46,6 +46,10 @@ ENTRY_POINTS = {
         "repro_saliency_fused_step": [_P] * 9 + [_LL] + [_I] * 4
                                      + [_F, _F, _P],
     },
+    "flash_decode": {
+        "repro_flash_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "repro_flash_decode_combine": [_P] * 4 + [_I] * 5 + [_P],
+    },
 }
 # flags of one source on top of NVCC_FLAGS: the elementwise search passes
 # round every op on its own, as their plain PyTorch versions do

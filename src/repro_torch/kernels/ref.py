@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the ported kernels.
 
 The CPU path of every kernel wrapper, and what ``chip_smoke.py`` holds each
-CUDA kernel against on the card.  They repeat ``repro.kernels.ref`` op for
-op, so on the CPU they agree with the JAX package exactly on integer
-outputs.
+CUDA kernel against on the card.  They repeat ``repro.kernels.ref`` (and
+the materialised oracles beside the flash-decode kernels) op for op, so on
+the CPU they agree with the JAX package exactly on integer outputs.
 """
 from __future__ import annotations
 
@@ -115,3 +115,70 @@ def prox24_ref(w: torch.Tensor, lam: float, *, iters: int = 12,
     on a 2-D (K, N) input, as the reference's oracle is."""
     from repro_torch.core.prox import prox_nm24
     return prox_nm24(w, lam, iters=iters, damping=damping)
+
+
+# --- flash_decode ----------------------------------------------------------
+
+NEG_INF = -1e30     # the additive mask of an invalid slot
+
+
+def _decode_scores(q, k, bias, scale):
+    """(B,K,G,D) x (B,C,K,D) -> f32 (B,K,G,C): (q . k) * scale + bias."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.einsum("bkgd,bckd->bkgc", q.float(), k.float()) * scale
+    return s + bias[:, None, None, :]
+
+
+def flash_decode_ref(q, k, v, bias, *, scale=None):
+    """The materialised oracle of the ``flash_decode`` kernel
+    (``flash_decode.py:91 flash_decode_ref``): softmax over the whole
+    capacity in f32, f32 probabilities into PV.
+
+    q (B,K,G,D); k/v (B,C,K,D|Dv); bias (B,C) f32, 0 or -1e30 per slot ->
+    (B,K,G,Dv) in q's dtype."""
+    p = torch.softmax(_decode_scores(q, k, bias, scale), dim=-1)
+    return torch.einsum("bkgc,bckd->bkgd", p, v.float()).to(q.dtype)
+
+
+def flash_decode_partial_ref(q, k, v, bias, *, scale=None):
+    """The materialised (acc, m, l) oracle of ``flash_decode_partial``
+    (``flash_decode.py:183``), f32: m = max(max_c s_c, -1e30) (B,K,G,1),
+    l = sum_c exp(s_c - m) (B,K,G,1), acc = sum_c exp(s_c - m) v_c
+    (B,K,G,Dv).  An all-masked capacity gives m = -1e30, l = C and
+    acc = sum_c v_c."""
+    s = _decode_scores(q, k, bias, scale)
+    m = torch.clamp_min(s.amax(dim=-1, keepdim=True), NEG_INF)
+    p = torch.exp(s - m)
+    acc = torch.einsum("bkgc,bckd->bkgd", p, v.float())
+    return acc, m, p.sum(dim=-1, keepdim=True)
+
+
+def flash_decode_shards_ref(q, k, v, bias, *, scale=None, shards: int = 1):
+    """:func:`flash_decode_partial_ref` on each of ``shards`` equal
+    capacity slices [s C/S, (s+1) C/S), stacked on a leading shard axis:
+    acc (S,B,K,G,Dv), m and l (S,B,K,G,1)."""
+    n = k.shape[1] // shards
+    parts = [flash_decode_partial_ref(q, k[:, i * n:(i + 1) * n],
+                                      v[:, i * n:(i + 1) * n],
+                                      bias[:, i * n:(i + 1) * n],
+                                      scale=scale)
+             for i in range(shards)]
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def combine_partials_ref(acc, m, l, out_dtype):
+    """The cross-shard combine of ``repro/kernels/shard.py:327-330``: the
+    global max mg over shards (the pmax), corr = exp(m - mg), (l, acc)
+    rescaled and summed over shards in shard order 0..S-1 (the psum), then
+    acc / max(l, 1e-30) in ``out_dtype``.  An all-masked shard (m = -1e30)
+    gets corr = 0 against any shard with a valid slot.
+
+    acc (S,B,K,G,Dv), m and l (S,B,K,G,1), f32 -> (B,K,G,Dv)."""
+    mg = m.amax(dim=0)
+    l_tot = acc_tot = None
+    for i in range(m.shape[0]):
+        corr = torch.exp(m[i] - mg)
+        li, ai = l[i] * corr, acc[i] * corr
+        l_tot = li if l_tot is None else l_tot + li
+        acc_tot = ai if acc_tot is None else acc_tot + ai
+    return (acc_tot / torch.clamp_min(l_tot, 1e-30)).to(out_dtype)

@@ -1,0 +1,65 @@
+"""Decode attention over a capacity-sharded KV cache, on one card.
+
+Port of the decode half of ``repro.kernels.shard`` (``shard.py:261-338``:
+``kv_shard_axes`` and ``decode_attend_sharded``).  In the reference the
+capacity axis of every KV cache is sharded over the mesh's ``model`` axis
+(``m = mesh.shape["model"]``) and each device runs ``flash_decode_partial``
+on its shard before one pmax and one psum combine the shards.  Here the
+``m`` shards are a grid axis of one ``flash_decode_partial`` launch and the
+combine is a kernel of its own (``kernels/flash_decode.py``); the
+arithmetic is the reference's.
+
+Two differences, both deliberate: the reference takes the sharded branch
+only for B > 1 (its cache layout on the mesh); one card has no such
+layout, so B = 1 shards too.  And where the reference replicates a cache
+whose capacity ``m`` does not divide, the port raises
+(:func:`check_kv_shards`): ``kv_shards`` asks for this path, and it never
+falls back quietly to the replicated one.
+
+The K-sharded projection wrappers and the multi-card form (ranks, NCCL)
+wait for the tensor-parallel slice (ROADMAP A13), which reuses these
+kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_decode import (combine_partials,
+                                              flash_decode_partial)
+from repro_torch.kernels.ref import NEG_INF
+
+
+def check_kv_shards(kv_shards, cache_lengths) -> None:
+    """Raise ``ValueError`` unless ``kv_shards`` is None or an integer
+    >= 1 that divides every cache length (a layer's ring: the capacity, or
+    min(capacity, window) for a sliding-window layer)."""
+    if kv_shards is None:
+        return
+    if isinstance(kv_shards, bool) or not isinstance(kv_shards, int) \
+            or kv_shards < 1:
+        raise ValueError(f"kv_shards must be None or an integer >= 1, got "
+                         f"{kv_shards!r}")
+    bad = sorted(c for c in set(cache_lengths) if c % kv_shards)
+    if bad:
+        raise ValueError(f"kv_shards={kv_shards} does not divide the KV "
+                         f"cache length(s) {bad}: the capacity shards must "
+                         "be equal")
+
+
+def decode_attend_sharded(qg: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, ok: torch.Tensor, *,
+                          shards: int, scale: float) -> torch.Tensor:
+    """Partial-softmax decode attention over ``shards`` capacity shards.
+
+    qg (B,K,G,D); cache_k/v (B,C,K,D); ok (B,C) valid-slot mask (position
+    and window, built by the caller as the replicated path builds it).
+    The bias is ``where(ok, 0, -1e30)`` in f32 (``shard.py:324``); each
+    shard's (acc, m, l) comes from :func:`flash_decode_partial` (which
+    raises unless ``shards`` divides C), and
+    :func:`combine_partials` takes the max over shards, rescales, sums in
+    shard order and normalises: (B,K,G,Dv) in qg's dtype.
+    """
+    bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+    acc, m, l = flash_decode_partial(qg, cache_k, cache_v, bias,
+                                     scale=scale, shards=shards)
+    return combine_partials(acc, m, l, qg.dtype)

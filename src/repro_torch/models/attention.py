@@ -3,10 +3,10 @@
 sliding-window causal attention; softcap, QK-norm and MLA come with the
 families that use them).
 
-Two execution paths, both plain torch as in the reference, which leaves
-them to XLA:
+Two execution paths:
 
-* :func:`flash_attention` - prefill and calibration.  The reference's
+* :func:`flash_attention` - prefill and calibration, plain torch as in
+  the reference, which leaves it to XLA.  The reference's
   chunked online-softmax forward (query blocks in a Python loop,
   triangle-exact under the causal mask; kv blocks with a running
   (m, l, acc) state), f32 logits and accumulator, probabilities rounded to
@@ -16,9 +16,17 @@ them to XLA:
   through the forward would differentiate the bf16-rounded p.
 * :func:`decode_attend`   - one query per row against the KV ring, with
   per-row positions; a windowed layer's ring holds min(capacity, window)
-  slots.  It rounds ``p / l`` to the cache dtype (bf16) before
-  PV, as the reference's ``decode_attend`` does (the TPU ``flash_decode``
-  kernel keeps f32 probabilities; serving does not call it).
+  slots.  ``kv_shards`` picks how:
+
+  - ``None`` (default): the reference's replicated ``decode_attend``,
+    plain torch, which rounds ``p / l`` to the cache dtype (bf16) before
+    PV;
+  - ``1``: the ``flash_decode`` kernel (``ops.py:76 decode_attention``),
+    f32 probabilities;
+  - ``S >= 2``: the reference's tensor-parallel branch on a mesh with
+    ``model = S`` (``kernels/shard.py decode_attend_sharded``): the
+    ``flash_decode_partial`` kernel over S capacity shards, then the
+    combine kernel.
 
 bf16 einsums in torch return bf16, where JAX's
 ``preferred_element_type=float32`` returns f32, so operands are upcast to
@@ -30,6 +38,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import shard as ksh
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
 
@@ -270,24 +280,38 @@ def ring_positions(t: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.where(p >= 0, p, tt + 1 + capacity)
 
 
-def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0):
+def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0,
+                  kv_shards=None):
     """One-token attention against a cache.
 
     q: (B, H, D); cache_k/v: (B, C, K, D); kpos: position of each slot,
     (C,) or (B, C); t: current position, scalar or (B,).  Valid slots:
-    kpos <= t, and t - kpos < window when window > 0.
+    kpos <= t, and t - kpos < window when window > 0.  ``kv_shards``: None
+    (replicated, plain torch), 1 (``flash_decode``) or S >= 2 dividing C
+    (S capacity shards, ``flash_decode_partial`` + combine); see the
+    module docstring.
     """
     B, H, D = q.shape
     K = cache_k.shape[2]
     scale = D ** -0.5 if scale is None else scale
     qg = q.reshape(B, K, H // K, D)
-    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache_k.float()) * scale
     kb = kpos if kpos.dim() == 2 else kpos[None]             # (1|B, C)
     tq = t.to(torch.int32)
     tb = tq[:, None] if tq.dim() == 1 else tq                # (B, 1) | ()
     ok = kb <= tb
     if window:
         ok &= tb - kb < window
+    if kv_shards is not None:
+        ksh.check_kv_shards(kv_shards, (cache_k.shape[1],))
+        ok = ok.expand(B, cache_k.shape[1])
+        if kv_shards == 1:
+            bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+            o = flash_decode(qg, cache_k, cache_v, bias, scale=scale)
+        else:
+            o = ksh.decode_attend_sharded(qg, cache_k, cache_v, ok,
+                                          shards=kv_shards, scale=scale)
+        return o.reshape(B, H, cache_v.shape[-1]).to(q.dtype)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache_k.float()) * scale
     s = torch.where(ok[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -301,13 +325,14 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
                       t: torch.Tensor, *, num_heads: int, num_kv: int,
                       head_dim: int, rope_theta: float = 1e4,
                       use_rope: bool = True, window: int = 0,
-                      scale: float | None = None,
+                      scale: float | None = None, kv_shards: int | None = None,
                       ) -> tuple[torch.Tensor, PyTree]:
     """Decode one token per row.  x: (B, 1, d); t: (B,) per-row positions.
 
     Row b writes its own ring slot t[b] % C of ``cache`` IN PLACE (the
     reference returns an updated copy; the values are the same) and
-    attends at its own position.
+    attends at its own position, through :func:`decode_attend`'s
+    ``kv_shards`` path.
     """
     B, S, _ = x.shape
     if S != 1:
@@ -325,6 +350,6 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     kpos = ring_positions(t, C)
     o = decode_attend(q[:, 0], cache["k"], cache["v"], kpos, t, scale=scale,
-                      window=window)
+                      window=window, kv_shards=kv_shards)
     y = cm.dense(p["wo"], o.reshape(B, 1, num_heads * head_dim))
     return y, cache

@@ -8,10 +8,12 @@ Every block kind exposes:
   block_init(kind, b, cfg)                          -> params
   block_apply_full(kind, cfg, p, x, ctx)            -> (x, aux, cache|None)
   block_init_cache(kind, cfg, batch, capacity, ...) -> cache entry
-  block_apply_decode(kind, cfg, p, x, cache, t)     -> (x, cache)
+  block_apply_decode(kind, cfg, p, x, cache, t, kv_shards=None)
+                                                    -> (x, cache)
 
 aux is the MoE load-balance loss (None for the MLP kinds).  Windowed kinds
-keep a KV ring of min(capacity, sliding_window) slots.
+keep a KV ring of min(capacity, sliding_window) slots (:func:`cache_length`);
+``kv_shards`` picks the decode attention path (``attention.decode_attend``).
 """
 from __future__ import annotations
 
@@ -121,20 +123,27 @@ def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
     return h + f, aux, cache
 
 
-def block_init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
-                     *, device, lead: tuple = ()) -> PyTree:
+def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int:
+    """Slots of a ``kind`` layer's KV ring at ``capacity``."""
     _check_kind(kind)
     if kind in _LOCAL and cfg.sliding_window:
-        capacity = min(capacity, cfg.sliding_window)
-    return attn.make_kv_cache(batch, capacity, cfg.num_kv_heads,
-                              cfg.head_dim, device=device, lead=lead)
+        return min(capacity, cfg.sliding_window)
+    return capacity
+
+
+def block_init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
+                     *, device, lead: tuple = ()) -> PyTree:
+    return attn.make_kv_cache(batch, cache_length(kind, cfg, capacity),
+                              cfg.num_kv_heads, cfg.head_dim, device=device,
+                              lead=lead)
 
 
 def block_apply_decode(kind: str, cfg: ModelConfig, p: PyTree,
-                       x: torch.Tensor, cache: PyTree, t: torch.Tensor):
+                       x: torch.Tensor, cache: PyTree, t: torch.Tensor, *,
+                       kv_shards: int | None = None):
     _check_kind(kind)
     a, cache = attn.attn_apply_decode(
-        p["attn"], _norm(cfg, p["ln1"], x), cache, t,
+        p["attn"], _norm(cfg, p["ln1"], x), cache, t, kv_shards=kv_shards,
         **_attn_kwargs(cfg, local=kind in _LOCAL))
     h, n = _residual_norm(cfg, p["ln2"], x, a)
     f, _ = _ffn_apply(cfg, p, n)

@@ -246,11 +246,19 @@ def prefill(cfg: ModelConfig, params: PyTree, batch: dict, *,
     return _unembed(cfg, params, x)[:, 0], caches
 
 
-def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t):
+def cache_lengths(cfg: ModelConfig, capacity: int) -> set[int]:
+    """The distinct KV ring lengths of ``cfg``'s layers at ``capacity``."""
+    return {blk.cache_length(k, cfg, capacity) for k in cfg.layer_kinds}
+
+
+def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
+                kv_shards: int | None = None):
     """One decode step.  token: (B,) ints; t: position, a scalar (the whole
     batch in lockstep) or (B,) per-row positions (the serve engine's fused
     decode).  Writes each row's ring slot of ``caches`` in place and
-    returns (logits (B, V) f32, caches)."""
+    returns (logits (B, V) f32, caches).  ``kv_shards``: the decode
+    attention path of every layer (``attention.decode_attend``): None
+    replicated, 1 ``flash_decode``, S >= 2 S capacity shards."""
     token = _tokens(params, token)
     x = cm.embed_lookup(params["embed"], token[:, None])
     B = x.shape[0]
@@ -264,6 +272,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t):
             lp, lc = _layer(sp, i), _layer(cache, i)
             for j, kind in enumerate(pattern):
                 x, _ = blk.block_apply_decode(kind, cfg, lp[str(j)], x,
-                                              lc[str(j)], t)
+                                              lc[str(j)], t,
+                                              kv_shards=kv_shards)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], caches

@@ -14,7 +14,13 @@ Weights may be dense or 2:4-compressed (``sparse.apply.sparsify_params``):
 both, every compressed projection through the ``nm_matmul`` kernel and
 every compressed MoE expert bank through ``nm_matmul_expert`` on the card.
 Caches are per layer kind: a sliding-window layer keeps a ring of
-min(capacity, window) slots.  ``ServeEngine.from_artifact`` builds the
+min(capacity, window) slots.  ``kv_shards`` picks the decode attention
+path (``models.attention.decode_attend``): None, the reference's replicated
+plain-torch attention; 1, the ``flash_decode`` kernel; S >= 2, what the
+reference computes on a mesh whose ``model`` axis (``mesh.shape["model"] ==
+S``) shards the cache capacity: ``flash_decode_partial`` over S capacity
+shards plus the combine kernel, on one card.  S must divide every cache
+length, or construction raises.  ``ServeEngine.from_artifact`` builds the
 sparse engine straight from a saved mask bank.  Request validation happens at ``submit()``: an empty
 prompt, a prompt at or over cache capacity, or ``max_tokens <= 0`` never
 claims a slot.  Caches are updated in place.
@@ -31,6 +37,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.shard import check_kv_shards
 from repro_torch.models import model as M
 
 # layer kinds whose prompt padding is invisible: position-masked attention
@@ -56,16 +63,20 @@ class EngineFns:
     """Step functions + the blank-slot template for one (cfg, capacity,
     device): fused decode, bucketed prefill and the slot write."""
 
-    def __init__(self, cfg: ModelConfig, capacity: int, device):
+    def __init__(self, cfg: ModelConfig, capacity: int, device,
+                 kv_shards: int | None = None):
+        check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity))
         self.cfg = cfg
         self.capacity = capacity
         self.device = device
+        self.kv_shards = kv_shards
         self._blank_row = None
 
     def decode(self, params, toks: torch.Tensor, caches: list,
                t: torch.Tensor):
         """One fused decode step over every slot at its own position."""
-        return M.decode_step(self.cfg, params, toks, caches, t)
+        return M.decode_step(self.cfg, params, toks, caches, t,
+                             kv_shards=self.kv_shards)
 
     def prefill(self, params, toks: torch.Tensor) -> list:
         """Cache rows for one padded prompt (1, bucket)."""
@@ -91,14 +102,17 @@ class ServeEngine:
 
     Runs on the card unless ``device`` names another; params are moved
     there, with the embedding and dense kernels cast to the compute dtype
-    once (``model.serving_params``).
+    once (``model.serving_params``).  ``kv_shards``: the decode attention
+    path (module docstring); a value that is not an integer >= 1 dividing
+    every cache length raises ``ValueError``.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  capacity: int = 512, eos_id: int | None = None,
-                 device=None):
+                 device=None, kv_shards: int | None = None):
         M.check_supported(cfg)
         device = resolve_device(device)
+        self.fns = EngineFns(cfg, capacity, device, kv_shards)
         self.cfg = cfg
         self.slots = slots
         self.capacity = capacity
@@ -116,7 +130,6 @@ class ServeEngine:
         # a padded bucket must fit that ring
         self._min_ring = (min(capacity, cfg.sliding_window)
                           if cfg.sliding_window else capacity)
-        self.fns = EngineFns(cfg, capacity, device)
         # work counters: prefill forwards run and fused decode steps taken
         self.prefill_calls = 0
         self.decode_steps = 0
@@ -125,8 +138,8 @@ class ServeEngine:
     def from_artifact(cls, bank_dir, params0: Any, *,
                       sparsity: float | None = None, compressed: bool = True,
                       slots: int = 4, capacity: int = 512,
-                      eos_id: int | None = None,
-                      device=None) -> "ServeEngine":
+                      eos_id: int | None = None, device=None,
+                      kv_shards: int | None = None) -> "ServeEngine":
         """Engine over bank-derived sparse weights (no re-calibration)."""
         from repro_torch.sparse.bank import MaskBank
         device = resolve_device(device)
@@ -135,7 +148,7 @@ class ServeEngine:
                                     sparsity=sparsity,
                                     compressed=compressed)
         return cls(bank.cfg, params, slots=slots, capacity=capacity,
-                   eos_id=eos_id, device=device)
+                   eos_id=eos_id, device=device, kv_shards=kv_shards)
 
     # -- client API ----------------------------------------------------------
 

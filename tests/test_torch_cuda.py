@@ -200,3 +200,127 @@ def test_saliency_fused_step_kernel_equals_plain(cuda_device, rn, metric,
         v2, g2 = v.clone(), gam.clone()
         saliency_fused_step(w, am, g2, v2, s_div=div, inplace=True, **kw)
         assert torch.equal(v2, got[0]) and torch.equal(g2, got[1])
+
+
+# --- decode attention: flash_decode, flash_decode_partial, the combine ----
+
+def _decode_operands(seed, B, K, G, D, C, dtype, dev, positions):
+    """q, k, v in ``dtype`` on ``dev`` and an f32 bias (B, C) masking every
+    slot past row b's position ``positions[b]`` (a ring that has not
+    wrapped yet: slot c holds position c)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (0.5 * torch.randn(shape, generator=g) for shape in
+               ((B, K, G, D), (B, C, K, D), (B, C, K, D)))
+    ok = torch.arange(C)[None, :] <= torch.tensor(positions)[:, None]
+    bias = torch.where(ok, 0.0, -1e30).to(torch.float32)
+    return [t.to(dtype).to(dev) for t in (q, k, v)] + [bias.to(dev)]
+
+
+def _decode_tol(want, terms, dtype):
+    """f32: 2e-4 of |plain| + sum|p v| (sums in another order, exp within
+    an ulp) + 2e-5; bf16 outputs one bf16 ulp more."""
+    tol = 2e-4 * (want.abs() + terms) + 2e-5
+    if dtype == torch.bfloat16:
+        tol = tol + want.abs() * 2 ** -7
+    return tol
+
+
+# (B, K, G, D, C, S): llama3.2-1b serving (4 slots, capacity 256), its long
+# cache, mixtral-8x22b at its window, the smoke heads at a C that is no
+# multiple of any chunk of the kernel, and f32
+_DECODE_CASES = [(4, 8, 4, 64, 256, 1), (4, 8, 4, 64, 256, 4),
+                 (4, 8, 4, 64, 8192, 4), (4, 8, 4, 64, 8192, 16),
+                 (4, 8, 6, 128, 4096, 1), (4, 8, 6, 128, 4096, 4),
+                 (3, 2, 2, 32, 148, 4), (3, 4, 6, 32, 74, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _DECODE_CASES, ids=str)
+def test_flash_decode_kernels_match_plain(cuda_device, case, dtype):
+    """Rows at different positions; row 1 sees only the first half shard,
+    so every later shard of it is all-masked (m = -1e30, l = its slot
+    count, exactly)."""
+    from repro_torch.kernels.flash_decode import (combine_partials,
+                                                  flash_decode,
+                                                  flash_decode_partial)
+    B, K, G, D, C, S = case
+    n = C // S
+    pos = [C - 1, n // 2, C // 2 + 3][:B] + [0] * max(0, B - 3)
+    q, k, v, bias = _decode_operands(sum(case), B, K, G, D, C, dtype,
+                                     cuda_device, pos)
+    before = (flash_decode.launches, flash_decode_partial.launches,
+              combine_partials.launches)
+    got = flash_decode(q, k, v, bias)
+    acc, m, l = flash_decode_partial(q, k, v, bias, shards=S)
+    comb = combine_partials(acc, m, l, dtype)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, flash_decode_partial.launches,
+            combine_partials.launches) == tuple(x + 1 for x in before)
+    want = ref.flash_decode_ref(q, k, v, bias).float()
+    terms = ref.flash_decode_ref(q, k, v.abs(), bias).float()
+    tol = _decode_tol(want, terms, dtype)
+    assert got.dtype == comb.dtype == dtype
+    for out in (got, comb):
+        assert bool(((out.float() - want).abs() <= tol).all())
+    wa, wm, wl = ref.flash_decode_shards_ref(q, k, v, bias, shards=S)
+    ta, _, _ = ref.flash_decode_shards_ref(q, k, v.abs(), bias, shards=S)
+    assert bool(((acc - wa).abs() <= 2e-4 * (wa.abs() + ta) + 2e-5).all())
+    assert bool(((l - wl).abs() <= 2e-4 * wl + 2e-5).all())
+    assert bool(((m - wm).abs() <= 2e-4 * wm.abs() + 2e-5).all())
+    dead = wm == -1e30
+    assert bool(dead.any()) == (S > 1)
+    assert bool((m[dead] == -1e30).all()) and bool((l[dead] == n).all())
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernels_refuse_what_they_do_not_take(cuda_device):
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, bias = _decode_operands(0, 2, 2, 3, 32, 16, torch.bfloat16,
+                                     cuda_device, [3, 9])
+    with pytest.raises(ValueError, match="G in"):           # G = 3
+        flash_decode(q, k, v, bias)
+    q, k, v, bias = _decode_operands(0, 2, 2, 2, 32, 16, torch.float16,
+                                     cuda_device, [3, 9])
+    with pytest.raises(TypeError):
+        flash_decode(q, k, v, bias)
+    q, k, v, bias = _decode_operands(0, 2, 2, 2, 32, 16, torch.bfloat16,
+                                     cuda_device, [3, 9])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                     bias)
+
+
+@pytest.mark.cuda
+def test_kv_shards_decode_step_captures_in_a_cuda_graph(cuda_device):
+    """A smoke llama decode step with 4 capacity shards: captured in a CUDA
+    graph, replayed, equal to the eager step; 4 layers -> 4 partial and 4
+    combine launches (counted once, at capture)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_decode import (combine_partials,
+                                                  flash_decode_partial)
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("llama3.2-1b")
+    params = M.serving_params(M.init_params(cfg, 0, device=cuda_device))
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g)
+    tok = toks[:, -1].to(cuda_device)
+    t = torch.tensor([20, 11], dtype=torch.int32, device=cuda_device)
+    _, caches = M.prefill(cfg, params, {"tokens": toks.to(cuda_device)},
+                          cache_capacity=32)
+    want, _ = M.decode_step(cfg, params, tok, caches, t, kv_shards=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        M.decode_step(cfg, params, tok, caches, t, kv_shards=4)
+    torch.cuda.current_stream().wait_stream(side)
+    before = (flash_decode_partial.launches, combine_partials.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = M.decode_step(cfg, params, tok, caches, t, kv_shards=4)
+    assert (flash_decode_partial.launches, combine_partials.launches) == \
+        (before[0] + cfg.num_layers, before[1] + cfg.num_layers)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

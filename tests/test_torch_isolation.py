@@ -149,3 +149,37 @@ def test_cpu_calibration_with_jax_and_repro_unimportable(tmp_path):
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
     assert "calibrated llama3.2-1b (smoke): 2 search steps" in r.stdout
+
+
+def test_kv_shards_serving_with_jax_and_repro_unimportable():
+    """The decode attention paths (kernels/flash_decode.py and
+    kernels/shard.py through ServeEngine's kv_shards) serve on the CPU
+    without jax, as the replicated path does, token for token here."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        from repro_torch.configs.base import get_smoke_config
+        from repro_torch.kernels import flash_decode, shard
+        from repro_torch.models import model as M
+        from repro_torch.serve.engine import ServeEngine
+        cfg = get_smoke_config("llama3.2-1b")
+        params = M.init_params(cfg, 0, device="cpu")
+        streams = []
+        for kv_shards in (None, 1, 4):
+            eng = ServeEngine.from_artifact(
+                "results/bank/llama3.2-1b", params, slots=2, capacity=32,
+                device="cpu", kv_shards=kv_shards)
+            rids = [eng.submit([1, 2, 3, 4], 3), eng.submit([5, 6], 2)]
+            out = eng.run()
+            streams.append([out[r] for r in rids])
+        assert [len(s) for s in streams[0]] == [3, 2], streams
+        print(streams)
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(ROOT), timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
