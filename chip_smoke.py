@@ -15,6 +15,9 @@ result line):
               back-to-back launches over enough weight bytes to defeat the
               50 MB L2), the plain version's, one PyTorch library call's,
               and the least time the card could take (bytes or operations);
+              nm_matmul's per-layer totals at decode and prefill rows beside
+              torch.matmul, nm_matmul_expert's at every capacity beside
+              torch.bmm;
               the calibration kernels (prox24, saliency_fused_step) at every
               prunable leaf of full-width and smoke llama3.2-1b, bit for
               bit; the decode attention kernels (flash_decode,
@@ -27,7 +30,9 @@ result line):
               masks by ``baseline_masks("magnitude", mode="nm")`` through
               nm_mask24, packed2 compression, ``ServeEngine(slots=4)``
               serving 6 requests of 32-128 prompt tokens x 16 new tokens;
-              launch counts asserted; the first kernel call at every
+              launch counts asserted (and one 2:4 kernel per projection
+              per decode step in the profiler: split-K takes no second
+              launch); the first kernel call at every
               distinct shape of the run held against its plain version;
               then the same requests at ``kv_shards=1`` (flash_decode) and
               ``kv_shards=4`` (flash_decode_partial + combine), each path
@@ -53,7 +58,8 @@ result line):
               version; per-step time and a profiler breakdown; peak memory.
               Then the same calibration at smoke width on the card and on
               the CPU, Gamma/V within the CPU tests' tolerance and masks
-              equal but for counted near-ties.
+              equal but for counted near-ties; and stochria's threefry
+              row/column draws of every full-width leaf, card == CPU.
 7. bank     - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
@@ -173,10 +179,11 @@ EXPERT_MS = (1, 4, 16, 24, 32, 40)
 BF16_TOL, F32_TOL = 2e-2, 1e-4     # rtol = atol, kernel against plain
 
 
-def _layer_totals(rows: list, shapes: dict) -> dict:
-    """One decode layer (M = 4, packed2): the sums over its projections."""
+def _layer_totals(rows: list, shapes: dict, M: int = 4) -> dict:
+    """One layer's projections at M rows (M = 4: a decode step), packed2:
+    the sums over them."""
     per = {(r["K"], r["N"]): r for r in rows
-           if r["M"] == 4 and r["layout"] == "packed2"}
+           if r["M"] == M and r["layout"] == "packed2"}
     tot = {k: sum(per[kn][k] for kn in shapes.values())
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by = {per[kn]["bound_by"] for kn in shapes.values()}
@@ -246,10 +253,17 @@ def phase_nm_matmul(torch, dev) -> dict:
                           f"{b_ms * 1e3:7.2f} us ({b_by})  {b_ms / ms:6.1%}"
                           " of bound")
                 del vs, ps, ds
-        by_path[path] = _layer_totals(path_rows, shapes)
-        print(f"  nm_matmul, one {path} decode layer (M=4, packed2): kernel "
-              f"{by_path[path]['ms']:.4f} ms, bound "
-              f"{by_path[path]['bound_ms']:.4f} ms")
+        by_path[path] = {**_layer_totals(path_rows, shapes), "by_M": {}}
+        for M in ms_:
+            tot = by_path[path]["by_M"][M] = _layer_totals(path_rows,
+                                                           shapes, M)
+            print(f"  nm_matmul, one {path} layer's projections at M={M:3d} "
+                  f"({'decode' if M == 4 else 'prefill' if M > 4 else 'M=1'}"
+                  f", packed2): kernel {tot['ms']:.4f} ms, torch.matmul"
+                  f"(dense) {tot['library_ms']:.4f} ms, bound "
+                  f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
+                  f"{tot['bound_ms'] / tot['ms']:.1%} of bound, "
+                  f"{tot['ms'] / tot['library_ms']:.2f}x torch.matmul")
     return {"max_abs_err": max_err, **by_path["llama3.2-1b"],
             "by_path": by_path}
 
@@ -347,7 +361,16 @@ def phase_nm_matmul_expert(torch, dev) -> dict:
                       f"({b_by})  {b_ms / ms:6.1%} of bound")
         del vals, idx, dense, plane
         torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, **_layer_totals(rows, EXPERT_SHAPES)}
+    by_c = {}
+    for M in EXPERT_MS:
+        tot = by_c[M] = _layer_totals(rows, EXPERT_SHAPES, M)
+        print(f"  nm_matmul_expert, one mixtral layer's banks at C={M:2d} "
+              f"(packed2): kernel {tot['ms']:.4f} ms, torch.bmm(dense) "
+              f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
+              f"{tot['bound_ms'] / tot['ms']:.1%} of bound, "
+              f"{tot['ms'] / tot['library_ms']:.2f}x torch.bmm")
+    return {"max_abs_err": max_err, **_layer_totals(rows, EXPERT_SHAPES),
+            "by_C": by_c}
 
 
 # decode attention: (label, B, K, G, D, C, shard counts), bf16.  llama's
@@ -1037,9 +1060,12 @@ def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0]
+    nm = sum(e.count for e in evs if "nm_mma_kernel" in e.key
+             or "nm_simt_kernel" in e.key)
     return {"step_ms": statistics.median(steps[4:]) * 1e3,
             "step": step, "replay_ok": replay_ok,
             "kernels": sum(e.count for e in evs) / 3,
+            "nm_kernels": nm / 3,
             "device_ms": sum(e.self_device_time_total for e in evs) / 3e3,
             "top": [(e.self_device_time_total / 3, e.count / 3, e.key)
                     for e in sorted(evs, key=lambda e:
@@ -1246,6 +1272,10 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
             print(f"    {us:10.1f}  {count:5.1f}  {key[:90]}")
         check(r["replay_ok"], f"kv_shards={S}: the decode step replayed "
               "from a CUDA graph differs from the eager step")
+        # one 2:4 kernel per projection and bank, split-K included
+        want = sum(per_layer.values()) * L
+        check(r["nm_kernels"] == want, f"kv_shards={S}: {r['nm_kernels']} "
+              f"2:4 kernels per decode step, want {want} (one launch each)")
 
     # -- compressed vs plain masked-dense, same fed tokens ------------------
     masked = M.serving_params(tree.tree_map(
@@ -1673,6 +1703,32 @@ def phase_calibrate(torch, dev, card: str) -> dict:
             "peak_gib": peak_search / 2 ** 30, "profile": prof}
 
 
+def stoch_draws_card_vs_cpu(torch, dev) -> None:
+    """stochria's Bernoulli row and column draws (threefry, as the
+    reference's) of every full-width llama3.2-1b prunable leaf over 3
+    search steps, drawn on the card and on the CPU: equal."""
+    from repro_torch.configs.base import PruneConfig, get_config
+    from repro_torch.core import metrics, prng
+    from repro_torch.core.calibrate import SEARCH_SEED
+    frac = PruneConfig().stoch_frac
+    leaves = calib_leaves(get_config("llama3.2-1b"))
+    n = kept = 0
+    for step in range(3):
+        key = prng.fold_in(prng.key(SEARCH_SEED), step)
+        for i, shape in enumerate(leaves.values()):
+            k = prng.fold_in(key, i)
+            card = metrics.stoch_weights(k, shape, frac, dev)
+            cpu = metrics.stoch_weights(k, shape, frac, "cpu")
+            for got, want in zip(card, cpu):
+                check(torch.equal(got.cpu(), want), f"stochria draws of "
+                      f"{shape} at step {step}: card differs from CPU")
+                n += want.numel()
+                kept += int(want.sum())
+    print(f"  stochria draws (threefry) of {len(leaves)} full-width leaves x "
+          f"3 steps, card == CPU: {n} Bernoulli({frac}) weights, "
+          f"{kept / n:.4f} kept")
+
+
 def phase_calibrate_card_vs_cpu(torch, dev) -> None:
     """The same smoke-width calibration on the card and on the CPU."""
     import numpy as np
@@ -1874,6 +1930,7 @@ def main() -> int:
     t0 = time.perf_counter()
     calib = phase_calibrate(torch, dev, card)
     phase_calibrate_card_vs_cpu(torch, dev)
+    stoch_draws_card_vs_cpu(torch, dev)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()

@@ -13,12 +13,12 @@ weight-only form (magnitude).
 They are differentiable in W (abs subgradient), which the mirror-descent
 alignment term relies on.  The f32 arithmetic is the reference's, op for op.
 
-Randomness: ``key`` is an integer seed where the reference takes a threefry
-key (``metric_tree`` gives leaf i the stream ``fold_in(key, i)``).  The
-Bernoulli row/column draws of stochria come from a CPU ``torch.Generator``
-seeded with it, so the card and the CPU draw the same masks; threefry
-cannot be replayed, so tests feed both packages the same ``row_w``/``col_w``
-through :func:`_ria_core`.
+Randomness: ``key`` is a threefry key, the reference's (``core.prng``:
+the pair of uint32 words ``jax.random.key_data`` gives), and
+``metric_tree`` gives leaf i the key ``fold_in(key, i)``.  stochria splits
+it and draws its Bernoulli row and column weights as the reference does,
+bit for bit, on the device of the kernel, so the card and the CPU draw the
+same masks.
 """
 from __future__ import annotations
 
@@ -28,19 +28,10 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.core import prng
 from repro_torch.kernels.ref import sqrt_f32
 
 METRICS = ("magnitude", "wanda", "ria", "stochria")
-_MASK64 = (1 << 64) - 1
-
-
-def fold_in(key: int, data: int) -> int:
-    """A new 63-bit seed from (key, data): splitmix64 of their mix, the
-    port's stand-in for ``jax.random.fold_in``."""
-    z = (key * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
 
 
 def magnitude(w: torch.Tensor, a=None, *, key=None) -> torch.Tensor:
@@ -78,14 +69,15 @@ def ria(w: torch.Tensor, a=None, *, key=None) -> torch.Tensor:
     return _ria_core(w, a)
 
 
-def stoch_weights(key: int, shape: tuple[int, ...], frac: float,
+def stoch_weights(key: prng.Key, shape: tuple[int, ...], frac: float,
                   device) -> tuple[torch.Tensor, torch.Tensor]:
     """stochria's Bernoulli(frac) row weights (d_out,) and column weights
-    (d_in, 1) for a (..., d_in, d_out) kernel, f32 on ``device``."""
-    g = torch.Generator().manual_seed(key)
-    row_w = (torch.rand(shape[-1:], generator=g) < frac).float()
-    col_w = (torch.rand(shape[-2:-1], generator=g) < frac).float()
-    return row_w.to(device), col_w[:, None].to(device)
+    (d_in, 1) for a (..., d_in, d_out) kernel, f32 on ``device``: the
+    reference's ``split`` of ``key`` and its two ``bernoulli`` draws."""
+    k1, k2 = prng.split(key)
+    row_w = prng.bernoulli(k1, frac, shape[-1:], device).float()
+    col_w = prng.bernoulli(k2, frac, shape[-2:-1], device).float()
+    return row_w, col_w[:, None]
 
 
 def stochria(w: torch.Tensor, a=None, *, key=None,
@@ -136,7 +128,7 @@ def normalize_scores(s: torch.Tensor, how: str) -> torch.Tensor:
 
 
 def metric_tree(name: str, params: Any, stats: Any, prunable: Any,
-                key: int | None = None, stoch_frac: float = 0.9,
+                key: prng.Key | None = None, stoch_frac: float = 0.9,
                 norm: str = "none") -> Any:
     """Apply the metric leafwise over prunable kernels; None elsewhere.
 
@@ -156,6 +148,6 @@ def metric_tree(name: str, params: Any, stats: Any, prunable: Any,
     out = {}
     for i, ((path, w), a, pr) in enumerate(zip(flat, flat_stats, flat_pr)):
         if pr:
-            k = None if key is None else fold_in(key, i)
+            k = None if key is None else prng.fold_in(key, i)
             out[path] = normalize_scores(fn(w, a, key=k), norm)
     return tree.map_with_path(lambda path, _: out.get(path), params)

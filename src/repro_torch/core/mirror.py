@@ -31,6 +31,7 @@ from repro_torch import tree
 from repro_torch.configs.base import PruneConfig
 from repro_torch.core import masks as masks_mod
 from repro_torch.core import metrics as metrics_mod
+from repro_torch.core import prng
 from repro_torch.core.prunable import prunable_map
 from repro_torch.kernels.nm_prox import prox24
 from repro_torch.kernels.saliency_fuse import saliency_fused_step
@@ -44,10 +45,12 @@ class SearchState:
     Gamma: PyTree      # saliency variable (prunable leaves, else None)
     V: PyTree          # dual variable (prunable leaves, else None)
     step: int
-    rng: int           # search seed (the reference's threefry key)
+    rng: prng.Key      # the reference's threefry key, as (hi, lo) words
 
 
-def init_search(params0: PyTree, key: int) -> SearchState:
+def init_search(params0: PyTree, seed: int) -> SearchState:
+    """The search's start from params0, its key ``jax.random.key(seed)``'s
+    (``prng.key``)."""
     pr = prunable_map(params0)
     zeros = lambda w, p: (torch.zeros(w.shape, dtype=torch.float32,
                                       device=w.device) if p else None)
@@ -57,7 +60,7 @@ def init_search(params0: PyTree, key: int) -> SearchState:
                         params0),
         Gamma=tree.tree_map(zeros, params0, pr),
         V=tree.tree_map(zeros, params0, pr),
-        step=0, rng=int(key))
+        step=0, rng=prng.key(seed))
 
 
 def _scalar(x: float, device) -> torch.Tensor:
@@ -81,8 +84,16 @@ def _align_leaf(pcfg: PruneConfig, w, gamma, a, key):
     return sq.detach(), grad
 
 
+def _leaf_key(pcfg: PruneConfig, key, i: int):
+    """Leaf i's key, ``fold_in(key, i)`` as the reference's metric_tree
+    draws it; only stochria reads a key, so the others get None."""
+    if pcfg.local_metric != "stochria" or key is None:
+        return None
+    return prng.fold_in(key, i)
+
+
 def _align_value_and_grad(pcfg: PruneConfig, W, Gamma, stats, prunable,
-                          key: int):
+                          key: prng.Key | None):
     """0.5*rho*sum_leaves ||Gamma - S(W)||_F^2 and its W-gradient (zeros on
     leaves that are not prunable)."""
     flat_w = tree.leaves(W)
@@ -92,7 +103,7 @@ def _align_value_and_grad(pcfg: PruneConfig, W, Gamma, stats, prunable,
             flat_w, tree.leaves(Gamma), tree.leaves(stats),
             tree.leaves(prunable), strict=True)):
         if p:
-            sq, ga = _align_leaf(pcfg, w, g, a, metrics_mod.fold_in(key, i))
+            sq, ga = _align_leaf(pcfg, w, g, a, _leaf_key(pcfg, key, i))
             acc = acc + sq
             grads.append(ga)
         else:
@@ -178,7 +189,8 @@ def search_step(pcfg: PruneConfig, loss_fn: Callable, state: SearchState,
     """One mirror-descent iteration, updating ``state`` in place.
     loss_fn(W, batch) -> (loss, metrics).  Returns (state, metrics): device
     scalars, read by the caller when it wants them."""
-    key = metrics_mod.fold_in(state.rng, state.step)
+    key = (prng.fold_in(state.rng, state.step)
+           if pcfg.local_metric == "stochria" else None)
     (loss, loss_metrics), g_task = _task_value_and_grad(
         pcfg, loss_fn, state.W, batch)
     flat_w = tree.leaves(state.W)
@@ -194,7 +206,7 @@ def search_step(pcfg: PruneConfig, loss_fn: Callable, state: SearchState,
         if not p:
             w.sub_(klr * gt)              # its alignment gradient is zero
             continue
-        k_i = metrics_mod.fold_in(key, i)
+        k_i = _leaf_key(pcfg, key, i)
         sq, ga = _align_leaf(pcfg, w, gamma, a, k_i)
         acc = acc + sq
         w.sub_(klr * (gt + ga))

@@ -34,7 +34,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C entry points of each source: name -> argtypes (every restype is int)
 ENTRY_POINTS = {
     "nm_spmm": {
-        "repro_nm_matmul_expert": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+        "repro_nm_matmul_expert": [_P] * 6 + [_I] * 9 + [_P],
     },
     "nm_mask24": {
         "repro_nm_mask24": [_P, _P, _LL, _I, _I, _P],

@@ -10,13 +10,16 @@ of 4 along K, and their in-group positions in one of two index layouts:
                   position of compressed row 4r+j
 
 For CUDA tensors :func:`nm_matmul` and :func:`nm_matmul_expert` launch the
-hand-written kernel in ``csrc/nm_spmm.cu`` (one thread per pair of output
-columns, f32 accumulation, the expert axis folded into the grid, split-K
-when the grid is small; see the source for the design and its bound).  For
-CPU tensors they run :func:`nm_matmul_plain` and
-:func:`nm_matmul_expert_plain`, the decompress-then-matmul versions the
-tests and ``chip_smoke.py`` hold the kernel against.  The expert axis leads
-every operand.
+hand-written kernels in ``csrc/nm_spmm.cu``, chosen by dtype: bf16 x and
+vals (the serving paths) run the ``mma.sp`` kernel on the sparse tensor
+cores; f32 x and vals run the SIMT kernel (f32 FMAs), so f32 results are
+those of the f32 arithmetic.  Both accumulate in f32, fold the expert axis
+into the grid and split K across blocks, in one launch, when the grid is
+small (see the source for the design and its bound).  A kernel that fails
+to build or launch raises; nothing gives way to another kernel.  For CPU
+tensors they run :func:`nm_matmul_plain` and :func:`nm_matmul_expert_plain`,
+the decompress-then-matmul versions the tests and ``chip_smoke.py`` hold
+the kernels against.  The expert axis leads every operand.
 """
 from __future__ import annotations
 
@@ -30,9 +33,12 @@ from repro_torch.kernels import ref
 LAYOUT_INT8 = "int8"
 LAYOUT_PACKED2 = "packed2"
 
-_BN, _BM = 64, 16        # the kernel's column and row tile (nm_spmm.cu)
-_MIN_SPLIT_GROUPS = 64   # 2:4 groups a split-K slice covers at least
-_MAX_GRID_Z = 65535      # experts x row tiles share the grid's z dimension
+_BN = 64                  # output columns per block, both kernels
+_SIMT_BM = 16             # the f32 kernel's rows of x per block
+_MIN_SPLIT_GROUPS = 64    # 2:4 groups an f32 split-K slice covers at least
+_MMA_KC = 128             # K per pipeline stage of the bf16 kernel
+_MAX_GRID_Z = 65535       # experts x row tiles share the grid's z dimension
+_MAX_TILES = 1024         # split-K arrival counters per device
 
 
 def unpack_idx2(packed: torch.Tensor) -> torch.Tensor:
@@ -132,12 +138,49 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(M: int, K: int, N: int, sm_count: int, experts: int = 1) -> int:
-    """Blocks along K: enough for ~2 blocks per SM when the expert x N x M
-    grid alone is smaller, each still covering >= 64 groups of 4."""
-    blocks = experts * -(-N // _BN) * -(-M // _BM)
+def mma_rows(M: int) -> int:
+    """The bf16 kernel's rows of x per block for M rows (more than 64 rows
+    take several row tiles)."""
+    return next((b for b in (8, 16, 32, 40) if M <= b), 64)
+
+
+def split_k(M: int, K: int, N: int, sm_count: int, experts: int = 1,
+            bf16: bool = True) -> tuple[int, int]:
+    """(blocks along K, K stages per block): enough for ~2 blocks per SM
+    when the expert x N x M grid alone is smaller.  bf16: each slice covers
+    whole 128-deep stages and the f32 partials written and read stay under
+    half the compressed weight's bytes (M N 8 per slice against 1.125 K N):
+    the last block's pass over them is the split's serial tail; f32: each
+    slice covers >= 64 groups of 4 (stages counted in groups)."""
+    if not bf16:
+        blocks = experts * -(-N // _BN) * -(-M // _SIMT_BM)
+        want = -(-2 * sm_count // blocks)
+        return max(1, min(want, (K // 4) // _MIN_SPLIT_GROUPS)), 0
+    blocks = experts * -(-N // _BN) * -(-M // mma_rows(M))
+    stages = -(-K // _MMA_KC)
     want = -(-2 * sm_count // blocks)
-    return max(1, min(want, (K // 4) // _MIN_SPLIT_GROUPS))
+    ksplit = max(1, min(want, stages, 9 * K // (128 * M)))
+    per = -(-stages // ksplit)
+    return -(-stages // per), per
+
+
+_COUNTERS: dict = {}
+
+
+def _tile_counters(device: torch.device) -> torch.Tensor:
+    """The device's split-K arrival counters: zeroed once here, and left
+    zero by every launch (the last block at a tile resets its counter).
+    Split-K launches on one device share them, so they run on one stream
+    at a time."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("nm_matmul: the split-K tile counters are "
+                               "made at the first eager launch on a device;"
+                               " launch once before capturing a CUDA graph")
+        c = _COUNTERS[device] = torch.zeros(_MAX_TILES, dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def _launch(name: str, x, vals, idx, E: int, M: int, K: int, N: int,
@@ -160,27 +203,37 @@ def _launch(name: str, x, vals, idx, E: int, M: int, K: int, N: int,
             and idx.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous x, vals and idx")
     if N % 2 or vals.data_ptr() % (2 * vals.element_size()) \
-            or idx.data_ptr() % 2:
+            or x.data_ptr() % 4 or idx.data_ptr() % 2:
         raise ValueError(f"{name} kernel reads column pairs: N must be even "
-                         "and vals/idx aligned to a pair")
-    if E * -(-M // _BM) > _MAX_GRID_Z:
-        raise ValueError(f"{name}: {E} experts x {-(-M // _BM)} row tiles "
+                         "and x/vals/idx aligned to a pair")
+    bf16 = x.dtype == torch.bfloat16
+    rows = mma_rows(M) if bf16 else _SIMT_BM
+    if E * -(-M // rows) > _MAX_GRID_Z:
+        raise ValueError(f"{name}: {E} experts x {-(-M // rows)} row tiles "
                          f"exceed the grid's {_MAX_GRID_Z} z-blocks")
     out = torch.empty((E, M, N), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     if K == 0:
         return out.zero_()
-    ksplit = split_k(M, K, N, _sm_count(x.device.index), experts=E)
-    ws = (torch.empty((ksplit, E, M, N), dtype=torch.float32,
-                      device=x.device) if ksplit > 1 else None)
+    ksplit, per = split_k(M, K, N, _sm_count(x.device.index), experts=E,
+                          bf16=bf16)
+    ws = counters = None
+    if ksplit > 1:
+        tiles = E * -(-N // _BN) * -(-M // rows)
+        if tiles > _MAX_TILES:
+            raise ValueError(f"{name}: {tiles} output tiles split along K "
+                             f"exceed the {_MAX_TILES} counters")
+        ws = torch.empty((ksplit, E, M, N), dtype=torch.float32,
+                         device=x.device)
+        counters = _tile_counters(x.device)
     from repro_torch.kernels._build import library
     err = library("nm_spmm").repro_nm_matmul_expert(
         x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), E, M, K, N,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        int(packed), ksplit,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), E, M, K, N,
+        int(bf16), int(out_dtype == torch.bfloat16), int(packed), ksplit,
+        per, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out
@@ -207,10 +260,10 @@ def nm_matmul(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, *,
     plane's shape.  out_dtype: output dtype override, float32 for the raw
     f32 accumulator (default x.dtype).
 
-    CPU tensors take :func:`nm_matmul_plain`.  CUDA tensors launch the
+    CPU tensors take :func:`nm_matmul_plain`.  CUDA tensors launch a
     kernel (``nm_matmul.launches`` counts each launch) or raise: x and vals
-    bf16 or f32 of one dtype, idx uint8 (packed2) or int8, all contiguous
-    on one device, N even.
+    bf16 (the ``mma.sp`` kernel) or f32 (the SIMT kernel) of one dtype, idx
+    uint8 (packed2) or int8, all contiguous on one device, N even.
     """
     if _on_cpu("nm_matmul", x, vals, idx):
         return nm_matmul_plain(x, vals, idx, layout=layout,

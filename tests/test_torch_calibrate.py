@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import f64, jax_flat, leaf_pairs, smoke_llama, to_torch
+from _torch_port import (assert_calibration_matches, f64, jax_flat,
+                         leaf_pairs, smoke_llama, to_torch)
 from repro.configs.base import PruneConfig as JaxPruneConfig
 from repro.core import calibrate as jcal
 from repro.core import mirror as jmirror
@@ -118,62 +119,10 @@ def test_search_on_reference_stats_matches_reference(smoke, calibrated):
                                       err_msg=path)
 
 
-def _near_ties(jscore, jkeep, tkeep, tol):
-    """Groups of 4 along K where the keep-masks differ, each with the
-    reference's margin between the entries the two masks swapped and the
-    tolerance it is held to."""
-    K, N = jscore.shape[-2:]
-    g = lambda x: x.reshape(-1, K // 4, 4, N)
-    js, jk, tk, tl = g(jscore), g(jkeep), g(tkeep), g(tol)
-    out = []
-    for idx in zip(*np.nonzero((jk != tk).any(axis=2))):
-        l, r, n = idx
-        s, a, b, t = js[l, r, :, n], jk[l, r, :, n], tk[l, r, :, n], \
-            tl[l, r, :, n]
-        margin = s[a & ~b].min() - s[b & ~a].max()
-        out.append((idx, float(margin), float(2 * t[a ^ b].max())))
-    return out
-
-
 def test_calibration_matches_reference(calibrated):
     jbank, tbank, _ = calibrated
-    tols = {}
-    for path, V in jax_flat(jbank.V).items():
-        if V is not None:
-            V = np.abs(f64(V))
-            tols[path] = BF16_ULP * (V + jbank.pcfg.lam) + 1e-4 * V.max()
-    for name in ("V", "Gamma"):
-        for path, jv, tv in leaf_pairs(getattr(jbank, name),
-                                   getattr(tbank, name)):
-            np.testing.assert_array_less(np.abs(f64(tv) - f64(jv)),
-                                         tols[path], err_msg=name + path)
-    # masks: identical but for near-ties in the reference's own scores
-    jmask, tmask = jbank.masks_at(), tbank.masks_at()
-    eps = float(jmirror._absmax_fused(tuple(
-        g for g in jax.tree.leaves(jbank.Gamma) if g is not None)))
-    ties = 0
-    for path, jk, tk in leaf_pairs(jmask, tmask):
-        G, V = f64(jax_flat(jbank.Gamma)[path]), f64(jax_flat(jbank.V)[path])
-        vmax = max(float(np.abs(f64(v)).max()) for v in
-                   jax.tree.leaves(jbank.V) if v is not None)
-        score = np.abs(G) + 1e-6 * eps / vmax * np.abs(V)
-        for idx, margin, tol in _near_ties(score, np.asarray(jk),
-                                           tk.numpy(), tols[path]):
-            print(f"near-tie {path}{list(map(int, idx))}: reference margin "
-                  f"{margin:.3e} <= {tol:.3e}")
-            assert 0 <= margin <= tol, (path, idx, margin, tol)
-            ties += 1
-    n = sum(int(np.asarray(m).size) for m in jax.tree.leaves(jmask))
-    print(f"{ties} near-tied groups of 4 differ, of {n // 4}")
-    assert ties <= n // 4 // 1000
-    # the convergence history
-    jh, th = jbank.meta["history"], tbank.meta["history"]
-    assert len(jh) == len(th) == 3
-    for a, b in zip(jh, th):
-        assert set(a) == set(b)
-        for k in a:
-            np.testing.assert_allclose(b[k], a[k], rtol=2e-3, atol=1e-6,
-                                       err_msg=k)
+    assert_calibration_matches(jbank, tbank)
+    assert len(jbank.meta["history"]) == 3
 
 
 def test_banks_load_across_packages_with_their_checksums(smoke, calibrated):

@@ -124,6 +124,134 @@ def test_nm_matmul_expert_kernel_matches_plain(cuda_device, layout, emkn):
                                    atol=1e-4)
 
 
+def _bf16_case(seed, E, M, K, N, layout, pairs=None):
+    """bf16 x (E, M, K), compressed W as vals (E, K/2, N) and its plane; with
+    ``pairs``, group g of column n keeps pairs[(g + n) % len(pairs)]."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((E, K, N), generator=g)
+    if pairs is not None:
+        keep = torch.zeros((E, K // 4, 4, N), dtype=torch.bool)
+        for q in range(K // 4):
+            for n in range(N):
+                keep[:, q, list(pairs[(q + n) % len(pairs)]), n] = True
+        w = torch.where(keep.reshape(E, K, N), 4 + w.abs(), 0.01 * w)
+    comp = [ref.compress_24(w[e]) for e in range(E)]
+    vals = torch.stack([v for v, _ in comp]).to(torch.bfloat16)
+    idx = torch.stack([i for _, i in comp])
+    plane = _pack_idx2(idx) if layout == LAYOUT_PACKED2 else idx
+    x = (0.1 * torch.randn((E, M, K), generator=g)).to(torch.bfloat16)
+    return x, vals, idx, plane
+
+
+def _check_expert(cuda_device, x, vals, plane, layout):
+    want = nm_matmul_expert_plain(x, vals, plane, layout=layout)
+    dev = [t.to(cuda_device) for t in (x, vals, plane)]
+    got = nm_matmul_expert(*dev, layout=layout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    got32 = nm_matmul_expert(*dev, layout=layout, out_dtype=torch.float32)
+    torch.testing.assert_close(
+        got32.cpu(), nm_matmul_expert_plain(x, vals, plane, layout=layout,
+                                            out_dtype=torch.float32),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [LAYOUT_PACKED2, LAYOUT_INT8])
+def test_nm_matmul_mma_reads_every_position_pair(cuda_device, layout):
+    """The packed2 nibbles (and the int8 plane packed as it is staged) are
+    mma.sp's metadata as they stand: every ascending pair, (0, 1), (0, 3),
+    (2, 3) and (1, 2) among them, in every group slot and row of a tile."""
+    pairs = ((0, 1), (0, 3), (2, 3), (1, 2), (0, 2), (1, 3))
+    x, vals, idx, plane = _bf16_case(5, 2, 8, 128, 64, layout, pairs)
+    want_pos = torch.tensor([[p for q in range(32) for p in pairs[(q + n) % 6]]
+                             for n in range(64)], dtype=torch.int8).T
+    assert torch.equal(idx[0], want_pos) and torch.equal(idx[1], want_pos)
+    _check_expert(cuda_device, x, vals, plane, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 40, 64, 128])
+@pytest.mark.parametrize("layout", [LAYOUT_PACKED2, LAYOUT_INT8])
+def test_nm_matmul_mma_rows_cross_tiles(cuda_device, layout, M):
+    """M across the n8 tiles, the 8-128-row block tiles and their warp
+    splits; N over two column blocks and half of a third."""
+    x, vals, _, plane = _bf16_case(M, 2, M, 512, 160, layout)
+    _check_expert(cuda_device, x, vals, plane, layout)
+    before = nm_matmul.launches
+    got = nm_matmul(x[0].to(cuda_device), vals[0].to(cuda_device),
+                    plane[0].to(cuda_device), layout=layout)
+    torch.cuda.synchronize()
+    assert nm_matmul.launches == before + 1
+    torch.testing.assert_close(
+        got.cpu().float(),
+        nm_matmul_plain(x[0], vals[0], plane[0], layout=layout).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,K", [(LAYOUT_PACKED2, 200),
+                                      (LAYOUT_PACKED2, 1048),
+                                      (LAYOUT_INT8, 132), (LAYOUT_INT8, 516)])
+@pytest.mark.parametrize("M", [4, 40])
+def test_nm_matmul_mma_k_tails(cuda_device, layout, K, M):
+    """K % 32 != 0 (K % 8 == 4 on the int8 plane) and N % 16 != 0: the
+    tails are zero-filled in shared memory, their metadata valid."""
+    x, vals, _, plane = _bf16_case(K + M, 3, M, K, 66, layout)
+    _check_expert(cuda_device, x, vals, plane, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nm_matmul_split_k_is_one_launch_and_replays(cuda_device, dtype):
+    """A grid of one column block splits K; the last block to arrive sums
+    the partials in split order in the same launch and resets its counter,
+    so a second call and a CUDA-graph replay give the same bits."""
+    import ctypes
+    from repro_torch.kernels import nm_spmm
+    M, K, N = 4, 8192, 64
+    sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert nm_spmm.split_k(M, K, N, sm, bf16=dtype == torch.bfloat16)[0] > 1
+    x, vals, _, plane = _bf16_case(11, 1, M, K, N, LAYOUT_PACKED2)
+    x, vals = x[0].to(dtype), vals[0].to(dtype)
+    want = nm_matmul_plain(x, vals, plane[0])
+    dev = [t.to(cuda_device) for t in (x, vals, plane[0])]
+    first = nm_matmul(*dev)
+    second = nm_matmul(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert int(nm_spmm._COUNTERS[dev[0].device].abs().sum()) == 0
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(first.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        replayed = nm_matmul(*dev)
+    # the captured call is one node, a kernel: no second pass over splits
+    cudart = ctypes.CDLL("libcudart.so.12")
+    count = ctypes.c_size_t(0)
+    assert cudart.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                    None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cudart.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                    nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cudart.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                           ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    assert kinds == [0], kinds      # cudaGraphNodeTypeKernel
+    graph.instantiate()
+    for _ in range(3):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
+    assert int(nm_spmm._COUNTERS[dev[0].device].abs().sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])

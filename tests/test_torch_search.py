@@ -64,6 +64,7 @@ from repro_torch import tree
 from repro_torch.configs.base import PruneConfig
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core import mirror as tmirror
+from repro_torch.core import prng
 from repro_torch.core import prox as tprox
 from repro_torch.core.prunable import prunable_map
 from repro_torch.models import attention as tattn
@@ -154,17 +155,18 @@ def test_ria_and_stochria_match_reference(shape):
                                atol=0)
     # frac = 1 keeps every row and column: stochria is ria
     np.testing.assert_array_equal(
-        tmetrics.stochria(tw, ta, key=7, frac=1.0).numpy(),
+        tmetrics.stochria(tw, ta, key=prng.key(7), frac=1.0).numpy(),
         tmetrics.ria(tw, ta).numpy())
 
 
 def test_stochria_draws_are_seeded_per_key_and_device_free():
     w = torch.from_numpy(_weights(6, (32, 40)))
     a = torch.from_numpy(_stats_for(7, (32, 40)))
-    s1 = tmetrics.stochria(w, a, key=11)
-    assert torch.equal(s1, tmetrics.stochria(w, a, key=11))
-    assert not torch.equal(s1, tmetrics.stochria(w, a, key=12))
-    row_w, col_w = tmetrics.stoch_weights(11, (32, 40), 0.9, "cpu")
+    s1 = tmetrics.stochria(w, a, key=prng.key(11))
+    assert torch.equal(s1, tmetrics.stochria(w, a, key=prng.key(11)))
+    assert not torch.equal(s1, tmetrics.stochria(w, a, key=prng.key(12)))
+    row_w, col_w = tmetrics.stoch_weights(prng.key(11), (32, 40), 0.9,
+                                          "cpu")
     assert row_w.shape == (40,) and col_w.shape == (32, 1)
     assert 0.6 < float(row_w.mean()) < 1.0
 

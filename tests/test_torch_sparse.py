@@ -191,3 +191,49 @@ def test_to_torch_roundtrip_is_exact():
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(a.astype(jnp.float32)))
+
+
+_MMA_SP_CODES = {0x4, 0x8, 0xC, 0x9, 0xD, 0xE}   # ascending, distinct pairs
+
+
+@pytest.mark.parametrize("source", ["random", "llama3.2-1b", "llm-mini-nm"])
+def test_nm_positions_are_ascending_for_the_mma_sp_kernel(source):
+    """The bf16 nm_matmul kernels hand each packed2 nibble (idx0 | idx1 << 2
+    of a group) to mma.sp as its 2:4 metadata, which takes only ascending,
+    distinct positions: so are those of the port's and the reference's
+    packing, on random masks with ties and on the committed 2:4 banks."""
+    from repro.configs.base import ModelConfig as JaxModelConfig
+    from repro.sparse.pack import nm_positions as jax_nm_positions
+    from repro.sparse.pack import pack_nm as jax_pack_nm
+    from repro_torch.sparse.pack import nm_positions
+    if source == "random":
+        s = np.random.default_rng(3).integers(-2, 3, (3, 64, 24))
+        masks = {"w": np.asarray(jmasks.nm_masks(
+            {"w": jnp.asarray(s, jnp.float32)})["w"])}
+    else:
+        # llm-mini is the example model of examples/prune_llm.py, whose
+        # config no registry holds
+        cfg = None if source != "llm-mini-nm" else JaxModelConfig(
+            name="llm-mini", family="dense", d_model=192, num_layers=6,
+            num_heads=6, num_kv_heads=3, head_dim=32, d_ff=512,
+            vocab_size=1024)
+        bank = JaxMaskBank.load(BANK.parent / source, cfg=cfg)
+        assert bank.pcfg.mode == "nm"
+        masks = {p: np.asarray(m) for p, m in
+                 jax_flat(bank.masks_at()).items() if m is not None}
+    assert masks
+    rng = np.random.default_rng(5)
+    for path, mk in masks.items():
+        pos = nm_positions(torch.from_numpy(mk)).numpy()
+        np.testing.assert_array_equal(
+            pos, np.asarray(jax_nm_positions(jnp.asarray(mk))), err_msg=path)
+        pairs = pos.reshape(*pos.shape[:-2], -1, 2, pos.shape[-1])
+        assert (pairs[..., 0, :] < pairs[..., 1, :]).all(), path
+        assert pos.min() >= 0 and pos.max() <= 3, path
+        w = rng.standard_normal(mk.shape).astype(np.float32)
+        packed = pack_nm(torch.from_numpy(w), torch.from_numpy(mk),
+                         idx_bits=2).idx.numpy()
+        np.testing.assert_array_equal(packed, np.asarray(jax_pack_nm(
+            jnp.asarray(w), jnp.asarray(mk), idx_bits=2).idx), err_msg=path)
+        codes = np.unique(np.stack([packed & 0xF, packed >> 4]))
+        assert set(codes.tolist()) <= _MMA_SP_CODES, (path, codes)
