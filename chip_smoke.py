@@ -24,7 +24,9 @@ result line):
               flash_decode_partial, the combine) at llama's serving shapes,
               its long cache, mixtral's window and a ragged capacity, rows
               at different positions and all-masked shards, against their
-              plain versions and ``F.scaled_dot_product_attention``'s time.
+              plain versions and ``F.scaled_dot_product_attention``'s time
+              (with the planner's capacity splits P per case); prox24's
+              bound by bytes and by its unfused f32 issue rate.
 4. llama    - the first main path at full width: llama3.2-1b (16 layers,
               d 2048) from random weights (``torch.Generator`` seed 0), 2:4
               masks by ``baseline_masks("magnitude", mode="nm")`` through
@@ -40,8 +42,12 @@ result line):
               its kernel calls held against their plain versions, its
               logits and greedy streams against the ``kv_shards=None``
               run; the decode step of each path timed eager and replayed
-              from a CUDA graph (replay == eager); then compressed vs
-              masked-dense logits.
+              from a CUDA graph (replay == eager); the decode step at
+              capacity 8192 with every slot valid (K/V from a seeded
+              generator on the card) at ``kv_shards`` None, 1, 4 and 16:
+              launches, logits against None, replay == eager, CUDA-graph
+              replays timed in turns; then compressed vs masked-dense
+              logits.
 5. mixtral  - the MoE main path at full width: mixtral-8x22b cut from 56 to
               2 layers (memory) and nothing else, through the same phase,
               every expert bank through nm_matmul_expert; the routing of
@@ -454,7 +460,9 @@ def phase_flash_decode(torch, dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import (combine_partials,
                                                   flash_decode,
-                                                  flash_decode_partial)
+                                                  flash_decode_partial,
+                                                  plan_splits)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev)
     g.manual_seed(6)
     rows = []
@@ -499,8 +507,9 @@ def phase_flash_decode(torch, dev) -> dict:
                 *parts, q.dtype), 8)
             plain_c = device_ms(torch, lambda i: ref.combine_partials_ref(
                 *parts, q.dtype), 8)
+            splits = plan_splits(B, K, C, S, sms)
             row = {"case": label, "B": B, "K": K, "G": G, "D": D, "C": C,
-                   "S": S, "flash_decode_partial": {
+                   "S": S, "splits": splits, "flash_decode_partial": {
                        "max_abs_err": e_p, "ms": ms_p, "plain_ms": plain_p,
                        "library_ms": None, "bound_ms": b_p[0],
                        "bound_by": b_p[1]},
@@ -538,13 +547,14 @@ def phase_flash_decode(torch, dev) -> dict:
                         f"SDPA {lib * 1e3:8.2f} us (|SDPA - kernel| "
                         f"{lib_err:.1e})")
                 print(f"  flash_decode {label:22s} B={B} K={K} G={G} D={D:3d}"
-                      f" C={C:5d}  err {e_fd:.2e}  kernel {ms * 1e3:8.2f} us"
+                      f" C={C:5d} P={splits}  err {e_fd:.2e}  kernel "
+                      f"{ms * 1e3:8.2f} us"
                       f"  plain {plain * 1e3:8.2f} us  {sdpa}  bound "
                       f"{b_fd[0] * 1e3:6.2f} us ({b_fd[1]})  "
                       f"{b_fd[0] / ms:6.1%} of bound")
-            print(f"  flash_decode_partial {label:22s} C={C:5d} S={S:2d}  "
-                  f"err {e_p:.2e}  kernel {ms_p * 1e3:8.2f} us  plain "
-                  f"{plain_p * 1e3:8.2f} us  bound {b_p[0] * 1e3:6.2f} us "
+            print(f"  flash_decode_partial {label:22s} C={C:5d} S={S:2d} "
+                  f"P={splits}  err {e_p:.2e}  kernel {ms_p * 1e3:8.2f} us  "
+                  f"plain {plain_p * 1e3:8.2f} us  bound {b_p[0] * 1e3:6.2f} us "
                   f"({b_p[1]})  {b_p[0] / ms_p:6.1%} of bound; combine "
                   f"err {e_c:.2e}  kernel {ms_c * 1e3:6.2f} us  plain "
                   f"{plain_c * 1e3:7.2f} us  bound {b_c[0] * 1e3:5.2f} us; "
@@ -592,13 +602,31 @@ def _per_step(rows: list, leaves: dict) -> dict:
             else "operations", "library_ms": None}
 
 
+def f32_issue_per_s(torch, dev) -> float:
+    """Unfused f32 instructions the card can issue a second: one per lane
+    (128 per SM) per clock at the card's top SM clock (nvidia-smi's
+    clocks.max.sm).  A kernel built with -fmad=false runs each op as its own
+    instruction, so this, and not the FMA-counted 67e12, bounds it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
 def phase_prox24(torch, dev, paths: dict) -> dict:
     """prox24 in place (as the search runs it) against ref.prox24_ref, bit
-    for bit, at each leaf shape of each calibration path."""
+    for bit, at each leaf shape of each calibration path; bounds by bytes
+    (over 67e12 f32 ops a second, the table's) and by the issue rate of its
+    unfused f32 ops."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.nm_prox import prox24
     g = torch.Generator(device=dev)
     g.manual_seed(4)
+    issue_rate = f32_issue_per_s(torch, dev)
+    print(f"  unfused f32 issue rate {issue_rate:.4g} /s (SMs x 128 lanes x "
+          "the top SM clock)")
     rows, out = [], {}
     for path, leaves in paths.items():
         path_rows = []
@@ -625,19 +653,26 @@ def phase_prox24(torch, dev, paths: dict) -> dict:
             del ws, w
             torch.cuda.empty_cache()
             b_ms, b_by = bound(R * N * 8, R * N * PROX_OPS, F32_OPS_PER_S)
+            issue_ms = R * N * PROX_OPS / issue_rate * 1e3
             path_rows.append({"LKN": (L, K, N), "max_abs_err": err,
                               "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                              "bound_by": b_by})
+                              "bound_by": b_by, "issue_bound_ms": issue_ms})
             print(f"  prox24 f32 ({R:6d}, {N:5d}) in place  bit-identical  "
                   f"kernel {ms:8.4f} ms  plain {plain:8.4f} ms  bound "
-                  f"{b_ms:7.4f} ms ({b_by})  {b_ms / ms:6.1%} of bound")
+                  f"{b_ms:7.4f} ms ({b_by})  {b_ms / ms:6.1%} of bound; "
+                  f"issue bound {issue_ms:7.4f} ms  {issue_ms / ms:6.1%}")
         out[path] = _per_step(path_rows, leaves)
+        by = {r["LKN"]: r for r in path_rows}
+        out[path]["issue_bound_ms"] = sum(by[lkn]["issue_bound_ms"]
+                                          for lkn in leaves.values())
         rows += path_rows
         print(f"  prox24, one {path} search step (7 leaves): kernel "
               f"{out[path]['ms']:.4f} ms, plain {out[path]['plain_ms']:.4f}"
-              f" ms, bound {out[path]['bound_ms']:.4f} ms; no single "
-              "PyTorch call computes it (the plain version is the unfused "
-              "torch chain)")
+              f" ms, bound {out[path]['bound_ms']:.4f} ms "
+              f"({out[path]['bound_by']}), issue-rate bound "
+              f"{out[path]['issue_bound_ms']:.4f} ms ({PROX_OPS} unfused f32 "
+              "instructions per weight); no single PyTorch call computes it "
+              "(the plain version is the unfused torch chain)")
     first = next(iter(paths))
     return {"max_abs_err": max(r["max_abs_err"] for r in rows), **out[first],
             "by_path": out}
@@ -1072,11 +1107,88 @@ def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
                                     -e.self_device_time_total)[:8]]}
 
 
-def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
+LONG_CAPACITY = 8192
+LONG_KV_SHARDS = (None, 1, 4, 16)
+
+
+def long_cache_steps(torch, M, cfg, params, dev) -> dict:
+    """The decode step of 4 slots at capacity 8192 with every slot valid:
+    the caches filled from a seeded generator on the card (the positions
+    0..8191 of each slot), one step at t = 8191 per ``kv_shards`` path, each
+    on its own copy of the caches.  Each path's attention launches counted
+    over one eager step; its logits held against ``kv_shards=None`` (8 bf16
+    ulps of the row's max); its step replayed from a CUDA graph == eager;
+    then the paths' graphs timed in turns.  kv_shards -> numbers."""
+    from repro_torch.kernels import flash_decode as fd
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    base = M.init_caches(cfg, 4, LONG_CAPACITY, device=dev)
+    n_bytes = 0
+    for stage in base:
+        for c in stage.values():
+            for t in c.values():
+                t.normal_(generator=g)
+                n_bytes += t.numel() * t.element_size()
+    caches = {S: base if S is None else [
+        {j: {n: t.clone() for n, t in c.items()} for j, c in st.items()}
+        for st in base] for S in LONG_KV_SHARDS}
+    tok = torch.randint(0, cfg.vocab_size, (4,), generator=g, device=dev)
+    t_dev = torch.full((4,), LONG_CAPACITY - 1, dtype=torch.int32,
+                       device=dev)
+
+    def path(S):
+        return lambda: M.decode_step(cfg, params, tok, caches[S], t_dev,
+                                     kv_shards=S)[0]
+
+    steps = {S: path(S) for S in LONG_KV_SHARDS}
+    L = cfg.num_layers
+    out, logits = {}, {}
+    for S, step in steps.items():
+        for name in FLASH_KERNELS:
+            getattr(fd, name).launches = 0
+        logits[S] = step().clone()
+        launches = {name: getattr(fd, name).launches
+                    for name in FLASH_KERNELS}
+        want = {"flash_decode": L if S == 1 else 0,
+                "flash_decode_partial": L if S not in (None, 1) else 0,
+                "combine_partials": L if S not in (None, 1) else 0}
+        check(launches == want, f"capacity {LONG_CAPACITY}, kv_shards={S}: "
+              f"launches {launches} in one decode step, want {want}")
+        check(bool(torch.isfinite(logits[S]).all()),
+              f"capacity {LONG_CAPACITY}, kv_shards={S}: non-finite logits")
+        worst = 0.0
+        for r in range(4):
+            err, tol = logit_err(torch, logits[S][r], logits[None][r],
+                                 LOGIT_ULPS_FULL)
+            check(err <= tol, f"capacity {LONG_CAPACITY}, kv_shards={S} vs "
+                  f"None, row {r}: logits differ by {err} over {tol} "
+                  f"({LOGIT_ULPS_FULL} bf16 ulps of the row's max)")
+            worst = max(worst, err / tol)
+        replay_ok = replay_matches_eager(torch, step)
+        check(replay_ok, f"capacity {LONG_CAPACITY}, kv_shards={S}: the "
+              "step replayed from a CUDA graph differs from the eager step")
+        out[S] = {"launches": launches, "worst": worst,
+                  "replay_ok": replay_ok}
+    graph = paired_graph_ms(torch, steps)
+    for S, (med, lo, hi) in graph.items():
+        out[S].update(graph_ms=med, graph_min_ms=lo, graph_max_ms=hi)
+        print(f"  capacity {LONG_CAPACITY} (every slot valid, "
+              f"{n_bytes / 1e9:.3f} GB of K/V), kv_shards={S}: CUDA graph "
+              f"replayed {med:.3f} ms "
+              f"per decode step (median of 10 rounds in turns, {lo:.3f}-"
+              f"{hi:.3f}); logits vs None worst {out[S]['worst']:.3f} of the "
+              f"tolerance; launches {out[S]['launches']}; replay == eager")
+    del caches, base
+    return out
+
+
+def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
+                long_cache: bool = False) -> dict:
     """Serve ``cfg`` at its widths from random weights with 2:4 magnitude
     masks; ``per_layer`` is each kernel's launches per layer per forward
-    (a prefill or a decode step).  Then compressed against masked-dense,
-    routing included where the model has MoE layers."""
+    (a prefill or a decode step).  ``long_cache``: also the decode step at
+    capacity 8192 (:func:`long_cache_steps`).  Then compressed against
+    masked-dense, routing included where the model has MoE layers."""
     from repro_torch import tree
     from repro_torch.core.calibrate import baseline_masks
     from repro_torch.data.synthetic import batches_for
@@ -1253,6 +1365,9 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
     step_dev_ms = by_kv[None]["graph_ms"]
     prefill_ms = statistics.median(pre) * 1e3
     peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        long = (long_cache_steps(torch, M, cfg, eng.params, dev)
+                if long_cache else None)
     print(f"  [{card}] prefill 1x128 {prefill_ms:.2f} ms; decode "
           f"{step_ms:.2f} ms/step at 4 slots = {4e3 / step_ms:.1f} tok/s; "
           f"engine (warm) {n_tok / t_warm:.1f} tok/s; max memory allocated "
@@ -1344,7 +1459,7 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict) -> dict:
     return {"launches": launches, "step_ms": step_ms,
             "step_dev_ms": step_dev_ms, "prefill_ms": prefill_ms,
             "peak_gib": peak / 2 ** 30, "kv_runs": kv_runs,
-            "steps_by_kv": by_kv}
+            "steps_by_kv": by_kv, "long_cache": long}
 
 
 # ---------------------------------------------------------------------------
@@ -1912,7 +2027,8 @@ def main() -> int:
     print(f"[4/8] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
-                        {"nm_matmul": 7, "nm_matmul_expert": 0})
+                        {"nm_matmul": 7, "nm_matmul_expert": 0},
+                        long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
@@ -1949,8 +2065,8 @@ def main() -> int:
         rows = [r for r in flash["rows"] if name in r]
         head = next(r for r in rows if r["case"] == case and r["S"] == S)
         return {**head[name], "by_case": [
-            {k: r[k] for k in ("case", "B", "K", "G", "D", "C", "S")}
-            | r[name] for r in rows]}
+            {k: r[k] for k in ("case", "B", "K", "G", "D", "C", "S",
+                               "splits")} | r[name] for r in rows]}
 
     def counts(name):
         by = {k: v[name] for k, v in paths.items() if name in v}
@@ -1994,6 +2110,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_decode.py:58",
          **counts("flash_decode"),
          **flash_row("flash_decode", "llama serving", 1),
+         "llama_graph_step_ms": {
+             **{f"C256 kv_shards={S}": r["graph_ms"]
+                for S, r in llama["steps_by_kv"].items()},
+             **{f"C{LONG_CAPACITY} kv_shards={S}": r["graph_ms"]
+                for S, r in llama["long_cache"].items()}},
          "work": "one llama3.2-1b decode layer's attention at serving: "
                  "B=4 slots, 8 kv heads x 4 query heads of 64, C=256, bf16; "
                  "library: F.scaled_dot_product_attention (enable_gqa)"},

@@ -47,7 +47,7 @@ ENTRY_POINTS = {
                                      + [_F, _F, _P],
     },
     "flash_decode": {
-        "repro_flash_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "repro_flash_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
         "repro_flash_decode_combine": [_P] * 4 + [_I] * 5 + [_P],
     },
 }

@@ -20,6 +20,12 @@ slot and -1e30 for a masked one.  The kernels take f32 or bf16 q/k/v
 D, contiguous operands and 16-byte aligned q, k and v.  Each launches
 on the current stream and never synchronises, so a decode step that
 calls them can be captured in a CUDA graph.
+
+Inside its one launch, the attention kernel splits each shard's slots
+over P blocks that form a thread-block cluster and merge their softmax
+states through distributed shared memory (see the source).
+:func:`plan_splits` chooses P on the host from the shapes and the SM
+count; :func:`split_bounds` lists the slots each block takes.
 """
 from __future__ import annotations
 
@@ -28,10 +34,35 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.nm_spmm import _sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 GROUPS = (2, 4, 6)
+CHUNK = 16          # slots of a warp's ring stage in the kernel (kChunk)
+MAX_SPLITS = 8      # the portable cluster size (kMaxSplits)
+
+
+def plan_splits(B: int, K: int, C: int, S: int, sm_count: int) -> int:
+    """P, the capacity splits of each of S shards (a cluster of P blocks
+    per shard, kv head and row): doubled from 1 while the doubled grid
+    holds at most two blocks per SM, up to ``MAX_SPLITS``, and only while
+    every split keeps at least ``CHUNK`` slots."""
+    n = C // S
+    P = 1
+    while (P < MAX_SPLITS and B * K * S * 2 * P <= 2 * sm_count
+           and n // (2 * P) >= CHUNK):
+        P *= 2
+    return P
+
+
+def split_bounds(C: int, S: int, P: int) -> list[tuple[int, int]]:
+    """The slots [lo, hi) of each block, shard by shard and split by split
+    in order: split p of shard s takes [s n + p n // P, s n + (p+1) n // P)
+    with n = C // S, as the kernel computes them."""
+    n = C // S
+    return [(s * n + p * n // P, s * n + (p + 1) * n // P)
+            for s in range(S) for p in range(P)]
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -83,11 +114,13 @@ def _kernel_args(name, q, k, v, bias) -> int:
 def _launch(q, k, v, bias, out, acc, m, l, shards, partial, code, scale):
     from repro_torch.kernels._build import library
     B, K, G, D = q.shape
+    C = k.shape[1]
     scale = D ** -0.5 if scale is None else scale
+    splits = plan_splits(B, K, C, shards, _sm_count(q.device.index))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = library("flash_decode").repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), ptr(out),
-        ptr(acc), ptr(m), ptr(l), B, k.shape[1], K, G, D, shards, code,
+        ptr(acc), ptr(m), ptr(l), B, C, K, G, D, shards, splits, code,
         int(partial), scale, _stream(q))
     if err:
         name = "flash_decode_partial" if partial else "flash_decode"

@@ -182,3 +182,22 @@ def combine_partials_ref(acc, m, l, out_dtype):
         l_tot = li if l_tot is None else l_tot + li
         acc_tot = ai if acc_tot is None else acc_tot + ai
     return (acc_tot / torch.clamp_min(l_tot, 1e-30)).to(out_dtype)
+
+
+def merge_partials_ref(acc, m, l):
+    """The raw merge of P softmax states of consecutive slot ranges into
+    the state of their union, as the decode kernel's cluster merges its
+    splits: mg = the max of m over the leading axis, corr = exp(m - mg),
+    (l, acc) rescaled and summed in order 0..P-1; no normalisation.  An
+    all-masked union (every m = -1e30) keeps m = -1e30 and l = the sum of
+    the slot counts, exactly.
+
+    acc (P,...,Dv), m and l (P,...,1), f32 -> acc (...,Dv), m, l (...,1)."""
+    mg = m.amax(dim=0)
+    l_tot = acc_tot = None
+    for i in range(m.shape[0]):
+        corr = torch.exp(m[i] - mg)
+        li, ai = l[i] * corr, acc[i] * corr
+        l_tot = li if l_tot is None else l_tot + li
+        acc_tot = ai if acc_tot is None else acc_tot + ai
+    return acc_tot, mg, l_tot

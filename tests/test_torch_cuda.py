@@ -354,11 +354,16 @@ def _decode_tol(want, terms, dtype):
 
 
 # (B, K, G, D, C, S): llama3.2-1b serving (4 slots, capacity 256), its long
-# cache, mixtral-8x22b at its window, the smoke heads at a C that is no
-# multiple of any chunk of the kernel, and f32
+# cache (at S 1 the kernel splits each row's 8192 slots over a cluster of
+# 8 blocks; row 1's later splits are all-masked, row 3 has one valid
+# slot), mixtral-8x22b at its window, the smoke heads at a C that is no
+# multiple of any chunk of the kernel (at S 1 split into 18- and 19-slot
+# ranges), and f32
 _DECODE_CASES = [(4, 8, 4, 64, 256, 1), (4, 8, 4, 64, 256, 4),
+                 (4, 8, 4, 64, 8192, 1),
                  (4, 8, 4, 64, 8192, 4), (4, 8, 4, 64, 8192, 16),
                  (4, 8, 6, 128, 4096, 1), (4, 8, 6, 128, 4096, 4),
+                 (3, 2, 2, 32, 148, 1), (3, 4, 6, 32, 74, 1),
                  (3, 2, 2, 32, 148, 4), (3, 4, 6, 32, 74, 2)]
 
 
@@ -368,7 +373,8 @@ _DECODE_CASES = [(4, 8, 4, 64, 256, 1), (4, 8, 4, 64, 256, 4),
 def test_flash_decode_kernels_match_plain(cuda_device, case, dtype):
     """Rows at different positions; row 1 sees only the first half shard,
     so every later shard of it is all-masked (m = -1e30, l = its slot
-    count, exactly)."""
+    count, exactly).  A second call of each kernel gives the same bits:
+    the cluster merges its splits in split order, with no atomics."""
     from repro_torch.kernels.flash_decode import (combine_partials,
                                                   flash_decode,
                                                   flash_decode_partial)
@@ -385,6 +391,11 @@ def test_flash_decode_kernels_match_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert (flash_decode.launches, flash_decode_partial.launches,
             combine_partials.launches) == tuple(x + 1 for x in before)
+    again = flash_decode_partial(q, k, v, bias, shards=S)
+    for x, y in zip((got, acc, m, l, comb),
+                    (flash_decode(q, k, v, bias), *again,
+                     combine_partials(*again, dtype)), strict=True):
+        assert torch.equal(x, y)
     want = ref.flash_decode_ref(q, k, v, bias).float()
     terms = ref.flash_decode_ref(q, k, v.abs(), bias).float()
     tol = _decode_tol(want, terms, dtype)
@@ -398,6 +409,46 @@ def test_flash_decode_kernels_match_plain(cuda_device, case, dtype):
     assert bool(((m - wm).abs() <= 2e-4 * wm.abs() + 2e-5).all())
     dead = wm == -1e30
     assert bool(dead.any()) == (S > 1)
+    assert bool((m[dead] == -1e30).all()) and bool((l[dead] == n).all())
+
+
+# (B, K, G, D, C, S, valid slots per row): shapes the planner splits; rows
+# with one valid slot, with splits all-masked inside a shard that has valid
+# slots, and whole shards all-masked
+_SPLIT_CASES = [(4, 8, 4, 64, 256, 1, [1, 40, 256, 33]),
+                (4, 8, 4, 64, 256, 2, [1, 100, 256, 129]),
+                (4, 8, 6, 128, 1024, 1, [1, 129, 1024, 700]),
+                (3, 2, 2, 32, 148, 1, [1, 74, 148])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _SPLIT_CASES, ids=str)
+def test_flash_decode_cluster_splits_match_plain(cuda_device, case, dtype):
+    """Shapes the planner splits (P > 1 on any card of >= 16 SMs), rows
+    whose valid slots end inside the first split."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_partial,
+                                                  plan_splits)
+    from repro_torch.kernels.nm_spmm import _sm_count
+    B, K, G, D, C, S, valid = case
+    n = C // S
+    assert plan_splits(B, K, C, S, _sm_count(cuda_device.index or 0)) > 1
+    q, k, v, bias = _decode_operands(sum(case[:6]), B, K, G, D, C, dtype,
+                                     cuda_device, [x - 1 for x in valid])
+    got = flash_decode(q, k, v, bias)
+    acc, m, l = flash_decode_partial(q, k, v, bias, shards=S)
+    torch.cuda.synchronize()
+    want = ref.flash_decode_ref(q, k, v, bias).float()
+    terms = ref.flash_decode_ref(q, k, v.abs(), bias).float()
+    assert bool(((got.float() - want).abs()
+                 <= _decode_tol(want, terms, dtype)).all())
+    wa, wm, wl = ref.flash_decode_shards_ref(q, k, v, bias, shards=S)
+    ta, _, _ = ref.flash_decode_shards_ref(q, k, v.abs(), bias, shards=S)
+    assert bool(((acc - wa).abs() <= 2e-4 * (wa.abs() + ta) + 2e-5).all())
+    assert bool(((l - wl).abs() <= 2e-4 * wl + 2e-5).all())
+    assert bool(((m - wm).abs() <= 2e-4 * wm.abs() + 2e-5).all())
+    dead = wm == -1e30
     assert bool((m[dead] == -1e30).all()) and bool((l[dead] == n).all())
 
 
@@ -448,6 +499,40 @@ def test_kv_shards_decode_step_captures_in_a_cuda_graph(cuda_device):
         got, _ = M.decode_step(cfg, params, tok, caches, t, kv_shards=4)
     assert (flash_decode_partial.launches, combine_partials.launches) == \
         (before[0] + cfg.num_layers, before[1] + cfg.num_layers)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_decode_step_captures_in_a_cuda_graph(cuda_device):
+    """The same smoke llama decode step at ``kv_shards=1``: the cluster
+    launch of ``flash_decode`` captured in a CUDA graph, replayed, equal
+    bit for bit to the eager step; 4 layers -> 4 launches (counted once,
+    at capture)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("llama3.2-1b")
+    params = M.serving_params(M.init_params(cfg, 0, device=cuda_device))
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g)
+    tok = toks[:, -1].to(cuda_device)
+    t = torch.tensor([20, 11], dtype=torch.int32, device=cuda_device)
+    _, caches = M.prefill(cfg, params, {"tokens": toks.to(cuda_device)},
+                          cache_capacity=64)
+    want, _ = M.decode_step(cfg, params, tok, caches, t, kv_shards=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        M.decode_step(cfg, params, tok, caches, t, kv_shards=1)
+    torch.cuda.current_stream().wait_stream(side)
+    before = flash_decode.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = M.decode_step(cfg, params, tok, caches, t, kv_shards=1)
+    assert flash_decode.launches == before + cfg.num_layers
     got.zero_()
     graph.replay()
     torch.cuda.synchronize()
