@@ -42,7 +42,11 @@ result line):
               its kernel calls held against their plain versions, its
               logits and greedy streams against the ``kv_shards=None``
               run; the decode step of each path timed eager and replayed
-              from a CUDA graph (replay == eager); the decode step at
+              from a CUDA graph (replay == eager); the counted runs take
+              eager steps (``serve.engine.eager``), then each path's
+              requests run three times more on the engine's own CUDA-graph
+              step (streams == the eager run's, one decode graph, the
+              replayed kernels counted by the profiler); the decode step at
               capacity 8192 with every slot valid (K/V from a seeded
               generator on the card) at ``kv_shards`` None, 1, 4 and 16:
               launches, logits against None, replay == eager, CUDA-graph
@@ -52,7 +56,11 @@ result line):
               2 layers (memory) and nothing else, through the same phase,
               every expert bank through nm_matmul_expert; the routing of
               compressed and masked-dense compared too.
-6. calibrate - the calibration main path at full width: llama3.2-1b from
+6. calibrate - first the smoke-width calibration on the card and on the
+              CPU, Gamma/V within the CPU tests' tolerance and masks equal
+              but for counted near-ties, and stochria's threefry row/column
+              draws of every full-width leaf, card == CPU; then
+              the calibration main path at full width: llama3.2-1b from
               random weights (seed 0), the launcher's defaults (wanda, 2:4,
               median-normalised scores, 30 steps, 8 calibration batches of
               4 x 64 tokens, stats over the first 4) through
@@ -62,15 +70,29 @@ result line):
               nm_matmul; launch counts asserted; the first call at every
               distinct kernel signature of the run held against its plain
               version; per-step time and a profiler breakdown; peak memory.
-              Then the same calibration at smoke width on the card and on
-              the CPU, Gamma/V within the CPU tests' tolerance and masks
-              equal but for counted near-ties; and stochria's threefry
-              row/column draws of every full-width leaf, card == CPU.
-7. bank     - the committed mask bank at smoke width through
+              The bank stays for phase 7.
+7. fleet    - ``SparsityFleet`` over phase 6's bank and weights at budgets
+              0.0, 0.5 (global threshold: a sort of every score) and 2:4,
+              6 slots, capacity 256, at ``kv_shards`` None and 1: phase 4's
+              six prompts pinned to each member, through A/B weights, and
+              through self-speculative decoding (2:4 drafts, 0.0 verifies,
+              k 4, adaptive); counted on eager steps (launches, every
+              distinct kernel call against its plain version, the
+              members' shared leaves, the report's counters, A/B streams
+              == pinned, spec streams == the verifier alone but for
+              counted near-ties of the verifier's logits), then twice on
+              the CUDA-graph engines (streams == eager, captures per
+              surface unchanged by the second run), the draft and verify
+              surfaces replayed == eager, the engine's step eager and
+              graph per member, tok/s, spec's accept rate and tok/s
+              against the verifier alone; peak memory.
+8. bank     - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-8. summary  - the card's line, a ``{"kernels": [...]}`` line (the eight
-              kernels), then the ``{"ok": true, ...}`` line last.
+9. summary  - the card's line, a ``{"kernels": [...]}`` line (the eight
+              kernels, launches by path, and the launches the profiler saw
+              on the graph engines by path), then the ``{"ok": true, ...}``
+              line last.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -1182,6 +1204,83 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
     return out
 
 
+PROMPT_LENS = (32, 128, 48, 96, 64, 80)
+MAX_TOKENS = 16
+# profiler kernel names -> the wrappers whose launches they are
+PROFILED = {"nm_spmm": ("nm_mma_kernel", "nm_simt_kernel"),
+            "flash_decode": ("flash_decode_kernel",),
+            "combine_partials": ("combine_kernel",)}
+
+
+def serving_prompts(cfg) -> list:
+    """Phase 4's six prompts: 32-128 tokens of the validation split."""
+    from repro_torch.data.synthetic import batches_for
+    batch = batches_for(cfg, n=1, batch=len(PROMPT_LENS), seq=128,
+                        split="valid")[0]["tokens"]
+    return [batch[i, :n] for i, n in enumerate(PROMPT_LENS)]
+
+
+def profiled_launches(torch, fn) -> dict:
+    """``fn()`` under the profiler: kernel launches by wrapper name
+    (``PROFILED``), CUDA graph replays included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    return {name: sum(e.count for e in evs
+                      if any(k in e.key for k in keys))
+            for name, keys in PROFILED.items()}
+
+
+def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
+                      L: int, kv_shards) -> dict:
+    """The counted requests again, on the engine's CUDA-graph step: run 1
+    captures the decode graph at its first step, run 2 is timed, run 3 is
+    profiled (each replayed kernel counted by name); each run's streams
+    equal the eager run's, and neither later run captures again."""
+    n_tok = sum(len(w) for w in want)
+    res = {}
+    for run in ("capture", "timed", "profiled"):
+        # the profiled run takes the first 2 requests: the profiler's cost
+        # grows with the events it keeps
+        n = 2 if run == "profiled" else len(prompts)
+        rids = [eng.submit(p, MAX_TOKENS) for p in prompts[:n]]
+        steps0, pre0 = eng.decode_steps, eng.prefill_calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "profiled":
+            box = {}
+            launches = profiled_launches(
+                torch, lambda: box.update(out=eng.run()))
+            out = box["out"]
+        else:
+            out = eng.run()
+        torch.cuda.synchronize()
+        res[run + "_s"] = time.perf_counter() - t0
+        check([out[r] for r in rids] == want[:n], f"kv_shards={kv_shards}: "
+              f"the graph engine's streams ({run} run) differ from the eager "
+              "engine's")
+        check(eng.fns.capture_counts() == {"decode": 1},
+              f"kv_shards={kv_shards}: captures {eng.fns.capture_counts()} "
+              f"after the {run} run, want one decode graph")
+    steps, pre = eng.decode_steps - steps0, eng.prefill_calls - pre0
+    nm = sum(per_layer.values()) * L * (steps + pre)
+    want_l = {"nm_spmm": nm,
+              "flash_decode": 0 if kv_shards is None else L * steps,
+              "combine_partials": 0 if kv_shards in (None, 1) else L * steps}
+    check(launches == want_l, f"kv_shards={kv_shards}: the profiled graph "
+          f"run launched {launches}, want {want_l} (2:4 kernels: one per "
+          "projection and bank per forward; decode attention: one per layer "
+          "per decode step)")
+    res.update(tok_s=n_tok / res["timed_s"], launches=launches,
+               decode_steps=steps, prefills=pre)
+    return res
+
+
 def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
                 long_cache: bool = False) -> dict:
     """Serve ``cfg`` at its widths from random weights with 2:4 magnitude
@@ -1197,7 +1296,7 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import ServeEngine, eager
     from repro_torch.sparse.apply import compressed_report, sparsify_params
     counted = {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
                "nm_mask24": nm_mask24,
@@ -1215,11 +1314,10 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
           f"{ffn}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, "
           f"{'tied' if cfg.tie_embeddings else 'untied'}: {n_params} params")
     stats = tree.tree_map(lambda _: None, params0)
-    prompt_lens = [32, 128, 48, 96, 64, 80]
-    batch = batches_for(cfg, n=1, batch=len(prompt_lens), seq=128,
+    prompts = serving_prompts(cfg)
+    batch = batches_for(cfg, n=1, batch=len(PROMPT_LENS), seq=128,
                         split="valid")[0]["tokens"]
-    prompts = [batch[i, :n] for i, n in enumerate(prompt_lens)]
-    max_tokens = 16
+    max_tokens = MAX_TOKENS
 
     # -- the main path, counted ---------------------------------------------
     calls = {}
@@ -1237,7 +1335,7 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     steps_ref = record_decode(eng, routes)
     rids = [eng.submit(p, max_tokens) for p in prompts]
     t0 = time.perf_counter()
-    with first_call_per_signature(calls), recording_routes(routes):
+    with first_call_per_signature(calls), recording_routes(routes), eager():
         out = eng.run()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
@@ -1270,8 +1368,11 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
           f"(ratio {rep['ratio']:.4f})")
     n_tok = len(rids) * max_tokens
     print(f"  engine: {len(rids)} requests x {max_tokens} tokens in "
-          f"{t_serve:.3f} s (first run, cold) = {n_tok / t_serve:.1f} tok/s")
+          f"{t_serve:.3f} s (first run, cold, eager steps) = "
+          f"{n_tok / t_serve:.1f} tok/s")
     del sparse
+    graph_runs = {None: graph_engine_runs(
+        torch, eng, prompts, [out[r] for r in rids], per_layer, L, None)}
 
     # -- the same requests through the decode attention kernels: kv_shards
     # 1 (flash_decode) and S (flash_decode_partial over S capacity shards +
@@ -1288,7 +1389,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
         steps = record_decode(e, kv_routes)
         kv_rids = [e.submit(p, max_tokens) for p in prompts]
         t0 = time.perf_counter()
-        with first_call_per_signature(calls), recording_routes(kv_routes):
+        with first_call_per_signature(calls), recording_routes(kv_routes), \
+                eager():
             kv_out = e.run()
         torch.cuda.synchronize()
         t_kv = time.perf_counter() - t0
@@ -1334,17 +1436,14 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
         kv_runs[S] = {"launches": kv_launches, "worst": worst,
                       "rows": n_rows, "near_ties": explained,
                       "differ": len(differ)}
+        del e.fns.decode
+        graph_runs[S] = graph_engine_runs(
+            torch, e, prompts, [kv_out[r] for r in kv_rids], per_layer, L, S)
         del e, steps, kv_routes
     del steps_ref, routes
 
     # -- steady-state timings (host clock around synchronised work) ---------
     with torch.inference_mode():
-        rids = [eng.submit(p, max_tokens) for p in prompts]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        t_warm = time.perf_counter() - t0
         toks = torch.from_numpy(batch[:1]).to(dev)        # 128 tokens
         pre = []
         for _ in range(5):
@@ -1368,10 +1467,18 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     with torch.inference_mode():
         long = (long_cache_steps(torch, M, cfg, eng.params, dev)
                 if long_cache else None)
-    print(f"  [{card}] prefill 1x128 {prefill_ms:.2f} ms; decode "
+    print(f"  [{card}] prefill 1x128 {prefill_ms:.2f} ms; eager decode "
           f"{step_ms:.2f} ms/step at 4 slots = {4e3 / step_ms:.1f} tok/s; "
-          f"engine (warm) {n_tok / t_warm:.1f} tok/s; max memory allocated "
-          f"{peak / 2 ** 30:.2f} GiB")
+          f"max memory allocated {peak / 2 ** 30:.2f} GiB")
+    for S, g in graph_runs.items():
+        print(f"  [{card}] kv_shards={S}: the engine on its CUDA-graph step, "
+              f"the same {len(rids)} requests: streams == the eager run's "
+              f"(3 runs, one decode graph captured); warm run "
+              f"{g['timed_s']:.3f} s = {g['tok_s']:.1f} tok/s (capture run "
+              f"{g['capture_s']:.3f} s); profiler over 2 of the requests "
+              f"({g['profiled_s']:.1f} s with its processing), replays "
+              f"included: {g['launches']} over {g['prefills']} eager "
+              f"prefills + {g['decode_steps']} replayed decode steps")
     for S, r in by_kv.items():
         print(f"  kv_shards={S}: eager decode step {r['step_ms']:.2f} ms; "
               f"CUDA graph replayed {r['graph_ms']:.3f} ms (median of 10 "
@@ -1459,7 +1566,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     return {"launches": launches, "step_ms": step_ms,
             "step_dev_ms": step_dev_ms, "prefill_ms": prefill_ms,
             "peak_gib": peak / 2 ** 30, "kv_runs": kv_runs,
-            "steps_by_kv": by_kv, "long_cache": long}
+            "steps_by_kv": by_kv, "long_cache": long,
+            "graph_runs": graph_runs}
 
 
 # ---------------------------------------------------------------------------
@@ -1688,7 +1796,7 @@ def phase_calibrate(torch, dev, card: str) -> dict:
     from repro_torch.kernels.saliency_fuse import saliency_fused_step
     from repro_torch.launch.calibrate import calibrate_to_bank
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import ServeEngine, eager
     from repro_torch.sparse.apply import compressed_report
     from repro_torch.sparse.bank import MaskBank
 
@@ -1731,7 +1839,7 @@ def phase_calibrate(torch, dev, card: str) -> dict:
           f"{loaded.meta['checksum']} vs {meta['checksum']}")
     sparse, masks = loaded.sparse_params(params0, with_masks=True)
     rep = compressed_report(sparse, masks)
-    del loaded, masks
+    del masks
     gc.collect()
     torch.cuda.empty_cache()
     eng = ServeEngine(cfg, sparse, slots=2, capacity=64, device=dev)
@@ -1739,7 +1847,7 @@ def phase_calibrate(torch, dev, card: str) -> dict:
         "tokens"]
     rids = [eng.submit(prompts[0, :24], 16), eng.submit(prompts[1, :40], 16)]
     calls = {}
-    with first_call_per_signature(calls):
+    with first_call_per_signature(calls), eager():
         out = eng.run()
     torch.cuda.synchronize()
     launches = {"prox24": prox24.launches,
@@ -1809,13 +1917,417 @@ def phase_calibrate(torch, dev, card: str) -> dict:
           "leaf), one call each, ms: " + ", ".join(
               f"{k} {v:.2f}" for k, v in prof["median_ms"].items()))
     del params0, stats
-    shutil.rmtree(banks / "full", ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms,
+    return {"launches": launches, "step_ms": step_ms, "bank": loaded,
             "stats_s": meta["stats_seconds"],
             "search_s": meta["search_seconds"],
             "peak_gib": peak_search / 2 ** 30, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the multi-budget fleet and self-speculative decoding
+# ---------------------------------------------------------------------------
+
+FLEET_BUDGETS = ("0.0", "0.5", "2:4")
+FLEET_AB = {"0.0": 1, "0.5": 1, "2:4": 2}
+FLEET_SPEC = "draft:2:4,verify:0.0,k:4"
+FLEET_KV = (None, 1)
+FLEET_SLOTS, FLEET_CAPACITY = 6, 256
+SPEC_K = 4
+
+
+def fleet_traffic(fleet, prompts, spec_state=None) -> dict:
+    """The six prompts through ``fleet``, three ``run()``s: pinned to
+    each member, then A/B (``FLEET_AB``), then self-speculative.
+    ``spec_state``: the decoder's (k, accept EMA) to start the spec run
+    from, so that every spec run takes the same rounds."""
+    pinned = {(i, n): fleet.submit(p, MAX_TOKENS, budget=n)
+              for n in FLEET_BUDGETS for i, p in enumerate(prompts)}
+    erids = {k: fleet._routes[r][1] for k, r in pinned.items()}
+    res = fleet.run()
+    pinned = {k: res[r] for k, r in pinned.items()}
+    ab = [fleet.submit(p, MAX_TOKENS, ab=FLEET_AB) for p in prompts]
+    picks = [fleet._routes[r][0] for r in ab]
+    res = fleet.run()
+    ab = [(n, res[r]) for n, r in zip(picks, ab)]
+    spec = [fleet.submit(p, MAX_TOKENS, spec=True) for p in prompts]
+    sd = fleet._spec
+    vrids = [sd._routes[fleet._spec_routes[r]][1] for r in spec]
+    if spec_state is not None:
+        sd.k, sd.accept_ema = spec_state
+    state = (sd.k, sd.accept_ema)
+    res = fleet.run()
+    return {"pinned": pinned, "erids": erids, "ab": ab,
+            "spec": [res[r] for r in spec], "vrids": vrids,
+            "spec_state": state, "k_end": sd.k}
+
+
+@contextlib.contextmanager
+def recording_fleet(fleet, rec: dict):
+    """While open (eager steps): every fused decode_step counted per
+    member (the engines' steps and the draft loops), the dense member's
+    decode rows kept (rid per slot, positions, logits), and every verify
+    pass kept (rid per slot, start positions, logits)."""
+    from repro_torch.models import model as M
+    names = {id(e.params): n for n, e in fleet.engines.items()}
+    fused, verify_step = fleet.fns._fused, M.verify_step
+
+    def rids(name):
+        return [None if r is None else r.rid
+                for r in fleet.engines[name].active]
+
+    def fused_rec(p, toks, caches, t):
+        logits, c = fused(p, toks, caches, t)
+        rec["forwards"][names[id(p)]] += 1
+        if names[id(p)] == "0.0":
+            rec["dense"].append((rids("0.0"), t.clone(), logits.clone()))
+        return logits, c
+
+    def verify_rec(cfg, p, toks, caches, t):
+        logits, c = verify_step(cfg, p, toks, caches, t)
+        rec["verify"].append((rids(names[id(p)]), t.clone(), logits.clone()))
+        return logits, c
+
+    fleet.fns._fused, M.verify_step = fused_rec, verify_rec
+    try:
+        yield rec
+    finally:
+        del fleet.fns._fused
+        M.verify_step = verify_step
+
+
+def spec_vs_verifier(torch, prompts, run: dict, rec: dict) -> dict:
+    """Each spec stream against the verifier decoding alone (the dense
+    member's pinned stream): the verify pass's logits against the decode
+    step's at every position up to the first differing token (8 bf16 ulps
+    of the row's max); a differing token must be a near-tie of the
+    verifier's own decode logits (margin at most twice the difference)."""
+    def decode_row(rid, pos):
+        return next(lg[s] for rids, t, lg in rec["dense"]
+                    for s, r in enumerate(rids)
+                    if r == rid and int(t[s]) == pos)
+
+    def verify_row(rid, pos):
+        row = None       # the last pass over pos committed it
+        for rids, t, lg in rec["verify"]:
+            for s, r in enumerate(rids):
+                if r == rid and int(t[s]) <= pos < int(t[s]) + lg.shape[1]:
+                    row = lg[s, pos - int(t[s])]
+        return row
+
+    ties, n, equal, worst = [], 0, 0, 0.0
+    for i, p in enumerate(prompts):
+        a, b = run["pinned"][i, "0.0"], run["spec"][i]
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        check(len(a) == len(b) or first is not None,
+              f"spec request {i}: {len(b)} tokens against the verifier's "
+              f"{len(a)} with no differing token")
+        for j in range(len(a) if first is None else first + 1):
+            pos = len(p) - 1 + j
+            la = decode_row(run["erids"][i, "0.0"], pos)
+            lb = verify_row(run["vrids"][i], pos)
+            err, tol = logit_err(torch, lb, la, LOGIT_ULPS_FULL)
+            check(err <= tol, f"spec request {i} at position {pos}: verify "
+                  f"logits differ from the verifier's decode by {err} over "
+                  f"{tol} ({LOGIT_ULPS_FULL} bf16 ulps of the row's max)")
+            check(int(la.argmax()) == a[j] and int(lb.argmax()) == b[j],
+                  f"spec request {i} at position {pos}: recorded logits do "
+                  "not give the streams' tokens")
+            n += 1
+            equal += bool(torch.equal(la, lb))
+            worst = max(worst, err / tol)
+        if first is not None:
+            margin = float(la[a[first]] - la[b[first]])
+            check(margin <= 2 * err, f"spec request {i} at position {pos}: "
+                  f"tokens {a[first]} vs {b[first]} with margin {margin} "
+                  f"past twice the logit difference {err}")
+            ties.append((i, pos, a[first], b[first], margin, err))
+    return {"rows": n, "bit_equal_rows": equal, "worst": worst,
+            "ties": ties}
+
+
+def member_step_ms(torch, eng, n: int = 20) -> dict:
+    """The engine's wall time per decode step (``EngineFns.step``: inputs
+    to the card, the step, greedy tokens back), eager and replayed from
+    its CUDA graph, median of ``n`` after 3 warm-up steps.  The member is
+    idle: the steps write ring rows no request reads."""
+    import numpy as np
+    from repro_torch.serve.engine import eager
+    toks = np.zeros((eng.slots,), np.int32)
+    pos = np.full((eng.slots,), 200, np.int32)
+    out = {}
+    for mode in ("eager", "graph"):
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            ts = []
+            for i in range(n + 3):
+                t0 = time.perf_counter()
+                eng.fns.step(eng.params, toks, eng.caches, pos)
+                ts.append(time.perf_counter() - t0)
+        out[mode] = statistics.median(ts[3:]) * 1e3
+    return out
+
+
+def fleet_surfaces(torch, cfg, fleet, prompts, S) -> dict:
+    """The draft loop (``draft_4``, the 2:4 member) and the verify pass
+    (``verify_4``, the dense member) at fixed inputs, each replayed from a
+    CUDA graph == eager; and the verify pass's 4 columns against 4
+    sequential decode steps of the same member, bit for bit or not."""
+    import numpy as np
+    from repro_torch.models import model as M
+    dev = fleet.fns.device
+    dense, draft = fleet.engines["0.0"].params, fleet.engines["2:4"].params
+    head = torch.from_numpy(np.stack([prompts[1][:40], prompts[3][:40]]))
+    feed = torch.from_numpy(np.stack([prompts[1][40:44],
+                                      prompts[3][40:44]])).to(dev)
+    t = torch.full((2,), 40, dtype=torch.int32, device=dev)
+
+    def prefilled(params):
+        return M.prefill(cfg, params, {"tokens": head.to(dev)},
+                         cache_capacity=FLEET_CAPACITY)[1]
+    cv, cd, cs = prefilled(dense), prefilled(draft), prefilled(dense)
+
+    def verify():
+        return M.verify_step(cfg, dense, feed, cv, t)[0]
+
+    def draft_loop():
+        tok, out = feed[:, 0], []
+        for i in range(SPEC_K):
+            lg = M.decode_step(cfg, draft, tok, cd, t + i, kv_shards=S)[0]
+            tok = lg.argmax(-1)
+            out.append(lg)
+        return torch.stack(out, dim=1)
+
+    ok = {"draft_4": replay_matches_eager(torch, draft_loop),
+          "verify_4": replay_matches_eager(torch, verify)}
+    for name, same in ok.items():
+        check(same, f"kv_shards={S}: {name} replayed from a CUDA graph "
+              "differs from the eager call")
+    got = verify()
+    cols = []
+    for i in range(SPEC_K):
+        want = M.decode_step(cfg, dense, feed[:, i], cs, t + i,
+                             kv_shards=S)[0]
+        cols.append((float((got[:, i] - want).abs().max()),
+                     bool(torch.equal(got[:, i], want)),
+                     logit_err(torch, got[:, i], want, LOGIT_ULPS_FULL)[1]))
+    return {"replay": ok, "columns": cols}
+
+
+def fleet_at(torch, dev, card, cfg, bank, params0, prompts, S,
+             counted: dict, masks_made: bool) -> dict:
+    """One fleet at ``kv_shards=S``: built from the bank, the traffic
+    eager and counted, then twice on the CUDA-graph engines; every gate of
+    the phase.  ``masks_made``: the bank has thresholded its masks for an
+    earlier fleet already (its memo)."""
+    import collections
+    from repro_torch import tree
+    from repro_torch.serve.engine import eager
+    from repro_torch.serve.fleet import SparsityFleet
+    from repro_torch.sparse.apply import shared_leaves
+    L = cfg.num_layers
+    tag = f"kv_shards={S}"
+
+    # -- the main path, counted (eager steps) -------------------------------
+    calls = {}
+    rec = {"forwards": collections.Counter(), "dense": [], "verify": []}
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = SparsityFleet(bank, params0, FLEET_BUDGETS, slots=FLEET_SLOTS,
+                          capacity=FLEET_CAPACITY, spec=FLEET_SPEC,
+                          device=dev, kv_shards=S)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with first_call_per_signature(calls), recording_fleet(fleet, rec), \
+            eager():
+        run = fleet_traffic(fleet, prompts)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    # -----------------------------------------------------------------------
+    engines = fleet.engines
+    fw = rec["forwards"]
+    want = {"nm_matmul": 7 * L * (fw["2:4"] + engines["2:4"].prefill_calls),
+            "nm_matmul_expert": 0, "nm_mask24": 0 if masks_made else 7,
+            "flash_decode": L * sum(fw.values()) if S == 1 else 0,
+            "flash_decode_partial": 0, "combine_partials": 0}
+    print(f"  {tag}: fleet {list(engines)} ({FLEET_SLOTS} slots, capacity "
+          f"{FLEET_CAPACITY}) built in {t_build:.2f} s; eager traffic "
+          f"{t_eager:.2f} s; launches {launches} over decode forwards "
+          f"{dict(fw)} (the draft loops' included) and prefills "
+          f"{ {n: e.prefill_calls for n, e in engines.items()} }")
+    check(launches == want, f"{tag}: fleet launches {launches}, want {want}")
+    print("  " + check_path_calls(torch, calls))
+    del calls
+
+    # -- shared leaves: one cast params0, no member copies it ---------------
+    n_leaves = len(tree.leaves(fleet.params0))
+    n_pruned = sum(m is not None for m in
+                   tree.leaves(bank.masks_at(nm=(2, 4))))
+    table = fleet.params0["embed"]["table"]
+    for name, eng in engines.items():
+        n = n_leaves if name == "0.0" else n_leaves - n_pruned
+        got = (fleet.reports[name]["shared_dense_leaves"],
+               shared_leaves(fleet.params0, eng.params))
+        check(got == (n, n) and eng.params["embed"]["table"] is table,
+              f"{tag}: member {name} shares {got} leaves of {n_leaves}, "
+              f"want {n} (every leaf but the {n_pruned} pruned kernels), "
+              "and the one embedding table")
+
+    # -- streams and the report's counters ----------------------------------
+    for i, (name, stream) in enumerate(run["ab"]):
+        check(stream == run["pinned"][i, name], f"{tag}: A/B request {i} "
+              f"on {name} differs from the same prompt pinned there")
+    rep = fleet.report()
+    b = rep["budgets"]
+    picks = collections.Counter(n for n, _ in run["ab"])
+    for name in FLEET_BUDGETS:
+        toks = (sum(len(run["pinned"][i, name]) for i in range(len(prompts)))
+                + sum(len(x) for n, x in run["ab"] if n == name))
+        check(b[name]["requests"] == len(prompts) + picks[name]
+              and b[name]["tokens"] == toks,
+              f"{tag}: member {name} reports {b[name]['requests']} requests"
+              f" and {b[name]['tokens']} tokens, want "
+              f"{len(prompts) + picks[name]} and {toks}")
+    shadow_toks = sum(len(run["pinned"][i, "0.0"])
+                      for i, (n, _) in enumerate(run["ab"]) if n != "0.0")
+    mirrored = sum(b[n]["cumulative"]["mirrored_picks"] for n in b)
+    check(b["0.0"]["shadow"]["requests"] == mirrored == len(prompts)
+          - picks["0.0"] and b["0.0"]["shadow"]["tokens"] == shadow_toks,
+          f"{tag}: shadow {b['0.0']['shadow']}, mirrored picks {mirrored}, "
+          f"want {len(prompts) - picks['0.0']} requests and {shadow_toks} "
+          "tokens, out of the headline")
+    spec_toks = sum(map(len, run["spec"]))
+    check(rep["spec"]["requests"] == len(prompts)
+          and rep["spec"]["tokens"] == spec_toks,
+          f"{tag}: spec reports {rep['spec']['requests']} requests and "
+          f"{rep['spec']['tokens']} tokens, want {len(prompts)} and "
+          f"{spec_toks}")
+    lossless = spec_vs_verifier(torch, prompts, run, rec)
+    del rec
+
+    # -- the same traffic twice on the CUDA-graph engines -------------------
+    graph = []
+    for r in range(2):
+        before = fleet.report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = fleet_traffic(fleet, prompts, run["spec_state"])
+        torch.cuda.synchronize()
+        g["seconds"] = time.perf_counter() - t0
+        g["captures"] = fleet.fns.capture_counts()
+        g["report"] = (before, fleet.report())
+        for key in ("pinned", "spec"):
+            check(g[key] == run[key], f"{tag}: graph run {r + 1}: the "
+                  f"{key} streams differ from the eager run's")
+        # A/B picks continue the weighted fair order, so compare each with
+        # the same prompt pinned to its member
+        check(all(x == g["pinned"][i, n] for i, (n, x) in enumerate(g["ab"])),
+              f"{tag}: graph run {r + 1}: an A/B stream differs from its "
+              "prompt pinned to the same member")
+        graph.append(g)
+    caps = graph[0]["captures"]
+    check(caps["decode"] == len(FLEET_BUDGETS)
+          and all(n == 1 for k, n in caps.items() if k != "decode"),
+          f"{tag}: captures {caps}: want one decode graph per member and "
+          "one graph per draft and verify surface")
+    check(graph[1]["captures"] == caps, f"{tag}: the second graph run "
+          f"captured again: {caps} -> {graph[1]['captures']}")
+    surfaces = fleet_surfaces(torch, cfg, fleet, prompts, S)
+    steps = {name: member_step_ms(torch, eng)
+             for name, eng in engines.items()}
+
+    # -- printed, beside the card -------------------------------------------
+    (b0, b1) = graph[1]["report"]
+
+    def delta(name):
+        x, y = b0["budgets"][name]["cumulative"], \
+            b1["budgets"][name]["cumulative"]
+        return (y["tokens"] - x["tokens"]) / (y["seconds"] - x["seconds"])
+    tok_s = {name: delta(name) for name in FLEET_BUDGETS}
+    s0, s1 = b0["spec"], b1["spec"]
+    spec_tok_s = (s1["tokens"] - s0["tokens"]) / (s1["seconds"]
+                                                  - s0["seconds"])
+    acc = rep["spec"]
+    for name, ms in steps.items():
+        print(f"  [{card}] {tag} member {name}: engine step (EngineFns.step,"
+              f" {engines[name].slots} slots) eager {ms['eager']:.2f} ms, "
+              f"CUDA graph {ms['graph']:.2f} ms; warm graph run (pinned + "
+              f"A/B traffic) {tok_s[name]:.1f} tok/s")
+    print(f"  [{card}] {tag} spec {FLEET_SPEC} (adaptive): accept rate "
+          f"{acc['accept_rate']:.3f}, {acc['accepted_tokens_per_round']:.2f} "
+          f"tokens per round over {acc['rounds']} rounds (eager run), k at "
+          f"the end {run['k_end']}; warm graph run {spec_tok_s:.1f} tok/s "
+          f"against the verifier alone {tok_s['0.0']:.1f} tok/s "
+          f"({spec_tok_s / tok_s['0.0']:.2f}x); random weights: the accept "
+          "rate says nothing of quality")
+    print(f"  {tag}: graph runs streams == eager run (pinned, A/B, spec), "
+          f"captures {caps}, unchanged by the second run; draft_4 / "
+          f"verify_4 replayed == eager; graph traffic "
+          f"{graph[0]['seconds']:.2f} s (capturing), "
+          f"{graph[1]['seconds']:.2f} s (warm)")
+    lt = lossless
+    print(f"  {tag}: spec streams vs the verifier alone: "
+          f"{sum(a == b for a, b in zip(run['spec'], [run['pinned'][i, '0.0'] for i in range(len(prompts))]))}"
+          f" of {len(prompts)} identical; verify logits vs the verifier's "
+          f"decode over {lt['rows']} rows: {lt['bit_equal_rows']} bit-equal, "
+          f"worst {lt['worst']:.3f} of the tolerance ({LOGIT_ULPS_FULL} bf16 "
+          f"ulps of the row's max); near-ties (request, position, "
+          f"verifier's token, spec's, margin, logit difference): "
+          f"{lt['ties']}")
+    print(f"  {tag}: verify_4 columns vs 4 sequential decode steps of the "
+          f"dense member (max |diff|, bit-equal, 8-ulp tolerance): "
+          f"{surfaces['columns']}")
+    out = {"launches": launches, "tok_s": tok_s, "spec_tok_s": spec_tok_s,
+           "steps": steps, "accept_rate": acc["accept_rate"],
+           "tokens_per_round": acc["accepted_tokens_per_round"],
+           "k_end": run["k_end"], "lossless": lossless, "captures": caps,
+           "columns": surfaces["columns"]}
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fleet(torch, dev, card: str, bank) -> dict:
+    """Phase 6's full-width bank (``MaskBank`` as phase 6 reloaded it, its
+    mask memo cleared: the fleet thresholds its budgets itself) serving
+    three budgets behind one router, at ``kv_shards`` None and 1
+    (:func:`fleet_at`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.nm_prox import nm_mask24
+    from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
+    from repro_torch.models import model as M
+    counted = {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
+               "nm_mask24": nm_mask24,
+               **{name: getattr(fd, name) for name in FLASH_KERNELS}}
+    cfg = get_config("llama3.2-1b")
+    bank._mask_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params0 = M.init_params(cfg, 0, device=dev)      # phase 6's weights
+    print(f"  {cfg.name}: phase 6's bank ({bank.meta['steps_run']} steps, "
+          f"checksum {bank.meta['checksum']}); budgets {FLEET_BUDGETS} (the "
+          "0.5 member thresholds every prunable score globally: a sort)")
+    prompts = serving_prompts(cfg)
+    out = {}
+    for i, S in enumerate(FLEET_KV):
+        out[S] = fleet_at(torch, dev, card, cfg, bank, params0, prompts, S,
+                          counted, masks_made=i > 0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [{card}] max memory allocated through the phase "
+          f"{peak / 2 ** 30:.2f} GiB")
+    del bank, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"by_kv": out, "peak_gib": peak / 2 ** 30}
 
 
 def stoch_draws_card_vs_cpu(torch, dev) -> None:
@@ -1916,7 +2428,7 @@ def phase_bank(torch, dev) -> None:
     from repro_torch.kernels.nm_prox import nm_mask24
     from repro_torch.kernels.nm_spmm import nm_matmul
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import ServeEngine, eager
     from repro_torch.sparse.bank import MaskBank
 
     bank_dir = ROOT / "results" / "bank" / "llama3.2-1b"
@@ -1938,7 +2450,8 @@ def phase_bank(torch, dev) -> None:
     streams = []
     for eng in engines:
         rids = [eng.submit(p, m) for p, m in reqs]
-        res = eng.run()
+        with eager():               # counted: the wrappers see every call
+            res = eng.run()
         streams.append([res[r] for r in rids])
     launches = {"nm_matmul": nm_matmul.launches,
                 "nm_mask24": nm_mask24.launches}
@@ -1988,7 +2501,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/8] device")
+    print("[1/9] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -2000,7 +2513,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/8] build")
+    print("[2/9] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -2009,7 +2522,7 @@ def main() -> int:
     print(f"  kernels built ({', '.join(ENTRY_POINTS)}: one nvcc each, in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
 
-    print(f"[3/8] kernels against their plain versions [{card}]")
+    print(f"[3/9] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import get_config, get_smoke_config
     t0 = time.perf_counter()
     mm = phase_nm_matmul(torch, dev)
@@ -2024,7 +2537,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/8] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/9] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         {"nm_matmul": 7, "nm_matmul_expert": 0},
@@ -2032,7 +2545,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/8] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/9] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -2041,25 +2554,45 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/8] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/9] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
-    calib = phase_calibrate(torch, dev, card)
     phase_calibrate_card_vs_cpu(torch, dev)
     stoch_draws_card_vs_cpu(torch, dev)
+    calib = phase_calibrate(torch, dev, card)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[7/8] committed mask bank at smoke width, card vs CPU")
+    print(f"[7/9] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+          f"pinned, A/B and self-speculative [{card}]")
+    t0 = time.perf_counter()
+    fleet = phase_fleet(torch, dev, card, calib.pop("bank"))
+    shutil.rmtree(_banks_dir(), ignore_errors=True)
+    t_fleet = time.perf_counter() - t0
+    print(f"  phase took {t_fleet:.1f} s")
+
+    torch.cuda.empty_cache()
+    print("[8/9] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
-    print("[8/8] summary")
+    print("[9/9] summary")
     paths = {"llama3.2-1b": llama["launches"],
              "mixtral-8x22b": moe["launches"],
              "calibrate llama3.2-1b": calib["launches"]}
     for name, run in (("llama3.2-1b", llama), ("mixtral-8x22b", moe)):
         for S, r in run["kv_runs"].items():
             paths[f"{name} kv_shards={S}"] = r["launches"]
+    for S, r in fleet["by_kv"].items():
+        paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
+    # kernel launches the profiler saw on the CUDA-graph engine's runs of
+    # phases 4-5's paths (2 requests), replays included, by kernel function (nm_mma_kernel
+    # serves both 2:4 wrappers, flash_decode_kernel both decode attention
+    # wrappers)
+    graph_paths = {(name if S is None else f"{name} kv_shards={S}"):
+                   g["launches"]
+                   for name, run in (("llama3.2-1b", llama),
+                                     ("mixtral-8x22b", moe))
+                   for S, g in run["graph_runs"].items()}
 
     def flash_row(name, case, S):
         rows = [r for r in flash["rows"] if name in r]
@@ -2070,7 +2603,16 @@ def main() -> int:
 
     def counts(name):
         by = {k: v[name] for k, v in paths.items() if name in v}
-        return {"launches": sum(by.values()), "launches_by_path": by}
+        graph_key = {"nm_matmul": "nm_spmm", "nm_matmul_expert": "nm_spmm",
+                     "flash_decode": "flash_decode",
+                     "flash_decode_partial": "flash_decode",
+                     "combine_partials": "combine_partials"}.get(name)
+        out = {"launches": sum(by.values()), "launches_by_path": by}
+        if graph_key:
+            out["graph_replay_launches_by_path"] = {
+                k: v[graph_key] for k, v in graph_paths.items()
+                if by.get(k)}
+        return out
 
     kernels = [
         {"name": "nm_matmul", "route": "cuda",
@@ -2134,7 +2676,8 @@ def main() -> int:
                  "replaces the pmax/psum combine of shard.py:327-330, which "
                  "has no Pallas counterpart"},
     ]
-    print(f"  {time.perf_counter() - t_start:.1f} s in all")
+    print(f"  {time.perf_counter() - t_start:.1f} s in all (the fleet phase "
+          f"{t_fleet:.1f} s)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,20 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens.
 
-Port of ``repro.launch.serve`` for the dense path and bank-backed sparse
-serving (``--sparse`` calibration, ``--fleet`` and ``--spec`` come with
-their slices):
+Port of ``repro.launch.serve`` for the dense path, bank-backed sparse
+serving and the multi-budget fleet (``--sparse`` inline calibration,
+``--save-artifact``, ``--temperature`` and the trace flags are not ported
+yet):
 
 * dense: random weights from ``torch.Generator`` seed 0;
 * ``--sparse-artifact DIR [--sparsity S]``: load the mask bank,
   re-threshold to masks in one shot, and serve 2:4-compressed weights
   through the ``nm_matmul`` kernel (``--weight-format masked`` serves the
   same masks masked-dense, for A/B checks; ``--idx-bits 8`` stores the
-  int8 index plane).
+  int8 index plane);
+* ``--sparse-artifact DIR --fleet 0.0,0.5,2:4 [--ab W,W,W | --spec
+  draft:2:4,verify:0.0,k:4] [--slots N]``: N budgets from the one bank
+  behind one router (``serve.fleet.SparsityFleet``), tagged round-robin,
+  A/B weighted or self-speculative, and its report.
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Any ported
 arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window).
@@ -18,12 +23,16 @@ arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window).
       --smoke --sparse-artifact results/bank/llama3.2-1b --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --sparse-artifact results/bank/llama3.2-1b \
+      --fleet 0.0,0.5,2:4 --spec draft:2:4,verify:0.0,k:4 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config
@@ -68,6 +77,64 @@ def _load_sparse(args, params, device):
     return bank.cfg, sparse
 
 
+def _serve_fleet(args, params, device) -> None:
+    """N budgets from one bank behind one router; prints the report."""
+    from repro_torch.serve.fleet import SparsityFleet
+    budgets = [b for b in args.fleet.split(",") if b]
+    capacity = args.prompt_len + args.gen + 1
+    fleet = SparsityFleet.from_artifact(
+        args.sparse_artifact, params, budgets, slots=args.slots,
+        capacity=capacity, idx_bits=args.idx_bits, spec=args.spec,
+        device=device)
+    batch = batches_for(fleet.cfg, n=1, batch=args.batch,
+                        seq=args.prompt_len, split="valid")[0]
+    prompts = [np.asarray(batch["tokens"][i]) for i in range(args.batch)]
+    names = list(fleet.engines)
+    if args.spec:
+        rids = [fleet.submit(p, args.gen, spec=True) for p in prompts]
+        print(f"self-speculative decoding: {args.spec}")
+    elif args.ab:
+        weights = [float(w) for w in args.ab.split(",")]
+        if len(weights) != len(names):
+            raise SystemExit(f"--ab needs {len(names)} weights (one per "
+                             f"--fleet budget), got {len(weights)}")
+        ab = dict(zip(names, weights))
+        rids = [fleet.submit(p, args.gen, ab=ab) for p in prompts]
+        print(f"A/B split over {names} with weights {weights}")
+    else:
+        rids = [fleet.submit(p, args.gen, budget=names[i % len(names)])
+                for i, p in enumerate(prompts)]
+        print(f"tagged round-robin over {names}")
+    t0 = time.perf_counter()
+    out = fleet.run()
+    dt = time.perf_counter() - t0
+    rep = fleet.report()
+    print(f"fleet served {len(out)} requests x {args.gen} tokens from "
+          f"{args.sparse_artifact} in {dt:.2f}s "
+          f"(reference: {rep['reference']})")
+    for name, r in rep["budgets"].items():
+        agree = r["token_agreement_vs_reference"]
+        print(f"  {name:>6}: slots {r['slots']}, {r['requests']} reqs, "
+              f"{(r['tok_s'] or 0):8.1f} tok/s, "
+              f"byte ratio {r['weight_bytes_ratio']:.4f} "
+              f"({r['compressed_kernels']} compressed, "
+              f"{r['fallback_leaves']} masked-dense), "
+              f"shared dense leaves {r['shared_dense_leaves']}"
+              + (f", agreement vs ref {agree:.3f}" if agree is not None
+                 else ""))
+    spec = rep["spec"]
+    if spec is not None:
+        print(f"  spec: {spec['draft']} drafts -> {spec['verify']} "
+              f"verifies, k={spec['k']}, "
+              f"accept rate {(spec['accept_rate'] or 0):.3f} "
+              f"(EMA {spec['accept_ema']:.3f}), "
+              f"{(spec['accepted_tokens_per_round'] or 0):.2f} tokens/round "
+              f"over {spec['rounds']} rounds, "
+              f"{spec['rollbacks']} rollbacks, "
+              f"{(spec['tok_s'] or 0):.1f} tok/s")
+    print("sample continuation:", out[rids[0]][:16])
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -86,6 +153,23 @@ def main(argv=None) -> None:
     ap.add_argument("--idx-bits", type=int, default=2, choices=[2, 8],
                     help="compressed index layout: 2 = packed 4-per-byte "
                          "(kernel-native), 8 = int8 plane")
+    ap.add_argument("--fleet", default=None,
+                    help="with --sparse-artifact: comma-separated budgets "
+                         "served concurrently from the one bank behind one "
+                         "router, e.g. 0.0,0.5,2:4")
+    ap.add_argument("--ab", default=None,
+                    help="with --fleet: comma-separated traffic weights "
+                         "aligned with the --fleet budgets (default: "
+                         "tagged round-robin)")
+    ap.add_argument("--spec", default=None,
+                    help="with --fleet: self-speculative decoding, e.g. "
+                         "draft:2:4,verify:0.0,k:4 (the draft member "
+                         "proposes k tokens a round, the verify member "
+                         "checks them in one teacher-forced pass; its "
+                         "stream is the verifier's own)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="fleet decode-slot pool partitioned across "
+                         "budgets (default: 2 per budget)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain CPU path)")
@@ -94,6 +178,15 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = M.init_params(cfg, 0, device=device)
+    if args.spec and not args.fleet:
+        raise SystemExit("--spec rides the fleet router: pass --fleet with "
+                         "the draft and verify budgets")
+    if args.fleet:
+        if not args.sparse_artifact:
+            raise SystemExit("--fleet serves from a saved mask bank: "
+                             "pass --sparse-artifact DIR")
+        _serve_fleet(args, params, device)
+        return
     if args.sparse_artifact:
         cfg, params = _load_sparse(args, params, device)
     params = M.serving_params(params)

@@ -353,3 +353,51 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
                       window=window, kv_shards=kv_shards)
     y = cm.dense(p["wo"], o.reshape(B, 1, num_heads * head_dim))
     return y, cache
+
+
+def attn_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
+                      t: torch.Tensor, *, num_heads: int, num_kv: int,
+                      head_dim: int, rope_theta: float = 1e4,
+                      use_rope: bool = True, scale: float | None = None,
+                      ) -> tuple[torch.Tensor, PyTree]:
+    """Teacher-forced S-token decode in one pass (speculative verify).
+
+    x: (B, S, d), S fed tokens per row; t: (B,) per-row start positions,
+    so row b's token i sits at position t[b] + i.  All S ring rows are
+    written first (in place), then every query attends over the whole ring
+    with the per-query mask kpos <= t + i, so in-chunk causality falls out
+    of the position mask that sequential decode uses.  Plain torch, as the
+    reference's ``jnp.einsum`` pass: f32 scores, probabilities ``p / l``
+    rounded to the cache dtype before PV.  The caller guarantees
+    max(t) + S <= capacity (no ring wrap); windowed rings are excluded.
+    """
+    B, S, _ = x.shape
+    C = cache["k"].shape[1]
+    q = cm.dense(p["wq"], x).reshape(B, S, num_heads, head_dim)
+    k = cm.dense(p["wk"], x).reshape(B, S, num_kv, head_dim)
+    v = cm.dense(p["wv"], x).reshape(B, S, num_kv, head_dim)
+    pos = t.to(torch.int32)[:, None] + torch.arange(
+        S, dtype=torch.int32, device=x.device)                  # (B, S)
+    if use_rope:
+        q = cm.rope(q, pos, theta=rope_theta)
+        k = cm.rope(k, pos, theta=rope_theta)
+    rows = torch.arange(B, device=x.device)[:, None]
+    slot = ring_slot(pos, C).long()
+    cache["k"][rows, slot] = k.to(cache["k"].dtype)
+    cache["v"][rows, slot] = v.to(cache["v"].dtype)
+    K, G = num_kv, num_heads // num_kv
+    scale = head_dim ** -0.5 if scale is None else scale
+    qg = q.reshape(B, S, K, G, head_dim)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg.float(),
+                     cache["k"].float()) * scale
+    kpos = ring_positions(pos[:, -1], C)                         # (B, C)
+    ok = kpos[:, None, :] <= pos[:, :, None]                     # (B, S, C)
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    pr = torch.exp(s - m)
+    l = pr.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqc,bckd->bqkgd",
+                     (pr / l).to(cache["v"].dtype).float(),
+                     cache["v"].float())
+    o = o.reshape(B, S, num_heads * head_dim).to(x.dtype)
+    return cm.dense(p["wo"], o), cache

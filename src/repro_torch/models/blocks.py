@@ -148,3 +148,29 @@ def block_apply_decode(kind: str, cfg: ModelConfig, p: PyTree,
     h, n = _residual_norm(cfg, p["ln2"], x, a)
     f, _ = _ffn_apply(cfg, p, n)
     return h + f, cache
+
+
+# kinds with a parallel verify path: full-capacity attention rings
+VERIFY_KINDS = ("attn", "moe")
+
+
+def block_apply_verify(kind: str, cfg: ModelConfig, p: PyTree,
+                       x: torch.Tensor, cache: PyTree, t: torch.Tensor):
+    """Teacher-forced S-token decode (speculative verify): one pass over S
+    fed tokens per row, write-then-attend against the slot's ring
+    (``attention.attn_apply_verify``).  Only full-ring attention kinds
+    have it: windowed rings can wrap mid-chunk and recurrent state cannot
+    roll back."""
+    if kind in ("mla_dense", "mla_moe"):
+        raise ValueError(f"kind {kind!r}: MLA verify is not ported yet "
+                         "(ROADMAP A item 4)")
+    if kind not in VERIFY_KINDS:
+        raise ValueError(f"kind {kind!r} has no parallel verify path "
+                         "(spec decode gates on SPEC_SAFE_KINDS)")
+    kw = _attn_kwargs(cfg, local=False)
+    del kw["window"]
+    a, cache = attn.attn_apply_verify(p["attn"], _norm(cfg, p["ln1"], x),
+                                      cache, t, **kw)
+    h, n = _residual_norm(cfg, p["ln2"], x, a)
+    f, _ = _ffn_apply(cfg, p, n)
+    return h + f, cache

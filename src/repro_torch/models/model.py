@@ -276,3 +276,28 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
                                               kv_shards=kv_shards)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], caches
+
+
+def verify_step(cfg: ModelConfig, params: PyTree, tokens, caches: list, t):
+    """Teacher-forced S-token decode in one batched pass (spec verify).
+
+    tokens: (B, S) ints, S fed tokens per row; t: (B,) per-row start
+    positions.  Column i's logits continue the fed prefix
+    ``tokens[:, :i + 1]``, as feeding the same tokens through
+    :func:`decode_step` one at a time would, but the layer ops run once
+    for all S positions.  Writes the S ring rows of every row of
+    ``caches`` in place; the caller guarantees max(t) + S <= capacity (no
+    ring wrap).  Returns (logits (B, S, V) f32, caches)."""
+    tokens = _tokens(params, tokens)
+    x = cm.embed_lookup(params["embed"], tokens)
+    t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
+    for (pattern, repeats), sp, cache in zip(make_stages(cfg),
+                                             params["stages"], caches,
+                                             strict=True):
+        for i in range(repeats):
+            lp, lc = _layer(sp, i), _layer(cache, i)
+            for j, kind in enumerate(pattern):
+                x, _ = blk.block_apply_verify(kind, cfg, lp[str(j)], x,
+                                              lc[str(j)], t)
+    x = blk._norm(cfg, params["final_norm"], x)
+    return _unembed(cfg, params, x), caches

@@ -1,13 +1,15 @@
 """Batched serving engine: request queue -> continuous batched decode.
 
-Port of ``repro.serve.engine`` (fused decode mode).  Continuous batching
-over a fixed-slot KV cache: requests join free slots, prefill runs once per
-admitted request (one bucketed forward that fills the slot's cache rows),
-and decode advances every slot one token per step in ONE
-``model.decode_step`` call with the per-slot positions as an index vector,
-so each slot writes its own ring slot and masks attention at its own
-position and new slots admit mid-batch.  Finished slots free up on
-max_tokens or on emitting the eos token and are reused by queued requests.
+Port of ``repro.serve.engine``.  Continuous batching over a fixed-slot KV
+cache: requests join free slots, prefill runs once per admitted request
+(one bucketed forward that fills the slot's cache rows), and decode
+advances every slot one token per step in ONE ``model.decode_step`` call
+with the per-slot positions as an index vector, so each slot writes its
+own ring slot and masks attention at its own position and new slots admit
+mid-batch.  ``decode_mode="vmap"`` keeps the reference's per-slot oracle:
+each slot decodes alone at its own position, a loop over one-slot views
+of the caches.  Finished slots free up on max_tokens or on emitting the
+eos token and are reused by queued requests.
 
 Weights may be dense or 2:4-compressed (``sparse.apply.sparsify_params``):
 ``models.common.dense`` dispatches per leaf, so the same engine serves
@@ -21,15 +23,30 @@ reference computes on a mesh whose ``model`` axis (``mesh.shape["model"] ==
 S``) shards the cache capacity: ``flash_decode_partial`` over S capacity
 shards plus the combine kernel, on one card.  S must divide every cache
 length, or construction raises.  ``ServeEngine.from_artifact`` builds the
-sparse engine straight from a saved mask bank.  Request validation happens at ``submit()``: an empty
-prompt, a prompt at or over cache capacity, or ``max_tokens <= 0`` never
-claims a slot.  Caches are updated in place.
+sparse engine straight from a saved mask bank.  Request validation happens
+at ``submit()``: an empty prompt, a prompt at or over cache capacity, or
+``max_tokens <= 0`` never claims a slot.
+
+The step functions (decode, the k-token draft loop and the k-token
+teacher-forced verify of ``serve.spec``, bucketed prefill, the slot write)
+live in :class:`EngineFns`; engines that share one instance (the members
+of ``serve.fleet.SparsityFleet``) share its graph memory pool.  On the card
+the decode, draft and verify steps replay CUDA graphs, where the reference
+replays jitted programs: one per engine and surface, captured at first
+use (each k of draft and verify its own surface, as jit buckets are), each
+with static input buffers filled from pinned host memory and its greedy
+tokens computed inside the graph.  Caches are updated in place (admission
+too), so a graph captured before an admission sees it.  Prefill stays
+eager.  :func:`eager` runs every step eagerly on the card as well, the
+graphs' oracle (the analogue of ``jax.disable_jit``); on the CPU
+everything is eager.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -47,6 +64,21 @@ from repro_torch.models import model as M
 # prefill runs at the exact prompt length, as in the reference.
 _PAD_SAFE_KINDS = {"attn", "local"}
 
+_eager_depth = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """While open, every :class:`EngineFns` step runs eagerly on the card
+    too: no CUDA graph is captured or replayed.  The graphs' oracle, and
+    the mode in which patched or counting Python wrappers see each call."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
+
 
 @dataclasses.dataclass
 class Request:
@@ -59,22 +91,99 @@ class Request:
                                   # each generated one)
 
 
+class _Graph:
+    """One surface of one engine captured as a CUDA graph: static device
+    inputs (fed tokens int64, positions int32), filled from pinned host
+    buffers before each replay, and the greedy tokens (int32) read back
+    from a static output.  Holds the params and caches whose buffers the
+    graph reads and writes."""
+
+    def __init__(self, body: Callable, params, caches: list,
+                 inp: np.ndarray, pos: np.ndarray, device, pool):
+        self.params, self.caches = params, caches
+        self.inp = torch.empty(inp.shape, dtype=torch.int64, device=device)
+        self.pos = torch.empty(pos.shape, dtype=torch.int32, device=device)
+        self.inp_host = torch.empty(inp.shape, dtype=torch.int64,
+                                    pin_memory=True)
+        self.pos_host = torch.empty(pos.shape, dtype=torch.int32,
+                                    pin_memory=True)
+        self._fill(inp, pos)
+        # one eager run first, on a side stream: it makes what capture
+        # cannot (nm_matmul's split-K counters, library handles).  It writes
+        # the same cache rows the replay below writes again.
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body(params, self.inp, caches, self.pos)
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.out = body(params, self.inp, caches, self.pos)
+        self.out_host = torch.empty(self.out.shape, dtype=self.out.dtype,
+                                    pin_memory=True)
+
+    def _fill(self, inp: np.ndarray, pos: np.ndarray) -> None:
+        self.inp_host.numpy()[...] = inp
+        self.pos_host.numpy()[...] = pos
+        self.inp.copy_(self.inp_host, non_blocking=True)
+        self.pos.copy_(self.pos_host, non_blocking=True)
+
+    def run(self, inp: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        self._fill(inp, pos)
+        self.graph.replay()
+        self.out_host.copy_(self.out, non_blocking=True)
+        torch.cuda.current_stream(self.out.device).synchronize()
+        return self.out_host.numpy().copy()
+
+
 class EngineFns:
     """Step functions + the blank-slot template for one (cfg, capacity,
-    device): fused decode, bucketed prefill and the slot write."""
+    device, kv_shards, decode_mode).
+
+    ``ServeEngine`` builds one per instance by default; a multi-engine
+    owner (``serve.fleet.SparsityFleet``) builds ONE and hands it to every
+    member.  :meth:`step`, :meth:`draft` and :meth:`verify` return greedy
+    tokens on the host; on the card (outside :func:`eager`) each replays
+    the CUDA graph of its surface for the engine whose caches it is given,
+    capturing it at first use, with every graph of this instance in one
+    memory pool (they never run concurrently).  ``decode_mode="vmap"``
+    decodes eagerly, slot by slot; its draft and verify are the fused ones,
+    as in the reference.
+    """
 
     def __init__(self, cfg: ModelConfig, capacity: int, device,
-                 kv_shards: int | None = None):
+                 kv_shards: int | None = None, decode_mode: str = "fused"):
+        if decode_mode not in ("fused", "vmap"):
+            raise ValueError(f"decode_mode {decode_mode!r}: 'fused' or "
+                             "'vmap'")
         check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity))
         self.cfg = cfg
         self.capacity = capacity
         self.device = device
         self.kv_shards = kv_shards
+        self.decode_mode = decode_mode
+        self.verify_fns: dict[int, Callable] = {}   # k -> verify pass
+        self.draft_fns: dict[int, Callable] = {}    # k -> draft loop
+        self._graphs: dict[tuple, _Graph] = {}
+        self._pool = None
         self._blank_row = None
+
+    # -- model calls (eager) -------------------------------------------------
 
     def decode(self, params, toks: torch.Tensor, caches: list,
                t: torch.Tensor):
-        """One fused decode step over every slot at its own position."""
+        """One decode step over every slot at its own position, eagerly:
+        fused, or slot by slot in ``vmap`` mode.  (logits, caches)."""
+        if self.decode_mode == "fused":
+            return self._fused(params, toks, caches, t)
+        logits = [self._fused(params, toks[s:s + 1],
+                              tree.tree_map(lambda a: a[:, s:s + 1], caches),
+                              t[s:s + 1])[0]
+                  for s in range(toks.shape[0])]
+        return torch.cat(logits), caches
+
+    def _fused(self, params, toks, caches, t):
         return M.decode_step(self.cfg, params, toks, caches, t,
                              kv_shards=self.kv_shards)
 
@@ -96,26 +205,125 @@ class EngineFns:
                                             device=self.device)
         return self._blank_row
 
+    # -- the greedy surfaces -------------------------------------------------
+
+    def step(self, params, toks: np.ndarray, caches: list,
+             pos: np.ndarray) -> np.ndarray:
+        """One decode step's greedy tokens (B,) int32 on the host."""
+        def body(p, x, c, t):
+            return self.decode(p, x, c, t)[0].argmax(-1).to(torch.int32)
+        return self._call("decode", body, params, toks, caches, pos,
+                          graph=self.decode_mode == "fused")
+
+    def draft(self, k: int) -> Callable:
+        """The k-token autoregressive draft loop: ``(params, seed (B,),
+        caches, pos (B,)) -> (drafts (B, k) int32, caches)``.  Feeds
+        ``seed``, then its own greedy argmax k - 1 more times; each step
+        is the fused ``model.decode_step``, so the loop proposes what the
+        engine's own sequential decode would."""
+        fn = self.draft_fns.get(k)
+        if fn is None:
+            def body(p, seed, c, t):
+                tok, out = seed, []
+                for i in range(k):
+                    tok = self._fused(p, tok, c, t + i)[0].argmax(-1)
+                    out.append(tok)
+                return torch.stack(out, dim=1).to(torch.int32)
+
+            def fn(params, seed, caches, pos):
+                return self._call(f"draft_{k}", body, params, seed, caches,
+                                  pos), caches
+            self.draft_fns[k] = fn
+        return fn
+
+    def verify(self, k: int) -> Callable:
+        """The teacher-forced verify over k fed tokens in one pass:
+        ``(params, toks (B, k), caches, pos (B,)) -> (argmax (B, k) int32,
+        caches)``.  Column i is the greedy continuation of the fed prefix
+        ``toks[:, :i + 1]`` (``model.verify_step``).  Cache rows for all k
+        fed positions are written; rows past a rejection sit ahead of the
+        slot's committed position and stay masked until the committed
+        stream overwrites them, so rollback is host-side bookkeeping."""
+        fn = self.verify_fns.get(k)
+        if fn is None:
+            def body(p, toks, c, t):
+                logits, _ = M.verify_step(self.cfg, p, toks, c, t)
+                return logits.argmax(-1).to(torch.int32)
+
+            def fn(params, toks, caches, pos):
+                return self._call(f"verify_{k}", body, params, toks, caches,
+                                  pos), caches
+            self.verify_fns[k] = fn
+        return fn
+
+    def _call(self, surface: str, body: Callable, params, inp: np.ndarray,
+              caches: list, pos: np.ndarray, graph: bool = True
+              ) -> np.ndarray:
+        """``body(params, inp, caches, positions)`` -> greedy tokens on the
+        host: eagerly on the CPU, in vmap decode and under :func:`eager`;
+        else through the surface's CUDA graph for these caches."""
+        inp = np.asarray(inp)
+        pos = np.asarray(pos, np.int32)
+        if self.device.type != "cuda" or _eager_depth or not graph:
+            out = body(params, torch.from_numpy(inp).to(self.device).long(),
+                       caches, torch.from_numpy(pos.copy()).to(self.device))
+            return out.cpu().numpy()
+        key = (surface, id(params), id(caches))
+        g = self._graphs.get(key)
+        if g is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            g = self._graphs[key] = _Graph(body, params, caches, inp, pos,
+                                           self.device, self._pool)
+        return g.run(inp, pos)
+
+    def capture_counts(self) -> dict[str, int]:
+        """CUDA graphs captured per surface (``decode``, ``draft_k``,
+        ``verify_k``), over every engine on this instance: the analogue of
+        the reference's ``jit_cache_sizes``; it grows only with a new
+        engine or a new k."""
+        return dict(sorted(collections.Counter(
+            surface for surface, *_ in self._graphs).items()))
+
 
 class ServeEngine:
     """Slot-based continuous batching (greedy decode).
 
     Runs on the card unless ``device`` names another; params are moved
     there, with the embedding and dense kernels cast to the compute dtype
-    once (``model.serving_params``).  ``kv_shards``: the decode attention
-    path (module docstring); a value that is not an integer >= 1 dividing
-    every cache length raises ``ValueError``.
+    once (``model.serving_params``); a leaf already on the device in that
+    dtype is kept as it is (not copied), so engines built from one cast
+    tree share its leaves.  ``kv_shards``: the decode attention path
+    (module docstring); a value that is not an integer >= 1 dividing every
+    cache length raises ``ValueError``.  ``fns``: a shared
+    :class:`EngineFns`, which must have been built for this engine's cfg,
+    capacity, decode mode, device and ``kv_shards`` (else ``ValueError``).
+    ``labels``: metric labels, stored (``obs`` is not ported yet).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
-                 capacity: int = 512, eos_id: int | None = None,
-                 device=None, kv_shards: int | None = None):
+                 capacity: int = 512, decode_mode: str = "fused",
+                 eos_id: int | None = None, device=None,
+                 kv_shards: int | None = None, fns: EngineFns | None = None,
+                 labels: dict | None = None):
         M.check_supported(cfg)
         device = resolve_device(device)
-        self.fns = EngineFns(cfg, capacity, device, kv_shards)
+        if fns is None:
+            fns = EngineFns(cfg, capacity, device, kv_shards, decode_mode)
+        elif (fns.cfg, fns.capacity, fns.decode_mode, fns.device,
+              fns.kv_shards) != (cfg, capacity, decode_mode, device,
+                                 kv_shards):
+            raise ValueError(
+                "shared EngineFns was built for "
+                f"(capacity={fns.capacity}, decode_mode={fns.decode_mode}, "
+                f"device={fns.device}, kv_shards={fns.kv_shards}) and cannot "
+                f"serve (capacity={capacity}, decode_mode={decode_mode}, "
+                f"device={device}, kv_shards={kv_shards}) or a different cfg")
+        self.fns = fns
         self.cfg = cfg
         self.slots = slots
         self.capacity = capacity
+        self.decode_mode = decode_mode
         self.device = device
         self.eos_id = cfg.eos_id if eos_id is None else eos_id
         self.params = M.serving_params(tree.to_device(params, device))
@@ -130,6 +338,7 @@ class ServeEngine:
         # a padded bucket must fit that ring
         self._min_ring = (min(capacity, cfg.sliding_window)
                           if cfg.sliding_window else capacity)
+        self.obs_labels = dict(labels or {})
         # work counters: prefill forwards run and fused decode steps taken
         self.prefill_calls = 0
         self.decode_steps = 0
@@ -138,6 +347,7 @@ class ServeEngine:
     def from_artifact(cls, bank_dir, params0: Any, *,
                       sparsity: float | None = None, compressed: bool = True,
                       slots: int = 4, capacity: int = 512,
+                      decode_mode: str = "fused",
                       eos_id: int | None = None, device=None,
                       kv_shards: int | None = None) -> "ServeEngine":
         """Engine over bank-derived sparse weights (no re-calibration)."""
@@ -148,7 +358,8 @@ class ServeEngine:
                                     sparsity=sparsity,
                                     compressed=compressed)
         return cls(bank.cfg, params, slots=slots, capacity=capacity,
-                   eos_id=eos_id, device=device, kv_shards=kv_shards)
+                   decode_mode=decode_mode, eos_id=eos_id, device=device,
+                   kv_shards=kv_shards)
 
     # -- client API ----------------------------------------------------------
 
@@ -178,6 +389,8 @@ class ServeEngine:
 
     @property
     def pending(self) -> bool:
+        """Any submitted-but-undelivered work (queued, active, or finished
+        without a slot and awaiting the next ``run()``)."""
         return bool(self.queue or self._done_unslotted
                     or any(r is not None for r in self.active))
 
@@ -202,7 +415,8 @@ class ServeEngine:
                 self._prefill_slot(s, req)
 
     def free_slot(self, s: int) -> None:
-        """Release slot s for reuse."""
+        """Release slot s for reuse (requests retired outside ``_step``,
+        e.g. by the speculative decoder, go through here)."""
         self.active[s] = None
         self.pos[s] = 0
 
@@ -242,11 +456,8 @@ class ServeEngine:
         for s, req in enumerate(self.active):
             if req is not None:
                 toks[s] = req.pending_token
-        logits, self.caches = self.fns.decode(
-            self.params, torch.from_numpy(toks).to(self.device), self.caches,
-            torch.from_numpy(self.pos.copy()).to(self.device))
+        nxt = self.fns.step(self.params, toks, self.caches, self.pos)
         self.decode_steps += 1
-        nxt = logits.argmax(dim=-1).cpu().numpy()
         finished = []
         for s, req in enumerate(self.active):
             if req is None:

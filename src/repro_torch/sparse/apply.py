@@ -158,6 +158,20 @@ def sparsify_params(params: PyTree, masks: PyTree, *, axes: PyTree = None,
     return tree.map_with_path(lambda p, _: out[p], params)
 
 
+def shared_leaves(params0: PyTree, t: PyTree) -> int:
+    """How many of ``t``'s leaves are ``params0``'s tensors, unchanged.
+
+    Pruning replaces only the pruned kernels (SparseTensor or ``W * mask``);
+    every None-mask leaf (embeddings, norms) passes through by object
+    identity, so N budget variants built from one ``params0`` share ONE
+    copy of the untouched leaves.  SparseTensor leaves are new storage by
+    definition and never count.
+    """
+    ids = {id(leaf) for leaf in tree.leaves(params0) if leaf is not None}
+    return sum(id(leaf) in ids for leaf in tree.leaves(t)
+               if leaf is not None and not isinstance(leaf, SparseTensor))
+
+
 def compressed_report(params: PyTree, masks: PyTree = None) -> dict:
     """Per-leaf and total weight bytes: compressed vs dense-bf16 equivalent.
 

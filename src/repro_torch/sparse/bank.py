@@ -158,6 +158,10 @@ class MaskBank:
             self._mask_cache.popitem(last=False)
         return masks
 
+    def masks_grid(self, sparsities) -> dict[float, PyTree]:
+        """Unstructured keep-mask trees at each of ``sparsities``."""
+        return {s: self.masks_at(sparsity=s) for s in sparsities}
+
     def sparse_params(self, params0: PyTree, *, sparsity: float | None = None,
                       nm: tuple[int, int] | None = None,
                       compressed: bool = True, idx_bits: int = 2,

@@ -13,6 +13,8 @@ elementwise kernels (``prox24``, ``saliency_fused_step``) round every op
 on its own as their plain versions do, so they must equal them bit for
 bit.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -537,3 +539,137 @@ def test_flash_decode_step_captures_in_a_cuda_graph(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# -- the serve engine's steps under CUDA graphs ------------------------------
+
+_BANK = "results/bank/llama3.2-1b"
+# (prompt length, max_tokens): 3 requests on 2 slots, the third admitted
+# into a freed slot after the graphs were captured
+_ENGINE_REQS = ((9, 6), (17, 3), (5, 8))
+
+
+def _smoke_members(dev):
+    """(cfg, dense params, 2:4 params from the committed bank) on ``dev``."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.sparse.bank import MaskBank
+    cfg = get_smoke_config("llama3.2-1b")
+    params = M.serving_params(M.init_params(cfg, 0, device=dev))
+    sparse = MaskBank.load(_BANK, device=dev).sparse_params(params)
+    return cfg, params, sparse
+
+
+def _engine_prompts(cfg):
+    g = torch.Generator().manual_seed(1)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+            for n, _ in _ENGINE_REQS]
+
+
+def _serve(cfg, params, dev, prompts, **kw):
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, params, slots=2, capacity=48, device=dev, **kw)
+    rids = [eng.submit(p, m) for p, (_, m) in zip(prompts, _ENGINE_REQS)]
+    res = eng.run()
+    return eng, [res[r] for r in rids]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["dense", "2:4"])
+@pytest.mark.parametrize("kv_shards", [None, 1, 4])
+def test_graph_engine_streams_equal_eager(cuda_device, weights, kv_shards):
+    """The engine's decode replayed from its CUDA graph gives the eager
+    engine's streams, a request admitted between replays included (its
+    prefill and slot write land in the caches the graph reads); one decode
+    graph per engine, and a second run captures nothing new."""
+    from repro_torch.serve import engine as E
+    cfg, params, sparse = _smoke_members(cuda_device)
+    p = params if weights == "dense" else sparse
+    prompts = _engine_prompts(cfg)
+    with E.eager():
+        _, want = _serve(cfg, p, cuda_device, prompts, kv_shards=kv_shards)
+    eng, got = _serve(cfg, p, cuda_device, prompts, kv_shards=kv_shards)
+    assert got == want
+    assert eng.fns.capture_counts() == {"decode": 1}
+    rids = [eng.submit(x, m) for x, (_, m) in zip(prompts, _ENGINE_REQS)]
+    res = eng.run()
+    assert [res[r] for r in rids] == want
+    assert eng.fns.capture_counts() == {"decode": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_graph_draft_and_verify_equal_eager(cuda_device, k):
+    """``EngineFns.draft(k)`` and ``verify(k)`` replayed from their graphs
+    return the eager surfaces' tokens and leave the same caches; one graph
+    per surface and engine."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    cfg, params, _ = _smoke_members(cuda_device)
+    g = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    _, base = M.prefill(cfg, params, {"tokens": prompt.to(cuda_device)},
+                        cache_capacity=48)
+    pos = np.array([12, 7], np.int32)
+    seed = np.array([3, 9], np.int32)
+    feed = torch.randint(0, cfg.vocab_size, (2, k), generator=g).numpy()
+    fns = E.EngineFns(cfg, 48, cuda_device)
+    out = {}
+    for mode in ("eager", "graph"):
+        for name, inp in (("draft", seed), ("verify", feed)):
+            caches = tree.tree_map(lambda a: a.clone(), base)
+            ctx = E.eager() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                toks, _ = getattr(fns, name)(k)(params, inp, caches, pos)
+                # a second call replays (graph) or reruns (eager)
+                again, _ = getattr(fns, name)(k)(params, inp, caches, pos)
+            assert np.array_equal(toks, again)
+            out[mode, name] = (toks, caches)
+    for name in ("draft", "verify"):
+        (a, ca), (b, cb) = out["eager", name], out["graph", name]
+        assert a.shape == (2, k) and np.array_equal(a, b), name
+        for x, y in zip(tree.leaves(ca), tree.leaves(cb)):
+            assert torch.equal(x, y), name
+    # graph mode ran each surface on caches of its own: one graph each
+    assert fns.capture_counts() == {f"draft_{k}": 1, f"verify_{k}": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["2:4", "pinned"])
+def test_spec_is_lossless_on_the_card(cuda_device, draft):
+    """Speculative decoding on the graph engines gives the verifier's own
+    greedy streams at ``kv_shards=None``: the bank's 2:4 member drafting
+    for the dense one, and a draft pinned to one token (one boosted
+    embedding row) whose proposals keep being rejected."""
+    from repro_torch.serve.engine import EngineFns, ServeEngine
+    from repro_torch.serve.spec import SpecDecoder
+    cfg, params, sparse = _smoke_members(cuda_device)
+    if draft == "pinned":
+        table = params["embed"]["table"].clone()
+        table[7] *= 100
+        sparse = {**params, "embed": {"table": table}}
+    prompts = _engine_prompts(cfg)
+    _, want = _serve(cfg, params, cuda_device, prompts)
+    fns = EngineFns(cfg, 48, cuda_device)
+    v = ServeEngine(cfg, params, slots=2, capacity=48, device=cuda_device,
+                    fns=fns)
+    d = ServeEngine(cfg, sparse, slots=2, capacity=48, device=cuda_device,
+                    fns=fns)
+    sd = SpecDecoder(d, v, k=4)
+    rids = [sd.submit(p, m) for p, (_, m) in zip(prompts, _ENGINE_REQS)]
+    res, _ = sd.run()
+    assert [res[r] for r in rids] == want
+    if draft == "pinned":
+        assert sd.stats["rollbacks"] > 0
+    counts = fns.capture_counts()
+    assert set(counts) <= {f"{s}_{k}" for s in ("draft", "verify")
+                           for k in range(1, 9)}
+    assert all(n == 1 for n in counts.values())
+    # a second run replays the graphs it captured
+    rids = [sd.submit(p, m) for p, (_, m) in zip(prompts, _ENGINE_REQS)]
+    res, _ = sd.run()
+    assert [res[r] for r in rids] == want
+    after = fns.capture_counts()
+    assert all(after[s] == n for s, n in counts.items())
+    assert all(n == 1 for n in after.values())
