@@ -187,12 +187,13 @@ def logit_err(torch, got, want, ulps: int):
 # them: M = 4 is decode (4 slots); the larger ones are prefills.  A prompt
 # of n tokens prefills n - 1 (its last token feeds the first decode step),
 # bucketed to a power of two for llama and exact for the MoE kinds, so the
-# 32-128-token prompts give llama M = 32-128 and mixtral M = 31-127.
+# 32-128-token prompts give llama M = 32-128 and mixtral M = 31-127; phase
+# 8's eval forward runs llama at M = B*S = 4 * 128 = 512.
 NM_MATMUL_SHAPES = {
     "llama3.2-1b": ({"wq": (2048, 2048), "wk": (2048, 512),
                      "wv": (2048, 512), "wo": (2048, 2048),
                      "up": (2048, 8192), "gate": (2048, 8192),
-                     "down": (8192, 2048)}, (1, 4, 16, 64)),
+                     "down": (8192, 2048)}, (1, 4, 16, 64, 512)),
     "mixtral-8x22b": ({"wq": (6144, 6144), "wk": (6144, 1024),
                        "wv": (6144, 1024), "wo": (6144, 6144)},
                       (1, 4, 31, 127)),
@@ -286,7 +287,7 @@ def phase_nm_matmul(torch, dev) -> dict:
             tot = by_path[path]["by_M"][M] = _layer_totals(path_rows,
                                                            shapes, M)
             print(f"  nm_matmul, one {path} layer's projections at M={M:3d} "
-                  f"({'decode' if M == 4 else 'prefill' if M > 4 else 'M=1'}"
+                  f"({_row_kind(M)}"
                   f", packed2): kernel {tot['ms']:.4f} ms, torch.matmul"
                   f"(dense) {tot['library_ms']:.4f} ms, bound "
                   f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
@@ -294,6 +295,12 @@ def phase_nm_matmul(torch, dev) -> dict:
                   f"{tot['ms'] / tot['library_ms']:.2f}x torch.matmul")
     return {"max_abs_err": max_err, **by_path["llama3.2-1b"],
             "by_path": by_path}
+
+
+def _row_kind(M: int) -> str:
+    if M == 4:
+        return "decode"
+    return "eval, B*S" if M == 512 else "prefill" if M > 4 else "M=1"
 
 
 def phase_nm_mask24(torch, dev) -> dict:
@@ -587,6 +594,9 @@ def phase_flash_decode(torch, dev) -> dict:
     return {"rows": rows}
 
 
+# one mixtral-8x22b expert-bank leaf as the search's kernels take it:
+# (E, K, N) = (8, 6144, 16384), f32, as an (8 * 6144, 16384) view
+EXPERT_LEAF = (8, 6144, 16384)
 # the calibration path's search constants (PruneConfig defaults)
 PROX_LAM, V_LR, LAM = 1e-2, 0.1, 1e-3
 PROX_OPS = 11 * 12         # f32 ops per element: 11 per iteration, 12 iters
@@ -688,7 +698,8 @@ def phase_prox24(torch, dev, paths: dict) -> dict:
         out[path]["issue_bound_ms"] = sum(by[lkn]["issue_bound_ms"]
                                           for lkn in leaves.values())
         rows += path_rows
-        print(f"  prox24, one {path} search step (7 leaves): kernel "
+        print(f"  prox24, one {path} search step ({len(leaves)} leaves): "
+              "kernel "
               f"{out[path]['ms']:.4f} ms, plain {out[path]['plain_ms']:.4f}"
               f" ms, bound {out[path]['bound_ms']:.4f} ms "
               f"({out[path]['bound_by']}), issue-rate bound "
@@ -763,7 +774,8 @@ def phase_saliency(torch, dev, paths: dict) -> dict:
                   f"({b_by})  {b_ms / ms:6.1%} of bound")
         out[path] = _per_step(path_rows, leaves)
         rows += path_rows
-        print(f"  saliency_fused_step, one {path} search step (7 leaves): "
+        print(f"  saliency_fused_step, one {path} search step "
+              f"({len(leaves)} leaves): "
               f"kernel {out[path]['ms']:.4f} ms, plain "
               f"{out[path]['plain_ms']:.4f} ms, bound "
               f"{out[path]['bound_ms']:.4f} ms; no single PyTorch call "
@@ -2377,7 +2389,20 @@ def phase_calibrate_card_vs_cpu(torch, dev) -> None:
             banks / name, cfg=cfg, pcfg=pcfg,
             params=tree.to_device(params, d), calib=calib, arch=cfg.name,
             smoke=True, log_every=10)
-    card, cpu = on["card"], on["cpu"]
+    worst, ties, n = banks_agree(torch, on["card"], on["cpu"], pcfg)
+    print(f"  smoke calibration, card vs CPU ({CALIB_STEPS} steps): Gamma/V "
+          f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
+          f"differ in the 2:4 masks, each a near-tie")
+    shutil.rmtree(banks, ignore_errors=True)
+
+
+def banks_agree(torch, card, cpu, pcfg) -> tuple:
+    """A 2:4 calibration on the card against the same one on the CPU:
+    Gamma/V within the CPU tests' tolerance, and the masks equal but for
+    near-ties of the CPU run's own scores.  Returns (worst share of the
+    tolerance, groups that differ, groups)."""
+    import numpy as np
+    from repro_torch import tree
     worst, ties, n = 0.0, 0, 0
     masks_card, masks_cpu = card.masks_at(), cpu.masks_at()
     for (path, vc), (_, vg) in zip(tree.flatten_with_path(cpu.V),
@@ -2411,14 +2436,526 @@ def phase_calibrate_card_vs_cpu(torch, dev) -> None:
                   f"{margin} is no near-tie")
             ties += 1
         n += mk.size // 4
-    print(f"  smoke calibration, card vs CPU ({CALIB_STEPS} steps): Gamma/V "
-          f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
-          f"differ in the 2:4 masks, each a near-tie")
-    shutil.rmtree(banks, ignore_errors=True)
+    return worst, ties, n
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the committed bank, card against CPU
+# Phase 8: the paper's evaluation at full width
+# ---------------------------------------------------------------------------
+
+# held-out batches of the eval: 4 x 4 x 128 tokens, so nm_matmul runs at
+# B*S = 512 rows and the f32 log-softmax over vocab 128256 takes 262 MB
+EVAL_BATCHES = dict(n=4, batch=4, seq=128)
+EVAL_SPARSITIES = (0.5, 0.6, 0.7)
+BASELINE_SPARSITY = 0.6
+# the reference's default PruneConfig (stochria, unstructured, median
+# norm), its 100 steps cut to the launcher's 30, as phase 6 runs
+UNSTRUCTURED_STEPS = 30
+# Table 5's Eq. 8 ablation (benchmarks/table5_mirror_ablation.py): rho
+# 1e-5, l2 0.01, key 11; its 60 steps cut to 10
+ABLATION = dict(rho=1e-5, l2=0.01, steps=10, seed=11,
+                sparsities=(0.5, 0.6))
+SPARSE_ARGS = ("--batch", "4", "--prompt-len", "64", "--gen", "12")
+TEMPERATURE = 0.8
+# the moe-tiny family of benchmarks/common.py, field for field, and its
+# committed trained weights
+MOE_TINY = dict(name="moe-tiny", family="moe", d_model=128, num_layers=4,
+                num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
+                moe_d_ff=256, vocab_size=512, pattern=("moe",),
+                num_experts=4, top_k=2)
+EVAL_KERNELS = ("nm_matmul", "nm_matmul_expert", "prox24",
+                "saliency_fused_step", "nm_mask24")
+
+
+def _kernel_fns():
+    from repro_torch.kernels.nm_prox import nm_mask24, prox24
+    from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
+    from repro_torch.kernels.saliency_fuse import saliency_fused_step
+    return {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
+            "prox24": prox24, "saliency_fused_step": saliency_fused_step,
+            "nm_mask24": nm_mask24}
+
+
+@contextlib.contextmanager
+def counted(out: dict, name: str):
+    """Every eval-path kernel's count set to 0 on entry; the launches made
+    inside are stored as ``out[name]`` on exit."""
+    fns = _kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    try:
+        yield
+    finally:
+        out[name] = {k: fn.launches for k, fn in fns.items()}
+
+
+def eval_checked(torch, cfg, params, valid, staged) -> dict:
+    """``eval_ppl`` on the held-out batches, timed (host to host, its one
+    sync included), then its loop body (``eval_nll`` over batches already
+    on the card) under ``set_sync_debug_mode("error")``, and a plain
+    per-batch loop that reads every batch's NLL: the two means equal to
+    1e-6 relative, and eval_ppl == exp(min(mean NLL, 30))."""
+    import math
+    from repro_torch.optim import losses
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppl = losses.eval_ppl(cfg, params, valid)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tot, n = losses.eval_nll(cfg, params, staged)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    nll = float(tot) / n
+    sizes = [b["tokens"][:, 1:].numel() for b in staged]
+    plain = [float(losses.lm_loss(cfg, params, b)[1]["nll"]) for b in staged]
+    want = sum(x * m for x, m in zip(plain, sizes)) / sum(sizes)
+    check(abs(nll - want) <= 1e-6 * abs(want),
+          f"eval_nll's mean NLL {nll} vs the plain loop's {want}")
+    check(abs(ppl - math.exp(min(want, 30.0))) <= 1e-6 * ppl,
+          f"eval_ppl {ppl} vs exp(min({want}, 30))")
+    return {"ppl": ppl, "nll": nll, "s": dt, "tok_s": n / dt}
+
+
+def _masked(params0, masks):
+    from repro_torch.core import masks as masks_mod
+    return masks_mod.apply_masks(params0, masks)
+
+
+def phase_eval(torch, dev, card: str, bank24) -> dict:
+    """The paper's evaluation loop at llama3.2-1b's published widths from
+    phase 6's weights and calibration batches, then the launcher's
+    ``--sparse`` and ``--temperature``, then MoE calibration: see the
+    module docstring, phase 8."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig, get_config
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import masks as masks_mod
+    from repro_torch.core import metrics as metrics_mod
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.calibrate import calibrate_to_bank
+    from repro_torch.models import model as M
+    from repro_torch.optim.losses import lm_loss
+    from repro_torch.sparse import pack_mask_tree, unpack_mask_tree
+
+    cfg = get_config("llama3.2-1b")
+    calib = batches_for(cfg, n=8, batch=4, seq=64, split="calib")
+    valid = batches_for(cfg, split="valid", **EVAL_BATCHES)
+    staged = [{"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+              for b in valid]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params0 = M.init_params(cfg, 0, device=dev)        # phase 6's weights
+    launches, rows, calls = {}, {}, {}
+    tokens = sum(b["tokens"][:, 1:].size for b in valid)
+    print(f"  {cfg.name}: eval on {EVAL_BATCHES['n']} held-out batches of "
+          f"{EVAL_BATCHES['batch']} x {EVAL_BATCHES['seq']} tokens "
+          f"({tokens} targets); phase 6's weights (seed 0) and calibration "
+          "batches")
+
+    def evaluate(name, params, path=None):
+        if path is None:
+            r = eval_checked(torch, cfg, params, valid, staged)
+        else:
+            with counted(launches, path), first_call_per_signature(calls):
+                r = eval_checked(torch, cfg, params, valid, staged)
+        rows[name] = r
+        print(f"  eval {name:>28}: ppl {r['ppl']:.6g} (mean NLL "
+              f"{r['nll']:.6f}), {r['s']:.3f} s, {r['tok_s']:.0f} tok/s; "
+              "one host read, loop body sync-free, == the plain loop")
+        return r
+
+    # -- phase 6's 2:4 bank, masked-dense and compressed ---------------------
+    bank24._mask_cache.clear()      # the fleet's budgets
+    masks24 = bank24.masks_at()
+    masked24 = _masked(params0, masks24)
+    evaluate("dense", params0)
+    evaluate("2:4 masked-dense (phase 6)", masked24)
+    comp24 = bank24.sparse_params(params0)
+    del bank24, masks24
+    gc.collect()
+    torch.cuda.empty_cache()
+    evaluate("2:4 compressed (phase 6)", comp24, path="eval llama3.2-1b 2:4")
+    n_fwd = 2 * len(valid)        # eval_ppl, then the sync-free loop
+    n_fwd += len(valid)           # the plain loop
+    check(launches["eval llama3.2-1b 2:4"]["nm_matmul"]
+          == 7 * cfg.num_layers * n_fwd,
+          f"2:4 eval launches {launches['eval llama3.2-1b 2:4']}")
+    with torch.inference_mode():
+        a = lm_loss(cfg, comp24, staged[0])[1]["nll"]
+        b = lm_loss(cfg, masked24, staged[0])[1]["nll"]
+        la = M.forward(cfg, comp24, staged[0])[0]
+        lb = M.forward(cfg, masked24, staged[0])[0]
+    err, tol = logit_err(torch, la, lb, LOGIT_ULPS_FULL)
+    check(err <= tol, f"2:4 compressed vs masked-dense logits: {err} > "
+          f"{tol}")
+    check(abs(float(a) - float(b)) <= 2 * tol,
+          f"2:4 compressed vs masked-dense NLL {float(a)} vs {float(b)}")
+    print(f"  2:4 compressed vs masked-dense on batch 0: logits max err "
+          f"{err:.4g} <= {tol:.4g} ({LOGIT_ULPS_FULL} bf16 ulps of the "
+          f"largest), NLL {float(a):.6f} vs {float(b):.6f} (within 2x)")
+    print("  " + check_path_calls(torch, calls))
+    calls.clear()
+    del comp24, masked24, la, lb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- stats: jit against the eager tape -----------------------------------
+    t0 = time.perf_counter()
+    s_jit = cal.collect_stats(cfg, params0, calib[:4], impl="jit")
+    torch.cuda.synchronize()
+    t_jit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_tape = cal.collect_stats(cfg, params0, calib[:4], impl="tape")
+    t_tape = time.perf_counter() - t0
+    worst, ok, n = cal.stats_parity(s_tape, s_jit, prunable_map(params0))
+    check(ok and n == 7, f"stats_parity: worst {worst} over {n} leaves")
+    print(f"  stats over 4 batches: jit {t_jit:.2f} s, tape {t_tape:.2f} s; "
+          f"stats_parity worst {worst:.3e} over {n} leaves (tol 5e-2)")
+    del s_tape
+
+    # -- the unstructured search (the reference's default PruneConfig) ------
+    pcfg = PruneConfig(steps=UNSTRUCTURED_STEPS)
+    banks = _banks_dir()
+    seen = {}
+    t0 = time.perf_counter()
+    with counted(launches, "calibrate llama3.2-1b stochria unstructured"), \
+            search_calls_checked(torch, seen):
+        bank = calibrate_to_bank(banks / "unstructured", cfg=cfg, pcfg=pcfg,
+                                 params=params0, calib=calib,
+                                 arch=cfg.name, smoke=False, log_every=10)
+    t_cal = time.perf_counter() - t0
+    got = launches["calibrate llama3.2-1b stochria unstructured"]
+    check(got["saliency_fused_step"] == 7 * pcfg.steps
+          and got["prox24"] == 0 and got["nm_mask24"] == 0,
+          f"unstructured search launches {got}")
+    print(f"  {pcfg.local_metric}, {pcfg.mode}, score_norm "
+          f"{pcfg.score_norm}, {pcfg.steps} steps (PruneConfig's 100 cut to "
+          f"the launcher's 30): stats {bank.meta['stats_seconds']:.2f} s, "
+          f"search {bank.meta['search_seconds']:.2f} s, calibrate_to_bank "
+          f"{t_cal:.1f} s; {len(seen)} distinct search-kernel calls held "
+          "against their plain versions, all bit-identical: "
+          + "; ".join(f"{k[0]} {k[1]} {k[3]}" for k in sorted(seen)))
+    for h in bank.meta["history"]:
+        print("  history: " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                        sorted(h.items())))
+    for s in EVAL_SPARSITIES:
+        t0 = time.perf_counter()
+        m = bank.masks_at(sparsity=s)
+        torch.cuda.synchronize()
+        t_mask = time.perf_counter() - t0
+        got = masks_mod.sparsity_of(m)
+        check(abs(got - s) <= 1e-6, f"sparsity_of {got} at budget {s}")
+        if s == EVAL_SPARSITIES[0]:
+            t0 = time.perf_counter()
+            packed = pack_mask_tree(m)
+            torch.cuda.synchronize()
+            t_pack = time.perf_counter() - t0
+            host = pack_mask_tree(tree.to_device(m, "cpu"))
+            nbytes = 0
+            for (path, a), (_, b) in zip(tree.flatten_with_path(packed),
+                                         tree.flatten_with_path(host)):
+                check((a is None) == (b is None) and (a is None or (
+                    a.shape == b.shape and torch.equal(a.bits.cpu(),
+                                                       b.bits))),
+                      f"pack_mask_tree bytes differ card vs CPU at {path}")
+                nbytes += 0 if a is None else a.nbytes
+            back = unpack_mask_tree(packed)
+            for (path, a), (_, b) in zip(tree.flatten_with_path(back),
+                                         tree.flatten_with_path(m)):
+                check((a is None and b is None) or torch.equal(a, b),
+                      f"unpack_mask_tree round trip differs at {path}")
+            print(f"  pack_mask_tree at {s}: {nbytes} bytes on the card "
+                  f"({t_pack * 1e3:.1f} ms) == the CPU's packing of the "
+                  "same masks; unpack round-trips")
+            del packed, host, back
+        print(f"  masks_at({s}): global threshold over the prunable scores "
+              f"in {t_mask:.2f} s, sparsity_of {got:.9f}")
+        evaluate(f"UniPruning {s}", _masked(params0, m))
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats = bank.stats
+    bank._mask_cache.clear()
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    for method in ("magnitude", "wanda", "ria"):
+        m = cal.baseline_masks(method, params0, stats, BASELINE_SPARSITY)
+        evaluate(f"{method} {BASELINE_SPARSITY}", _masked(params0, m))
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(banks, ignore_errors=True)
+
+    # -- the Eq. 8 / Table 5 ablation ----------------------------------------
+    from functools import partial
+    from repro_torch.core import prng
+    from repro_torch.core.mirror import no_mirror_step
+    apcfg = PruneConfig(local_metric="stochria", rho=ABLATION["rho"],
+                        steps=ABLATION["steps"])
+    W = tree.tree_map(lambda x: x.float().clone(), params0)
+    pr = prunable_map(params0)
+    rng = prng.key(ABLATION["seed"])
+    steps = []
+    for n in range(apcfg.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W, loss = no_mirror_step(
+            apcfg, partial(lm_loss, cfg), W,
+            {"tokens": torch.from_numpy(calib[n % len(calib)]["tokens"])
+             .to(dev)}, stats, pr, rng, n, l2=ABLATION["l2"])
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        check(math_finite(float(loss)), f"ablation objective {float(loss)}")
+    print(f"  Eq. 8 ablation (stochria, rho {ABLATION['rho']}, l2 "
+          f"{ABLATION['l2']}; Table 5's 60 steps cut to {apcfg.steps}): "
+          f"objective {float(loss):.6g} after {apcfg.steps} steps, median "
+          f"step {statistics.median(steps) * 1e3:.1f} ms")
+    S = metrics_mod.metric_tree("stochria", W, stats, pr, key=rng,
+                                norm="none")
+    del W
+    gc.collect()
+    torch.cuda.empty_cache()
+    for s in ABLATION["sparsities"]:
+        m = masks_mod.unstructured_masks(S, s, scope="global")
+        got = masks_mod.sparsity_of(m)
+        check(abs(got - s) <= 1e-6, f"ablation sparsity_of {got} at {s}")
+        evaluate(f"Eq. 8 ablation {s}", _masked(params0, m))
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del S, stats, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [{card}] max memory allocated through the llama eval "
+          f"{peak / 2 ** 30:.2f} GiB")
+    out = {"rows": rows, "peak_gib": peak / 2 ** 30}
+    out.update(phase_sparse_launcher(torch, dev, card, launches))
+    out.update(phase_moe_calibration(torch, dev, card, launches, calls))
+    out["launches"] = launches
+    return out
+
+
+def math_finite(x: float) -> bool:
+    return x == x and abs(x) < float("inf")
+
+
+def phase_sparse_launcher(torch, dev, card: str, launches: dict) -> dict:
+    """``launch.serve.main`` with ``--sparse --save-artifact`` at full width
+    (the bank under build/, removed after), then ``--temperature`` from
+    that bank on the same seed-0 weights: its gumbel draws on the card ==
+    the CPU's, bit for bit."""
+    import io
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    banks = _banks_dir()
+    out_dir = banks / "sparse"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with counted(launches, "serve --sparse llama3.2-1b"), \
+            contextlib.redirect_stdout(buf):
+        serve.main(["--arch", "llama3.2-1b", "--sparse", "--save-artifact",
+                    str(out_dir), *SPARSE_ARGS])
+    t_sparse = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(f"  serve --sparse ({t_sparse:.1f} s in main): "
+          + " | ".join(text.strip().splitlines()))
+    got = launches["serve --sparse llama3.2-1b"]
+    check(got["saliency_fused_step"] == 7 * 30 and got["prox24"] == 7 * 30
+          and got["nm_mask24"] == 7 and "saved mask bank" in text,
+          f"--sparse launches {got}")
+    meta = json.loads((out_dir / "manifest.json").read_text())["metadata"]
+    check(meta["steps_run"] == 30 and meta["pcfg"]["mode"] == "nm"
+          and meta["pcfg"]["local_metric"] == "wanda",
+          f"--sparse bank: {meta['pcfg']}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with counted(launches, "serve --temperature llama3.2-1b"), \
+            contextlib.redirect_stdout(buf):
+        serve.main(["--arch", "llama3.2-1b", "--sparse-artifact",
+                    str(out_dir), "--temperature", str(TEMPERATURE),
+                    *SPARSE_ARGS])
+    t_temp = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(f"  serve --temperature {TEMPERATURE} ({t_temp:.1f} s in main): "
+          + " | ".join(text.strip().splitlines()))
+    gen = int(SPARSE_ARGS[SPARSE_ARGS.index("--gen") + 1])
+    batch = int(SPARSE_ARGS[SPARSE_ARGS.index("--batch") + 1])
+    from repro_torch.configs.base import get_config
+    cfg = get_config("llama3.2-1b")
+    got = launches["serve --temperature llama3.2-1b"]
+    check(got["nm_matmul"] == 7 * cfg.num_layers * gen
+          and got["nm_mask24"] == 7, f"--temperature launches {got}")
+    shutil.rmtree(banks, ignore_errors=True)
+    # the draws the loop made: decode step i's gumbel(key(100 + i))
+    V = cfg.vocab_size
+    for i in range(gen - 1):
+        a = prng.gumbel(prng.key(100 + i), (batch, V), dev)
+        b = prng.gumbel(prng.key(100 + i), (batch, V), "cpu")
+        check(torch.equal(a.cpu(), b), f"gumbel draws of step {i}: card "
+              "differs from CPU")
+    print(f"  gumbel draws of the {gen - 1} decode steps ({batch} x {V} f32 "
+          "each), card == CPU bit for bit")
+    return {"sparse_s": t_sparse, "temperature_s": t_temp}
+
+
+def _moe_counts():
+    """While open, the routed-row counts each MoE stats record is given
+    (per expert, in call order), from ``core.tape``'s jitted tape."""
+    from repro_torch.core import tape as tape_mod
+    rec = []
+    record = tape_mod.JitTape.record
+
+    def spy(self, kernel, x, *, count=None, ref_count=None):
+        if count is not None:
+            rec.append((count.cpu().tolist(), ref_count))
+        return record(self, kernel, x, count=count, ref_count=ref_count)
+
+    @contextlib.contextmanager
+    def ctx():
+        tape_mod.JitTape.record = spy
+        try:
+            yield rec
+        finally:
+            tape_mod.JitTape.record = record
+    return ctx()
+
+
+def phase_moe_calibration(torch, dev, card: str, launches: dict,
+                          calls: dict) -> dict:
+    """Full-width mixtral-8x22b (phase 5's 2 layers): the stats pass, jit
+    against the tape, with each expert's routed rows; then the committed
+    trained moe-tiny: a 30-step wanda 2:4 calibration on the card and on
+    the CPU, and eval_ppl of its compressed bank through nm_matmul_expert
+    against masked-dense."""
+    from repro_torch import tree
+    from repro_torch.configs.base import (ModelConfig, PruneConfig,
+                                          get_config)
+    from repro_torch.convert import load_params_pickle
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.calibrate import calibrate_to_bank
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              num_layers=MIXTRAL_LAYERS)
+    calib = batches_for(cfg, n=4, batch=4, seq=64, split="calib")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, 0, device=dev)
+    with _moe_counts() as rec:
+        t0 = time.perf_counter()
+        s_jit = cal.collect_stats(cfg, params, calib, impl="jit")
+        torch.cuda.synchronize()
+        t_jit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_tape = cal.collect_stats(cfg, params, calib, impl="tape")
+    t_tape = time.perf_counter() - t0
+    s_worst, ok, n = cal.stats_parity(s_tape, s_jit, prunable_map(params))
+    check(ok and n == 7,
+          f"mixtral stats_parity: worst {s_worst} over {n} leaves")
+    expert = [tuple(v.shape) for p, v in tree.flatten_with_path(s_jit)
+              if v is not None and "['moe']" in p]
+    check(len(expert) == 3 and all(s[:2] == (MIXTRAL_LAYERS,
+                                             cfg.num_experts)
+                                   for s in expert),
+          f"mixtral expert-bank stats shapes {expert}")
+    # one (up, gate, down) triple of records per layer per batch
+    per_call = [rec[i][0] for i in range(0, len(rec), 3)]
+    check(len(per_call) == len(calib) * MIXTRAL_LAYERS,
+          f"{len(per_call)} expert-bank records")
+    T = rec[0][1]
+    print(f"  mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers, full width): "
+          f"stats over {len(calib)} batches of 4 x 64, jit {t_jit:.2f} s, "
+          f"tape {t_tape:.2f} s; stats_parity worst {s_worst:.3e} over {n} "
+          f"leaves (tol 5e-2); expert stats {expert}")
+    for layer in range(MIXTRAL_LAYERS):
+        rows = per_call[layer::MIXTRAL_LAYERS]
+        tot = [sum(r[e] for r in rows) for e in range(len(rows[0]))]
+        print(f"    layer {layer}: routed rows per expert over the "
+              f"{len(calib)} batches {tot} (each batch T = {T} tokens x "
+              f"top-2 = {2 * T} assignments, capacity-dropped ones not "
+              "counted)")
+    del params, s_jit, s_tape
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the committed trained moe-tiny: calibration card vs CPU, then eval --
+    tcfg = ModelConfig(**MOE_TINY)
+    p_cpu = load_params_pickle(ROOT / "results" / "bench_models"
+                               / "moe-tiny.pkl")
+    tcal = batches_for(tcfg, n=8, batch=4, seq=64, split="calib")
+    pcfg = PruneConfig(local_metric="wanda", mode="nm", steps=CALIB_STEPS,
+                       stats_batches=4)
+    banks = _banks_dir()
+    on = {}
+    seen = {}
+    for d in (dev, "cpu"):
+        name = "card" if d is dev else "cpu"
+        ctx = (counted(launches, "calibrate moe-tiny wanda 2:4")
+               if d is dev else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with ctx, (search_calls_checked(torch, seen) if d is dev
+                   else contextlib.nullcontext()):
+            on[name] = calibrate_to_bank(
+                banks / name, cfg=tcfg, pcfg=pcfg,
+                params=tree.to_device(p_cpu, d), calib=tcal, arch="moe-tiny",
+                smoke=False, log_every=10)
+            if d is dev:
+                on[name].masks_at()
+        on[name + "_s"] = time.perf_counter() - t0
+    got = launches["calibrate moe-tiny wanda 2:4"]
+    check(got["saliency_fused_step"] == 7 * CALIB_STEPS
+          and got["prox24"] == 7 * CALIB_STEPS and got["nm_mask24"] == 7,
+          f"moe-tiny calibration launches {got}")
+    worst, ties, n = banks_agree(torch, on["card"], on["cpu"], pcfg)
+    print(f"  moe-tiny (trained, committed) {CALIB_STEPS}-step wanda 2:4, "
+          f"card {on['card_s']:.1f} s vs CPU {on['cpu_s']:.1f} s: Gamma/V "
+          f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
+          "differ in the masks, each a near-tie; expert leaves through "
+          + "; ".join(f"{k[0]} {k[1]}" for k in sorted(seen)))
+    valid = batches_for(tcfg, n=3, batch=12, seq=128, split="valid")
+    staged = [{"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+              for b in valid]
+    p_card = tree.to_device(p_cpu, dev)
+    comp = on["card"].sparse_params(p_card)
+    masked = on["card"].sparse_params(p_card, compressed=False)
+    with counted(launches, "eval moe-tiny 2:4"), \
+            first_call_per_signature(calls):
+        rc = eval_checked(torch, tcfg, comp, valid, staged)
+    rm = eval_checked(torch, tcfg, masked, valid, staged)
+    got = launches["eval moe-tiny 2:4"]
+    check(got["nm_matmul_expert"] == 3 * tcfg.num_layers * 3 * len(valid)
+          and got["nm_matmul"] == 4 * tcfg.num_layers * 3 * len(valid),
+          f"moe-tiny eval launches {got}")
+    from repro_torch.optim.losses import lm_loss
+    with torch.inference_mode():
+        la = M.forward(tcfg, comp, staged[0])[0]
+        lb = M.forward(tcfg, masked, staged[0])[0]
+        a = float(lm_loss(tcfg, comp, staged[0])[1]["nll"])
+        b = float(lm_loss(tcfg, masked, staged[0])[1]["nll"])
+    err, tol = logit_err(torch, la, lb, LOGIT_ULPS_FULL)
+    # MoE: a re-routed near-tie moves whole rows; the NLL still agrees
+    check(abs(a - b) <= 2e-3 * abs(b), f"moe-tiny 2:4 NLL {a} vs {b}")
+    print(f"  moe-tiny 2:4 eval: compressed ppl {rc['ppl']:.6g} ({rc['s']:.3f}"
+          f" s, {rc['tok_s']:.0f} tok/s) vs masked-dense {rm['ppl']:.6g}; "
+          f"batch 0 logits max err {err:.4g} (tol {tol:.4g}), NLL {a:.6f} vs "
+          f"{b:.6f}")
+    print("  " + check_path_calls(torch, calls))
+    shutil.rmtree(banks, ignore_errors=True)
+    return {"moe_tiny": {"compressed": rc, "masked": rm},
+            "moe_stats_worst": s_worst}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the committed bank, card against CPU
 # ---------------------------------------------------------------------------
 
 def phase_bank(torch, dev) -> None:
@@ -2501,7 +3038,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/9] device")
+    print("[1/10] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -2513,7 +3050,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/9] build")
+    print("[2/10] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -2522,7 +3059,7 @@ def main() -> int:
     print(f"  kernels built ({', '.join(ENTRY_POINTS)}: one nvcc each, in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
 
-    print(f"[3/9] kernels against their plain versions [{card}]")
+    print(f"[3/10] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import get_config, get_smoke_config
     t0 = time.perf_counter()
     mm = phase_nm_matmul(torch, dev)
@@ -2530,14 +3067,17 @@ def main() -> int:
     expert = phase_nm_matmul_expert(torch, dev)
     calib_paths = {"llama3.2-1b": calib_leaves(get_config("llama3.2-1b")),
                    "llama3.2-1b smoke": calib_leaves(
-                       get_smoke_config("llama3.2-1b"))}
+                       get_smoke_config("llama3.2-1b")),
+                   # one layer's up bank of mixtral-8x22b: the search's
+                   # (L*E*K, N) view of an expert-bank leaf
+                   "mixtral-8x22b expert bank": {"up": EXPERT_LEAF}}
     prox = phase_prox24(torch, dev, calib_paths)
     fused = phase_saliency(torch, dev, calib_paths)
     flash = phase_flash_decode(torch, dev)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/9] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/10] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         {"nm_matmul": 7, "nm_matmul_expert": 0},
@@ -2545,7 +3085,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/9] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/10] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -2554,7 +3094,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/9] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/10] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -2563,19 +3103,30 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/9] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/10] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
-    fleet = phase_fleet(torch, dev, card, calib.pop("bank"))
-    shutil.rmtree(_banks_dir(), ignore_errors=True)
+    fleet = phase_fleet(torch, dev, card, calib["bank"])
     t_fleet = time.perf_counter() - t0
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[8/9] committed mask bank at smoke width, card vs CPU")
+    print(f"[8/10] the paper's evaluation at full width: eval_ppl, the "
+          f"unstructured search, baselines, the Eq. 8 ablation, the "
+          f"launcher's --sparse and --temperature, MoE calibration [{card}]")
+    t0 = time.perf_counter()
+    # phase 6's bank: phase 8 takes the last reference and drops it once
+    # its 2:4 weights are made
+    evalr = phase_eval(torch, dev, card, calib.pop("bank"))
+    shutil.rmtree(_banks_dir(), ignore_errors=True)
+    t_eval = time.perf_counter() - t0
+    print(f"  phase took {t_eval:.1f} s")
+
+    torch.cuda.empty_cache()
+    print("[9/10] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
-    print("[9/9] summary")
+    print("[10/10] summary")
     paths = {"llama3.2-1b": llama["launches"],
              "mixtral-8x22b": moe["launches"],
              "calibrate llama3.2-1b": calib["launches"]}
@@ -2584,6 +3135,9 @@ def main() -> int:
             paths[f"{name} kv_shards={S}"] = r["launches"]
     for S, r in fleet["by_kv"].items():
         paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
+    # phase 8's paths, each with the kernels it launched
+    for name, launched in evalr["launches"].items():
+        paths[name] = {k: v for k, v in launched.items() if v}
     # kernel launches the profiler saw on the CUDA-graph engine's runs of
     # phases 4-5's paths (2 requests), replays included, by kernel function (nm_mma_kernel
     # serves both 2:4 wrappers, flash_decode_kernel both decode attention
@@ -2677,7 +3231,12 @@ def main() -> int:
                  "has no Pallas counterpart"},
     ]
     print(f"  {time.perf_counter() - t_start:.1f} s in all (the fleet phase "
-          f"{t_fleet:.1f} s)")
+          f"{t_fleet:.1f} s, the evaluation phase {t_eval:.1f} s)")
+    # phase 8's evaluation, on a line of its own
+    print(json.dumps({"evaluation": {
+        "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
+                        for k, r in evalr["rows"].items()},
+        "moe-tiny 2:4": evalr["moe_tiny"], "peak_gib": evalr["peak_gib"]}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

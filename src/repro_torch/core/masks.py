@@ -126,3 +126,17 @@ def apply_masks(params: Any, masks: Any) -> Any:
     """W0 * M, with None masks passing weights through untouched."""
     return tree.tree_map(
         lambda w, m: w if m is None else w * m.to(w.dtype), params, masks)
+
+
+def sparsity_of(masks: Any) -> float:
+    """The fraction of masked-out entries over every non-None mask leaf
+    (the kept count summed on the device, read once)."""
+    tot = 0
+    kept = None
+    for m in tree.leaves(masks):
+        if m is None:
+            continue
+        tot += m.numel()
+        k = m.sum(dtype=torch.int64)
+        kept = k if kept is None else kept + k
+    return 1.0 - (0 if kept is None else int(kept)) / max(tot, 1)

@@ -19,6 +19,9 @@ version on the CPU), and the prox as ``prox24``: the kernels compute the
 reference's functions op for op.  Where JAX returns new trees, this search
 updates W, Gamma and V in place, leaf by leaf, and takes the alignment
 gradient one leaf at a time, so no second copy of a full tree is held.
+
+:func:`no_mirror_step` is the paper's Eq. 8 ablation: the direct
+objective, without Gamma, V or mirror descent.
 """
 from __future__ import annotations
 
@@ -238,6 +241,44 @@ def search_step(pcfg: PruneConfig, loss_fn: Callable, state: SearchState,
                "gamma_nonzero_frac": frac(nz), "mask_churn": frac(flips),
                "gamma_entropy": entropy, **loss_metrics}
     return state, metrics
+
+
+@torch.no_grad()
+def no_mirror_step(pcfg: PruneConfig, loss_fn: Callable, W: PyTree,
+                   batch: dict, stats: PyTree, prunable: PyTree,
+                   rng: prng.Key, step: int, *, l2: float):
+    """The ablation (paper Eq. 8 / Table 5): the direct objective, without
+    the saliency variable or mirror descent,
+
+        L_task(W) + rho/2 ||S(W)||^2 + l2 ||W||^2,
+
+    one gradient step W <- W - kappa*alpha*grad.  S is
+    ``metric_tree(pcfg.local_metric, W, stats, prunable, key=fold_in(rng,
+    step))`` unnormalised, differentiated through wanda, ria and stochria
+    (stochria's subsets are constants of the step).  Each prunable leaf's
+    regulariser is differentiated on its own after the task gradient, so no
+    graph over every leaf's scores is held at once.  Updates W in place
+    (pass a copy) and returns (W, the objective's value)."""
+    key = prng.fold_in(rng, int(step))
+    (loss, _), g_task = _task_value_and_grad(pcfg, loss_fn, W, batch)
+    metric = metrics_mod.get_metric(pcfg.local_metric, pcfg.stoch_frac)
+    klr = pcfg.kappa * pcfg.lr
+    reg = _scalar(0.0, loss.device)
+    for i, (w, gt, a, p) in enumerate(zip(
+            tree.leaves(W), tree.leaves(g_task), tree.leaves(stats),
+            tree.leaves(prunable), strict=True)):
+        if p:
+            with torch.enable_grad():
+                wg = w.detach().requires_grad_(True)
+                s = metric(wg, a, key=prng.fold_in(key, i))
+                part = (0.5 * pcfg.rho * torch.sum(torch.square(s))
+                        + l2 * torch.sum(torch.square(wg)))
+                g, = torch.autograd.grad(part, wg)
+            reg = reg + part.detach()
+            gt = gt + g
+            del s, g
+        w.sub_(klr * gt)
+    return W, loss + reg
 
 
 def _absmax(leaves: list[torch.Tensor]) -> torch.Tensor:

@@ -12,9 +12,11 @@ reference's.
       --smoke --sparse-artifact /tmp/bank --device cpu
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Stage seconds
-are host clocks around work fenced with ``torch.cuda.synchronize``.  The
-reference's ``--mesh``, ``--trace-dir``, ``--xprof-dir`` and
-``--stats-impl tape`` come with multi-card and observability slices.
+are host clocks around work fenced with ``torch.cuda.synchronize``.
+``--stats-impl tape`` takes the stats from the eager ``StatsTape`` oracle
+instead of the production pass (recorded as the bank's ``stats_impl``).
+The reference's ``--mesh``, ``--trace-dir`` and ``--xprof-dir`` come with
+the multi-card and observability slices.
 """
 from __future__ import annotations
 
@@ -45,8 +47,8 @@ def params_fingerprint(params: PyTree) -> str:
 
 def calibrate_to_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
                       calib: list[dict], arch: str, smoke: bool,
-                      log_every: int = 0, loss_fn=None,
-                      extra: dict | None = None):
+                      stats_impl: str = "jit", log_every: int = 0,
+                      loss_fn=None, extra: dict | None = None):
     """Run the full calibration once and write the MaskBank artifact.
 
     Returns the in-memory :class:`~repro_torch.sparse.bank.MaskBank`
@@ -57,7 +59,8 @@ def calibrate_to_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
     device = tree.device_of(params)
     _sync(device)
     t0 = time.perf_counter()
-    stats = calibrate.collect_stats(cfg, params, calib, pcfg=pcfg)
+    stats = calibrate.collect_stats(cfg, params, calib, pcfg=pcfg,
+                                    impl=stats_impl)
     _sync(device)
     t_stats = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -67,7 +70,7 @@ def calibrate_to_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
     _sync(device)
     t_search = time.perf_counter() - t0
     meta = {"params_fingerprint": params_fingerprint(params),
-            "stats_impl": "jit",
+            "stats_impl": stats_impl,
             "stats_seconds": t_stats,
             "search_seconds": t_search,
             "history": history, **(extra or {})}
@@ -109,6 +112,9 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per search step (gradient "
                          "accumulation over batch-dim slices)")
+    ap.add_argument("--stats-impl", default="jit", choices=["jit", "tape"],
+                    help="jit: the production stats pass; tape: the eager "
+                         "StatsTape oracle")
     ap.add_argument("--calib-n", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -131,6 +137,7 @@ def main(argv=None) -> None:
                        grad_accum=args.grad_accum)
     bank = calibrate_to_bank(args.out, cfg=cfg, pcfg=pcfg, params=params,
                              calib=calib, arch=args.arch, smoke=args.smoke,
+                             stats_impl=args.stats_impl,
                              log_every=args.log_every)
     n_pr = sum(g.numel() for g in tree.leaves(bank.Gamma) if g is not None)
     print(f"device {device}"
@@ -138,7 +145,8 @@ def main(argv=None) -> None:
              if device.type == "cuda" else ""))
     print(f"calibrated {args.arch}{' (smoke)' if args.smoke else ''}: "
           f"{pcfg.steps} search steps over {n_pr / 1e6:.2f}M prunable params "
-          f"(stats {bank.meta['stats_seconds']:.1f}s, search "
+          f"(stats {bank.meta['stats_seconds']:.1f}s via "
+          f"{args.stats_impl}, search "
           f"{bank.meta['search_seconds']:.1f}s, "
           f"{pcfg.steps / max(bank.meta['search_seconds'], 1e-9):.2f} "
           f"steps/s)")

@@ -1,11 +1,13 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens.
 
-Port of ``repro.launch.serve`` for the dense path, bank-backed sparse
-serving and the multi-budget fleet (``--sparse`` inline calibration,
-``--save-artifact``, ``--temperature`` and the trace flags are not ported
-yet):
+Port of ``repro.launch.serve`` (the trace flags ``--trace-dir`` and
+``--xprof-dir`` come with the observability slice):
 
 * dense: random weights from ``torch.Generator`` seed 0;
+* ``--sparse [--save-artifact DIR]``: calibrate 2:4 (wanda, 30 steps)
+  through ``launch.calibrate.calibrate_to_bank`` and serve the bank's
+  masks masked-dense; the bank goes to a temporary directory, removed once
+  the masks are out, unless ``--save-artifact`` pins it;
 * ``--sparse-artifact DIR [--sparsity S]``: load the mask bank,
   re-threshold to masks in one shot, and serve 2:4-compressed weights
   through the ``nm_matmul`` kernel (``--weight-format masked`` serves the
@@ -14,13 +16,19 @@ yet):
 * ``--sparse-artifact DIR --fleet 0.0,0.5,2:4 [--ab W,W,W | --spec
   draft:2:4,verify:0.0,k:4] [--slots N]``: N budgets from the one bank
   behind one router (``serve.fleet.SparsityFleet``), tagged round-robin,
-  A/B weighted or self-speculative, and its report.
+  A/B weighted or self-speculative, and its report;
+* ``--temperature T``: decode step i samples ``categorical(key(100 + i),
+  logits / T)`` (``core.prng``, jax's stream) instead of the argmax; the
+  prefill's token stays the argmax, as the reference's.
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Any ported
 arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --sparse --save-artifact /tmp/bank --temperature 0.8 \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -44,6 +52,78 @@ from repro_torch.models import model as M
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _calibrate_sparse(cfg, args, params):
+    """2:4 UniPruning through the ``launch.calibrate`` entry point: the
+    calibration always lands as a MaskBank artifact (a temporary directory
+    unless ``--save-artifact`` pins it) and serving takes the bank's masks,
+    masked-dense."""
+    import tempfile
+
+    from repro_torch.configs.base import PruneConfig
+    from repro_torch.core import masks as masks_mod
+    from repro_torch.launch import calibrate as launch_cal
+    tmp = None
+    if args.save_artifact:
+        out = args.save_artifact
+    else:   # a transient artifact, removed once the masks are out
+        tmp = tempfile.TemporaryDirectory(prefix="mask-bank-")
+        out = tmp.name + "/bank"
+    try:
+        calib = batches_for(cfg, n=8, batch=4, seq=args.prompt_len,
+                            split="calib")
+        pcfg = PruneConfig(local_metric="wanda", mode="nm", steps=30)
+        bank = launch_cal.calibrate_to_bank(
+            out, cfg=cfg, pcfg=pcfg, params=params, calib=calib,
+            arch=args.arch, smoke=args.smoke)
+        if args.save_artifact:
+            print(f"saved mask bank -> {out}")
+        print("serving 2:4-pruned weights (masked-dense, bank-backed "
+              "calibration)")
+        return masks_mod.apply_masks(params, bank.masks_at())
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+
+def _next_tokens(logits: torch.Tensor, temperature: float, i: int
+                 ) -> torch.Tensor:
+    """Decode step i's tokens: the argmax, or with a temperature the
+    reference's ``jax.random.categorical(jax.random.key(100 + i),
+    logits / T)``."""
+    if temperature <= 0:
+        return logits.argmax(dim=-1)
+    from repro_torch.core import prng
+    # a device divisor: a CUDA tensor divided by a Python float is
+    # multiplied by its reciprocal, which is not the reference's division
+    t = torch.full((), temperature, dtype=logits.dtype, device=logits.device)
+    return prng.categorical(prng.key(100 + i), logits / t)
+
+
+def generate(cfg, params, toks: torch.Tensor, gen: int, *,
+             temperature: float = 0.0):
+    """Prefill (B, P) prompt tokens, then decode ``gen - 1`` steps at a
+    capacity of P + gen: (tokens (B, gen) on the host, prefill seconds,
+    decode seconds).  The prefill's token is the argmax; each decode step's
+    is :func:`_next_tokens`'s."""
+    device = params["embed"]["table"].device
+    P = toks.shape[1]
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = M.prefill(cfg, params, {"tokens": toks.to(device)},
+                                   cache_capacity=P + gen)
+        tok = logits.argmax(dim=-1)
+        out = [tok.cpu()]
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, caches = M.decode_step(cfg, params, tok, caches, P + i)
+            tok = _next_tokens(logits, temperature, i)
+            out.append(tok.cpu())   # host copy: the step's sync point
+        t_decode = time.perf_counter() - t0
+    return torch.stack(out, dim=1), t_prefill, t_decode
 
 
 def _load_sparse(args, params, device):
@@ -142,6 +222,10 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--sparse", action="store_true",
+                    help="prune 2:4 with UniPruning before serving")
+    ap.add_argument("--save-artifact", default=None,
+                    help="with --sparse: persist the mask bank here")
     ap.add_argument("--sparse-artifact", default=None,
                     help="serve from a saved mask bank (no calibration)")
     ap.add_argument("--sparsity", type=float, default=None,
@@ -170,6 +254,9 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=None,
                     help="fleet decode-slot pool partitioned across "
                          "budgets (default: 2 per budget)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample decode tokens at this temperature "
+                         "(0: greedy)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain CPU path)")
@@ -189,27 +276,15 @@ def main(argv=None) -> None:
         return
     if args.sparse_artifact:
         cfg, params = _load_sparse(args, params, device)
+    elif args.sparse:
+        params = _calibrate_sparse(cfg, args, params)
     params = M.serving_params(params)
 
     B, P = args.batch, args.prompt_len
     toks = torch.from_numpy(batches_for(cfg, n=1, batch=B, seq=P,
                                         split="valid")[0]["tokens"])
-    capacity = P + args.gen
-    with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        logits, caches = M.prefill(cfg, params, {"tokens": toks.to(device)},
-                                   cache_capacity=capacity)
-        tok = logits.argmax(dim=-1)
-        out = [tok.cpu()]
-        t_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for i in range(args.gen - 1):
-            logits, caches = M.decode_step(cfg, params, tok, caches, P + i)
-            tok = logits.argmax(dim=-1)
-            out.append(tok.cpu())   # host copy: the step's sync point
-        t_decode = time.perf_counter() - t0
-    gen = torch.stack(out, dim=1)
+    gen, t_prefill, t_decode = generate(cfg, params, toks, args.gen,
+                                        temperature=args.temperature)
     print(f"device {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

@@ -37,10 +37,11 @@ def mlp_apply(p: PyTree, x: torch.Tensor, *, act: str = "silu"
         g = cm.dense(p["gate"], x)
     a = cm.silu(g)
     tape_x = None
-    if _tape.current_tape() is not None:
+    if isinstance(_tape.current_tape(), _tape.JitTape):
         # the jitted reference's stats pass fuses this product into the
         # down projection's sum of squares and keeps it in f32 there
         # (XLA's excess precision): give the tape the unrounded product
+        # (the eager tape, as the reference's, sees the bf16 product)
         tape_x = a.float() * h.float()
     return cm.dense(p["down"], a * h, tape_x=tape_x)
 

@@ -144,9 +144,18 @@ def _tokens(params: PyTree, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).long()
 
 
-def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int):
+def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
+           unroll: bool = False):
     """Embed + every layer: (hidden states before the final norm, summed
-    MoE aux loss, caches)."""
+    MoE aux loss, caches).  ``unroll``: register every layer's sliced
+    params, under its stage's path and its layer index, with the eager
+    stats tape if one records (the reference's unrolled tape pass)."""
+    tape = None
+    if unroll:
+        from repro_torch.core import tape as tape_mod
+        tape = tape_mod.current_tape()
+        if tape is not None:      # unstacked leaves
+            tape.register_layer(params, "", -1)
     tokens = _tokens(params, tokens)
     x = cm.embed_lookup(params["embed"], tokens)
     B, S, _ = x.shape
@@ -154,10 +163,12 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int):
     ctx = Ctx(positions=pos, cache_capacity=cache_capacity)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for (pattern, repeats), sp in zip(make_stages(cfg), params["stages"],
-                                      strict=True):
+    for s, ((pattern, repeats), sp) in enumerate(zip(
+            make_stages(cfg), params["stages"], strict=True)):
         per_layer = []
-        for lp in _unstack(sp, repeats):
+        for i, lp in enumerate(_unstack(sp, repeats)):
+            if tape is not None:
+                tape.register_layer(lp, f"['stages'][{s}]", i)
             out = {}
             for j, kind in enumerate(pattern):
                 x, aux, out[str(j)] = blk.block_apply_full(
@@ -177,10 +188,12 @@ def _unembed(cfg: ModelConfig, params: PyTree, x: torch.Tensor):
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: dict, *,
-            cache_capacity: int = 0):
+            cache_capacity: int = 0, unroll: bool = False):
     """Full forward. Returns (logits fp32 (B, S, V), aux, caches); aux is
-    the MoE load-balancing loss summed over layers (0 without MoE)."""
-    x, aux, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
+    the MoE load-balancing loss summed over layers (0 without MoE).
+    ``unroll``: the eager stats tape's pass (:func:`_trunk`)."""
+    x, aux, caches = _trunk(cfg, params, batch["tokens"], cache_capacity,
+                            unroll)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux, caches
 
@@ -193,18 +206,12 @@ def stats_sumsq(cfg: ModelConfig, params: PyTree, batch: dict) -> PyTree:
     :class:`~repro_torch.core.tape.JitTape` while its blocks run, and each
     kernel's sums are stacked back along the layer axis, as the reference's
     scanned pass returns them.  Covers every kernel inside the layer
-    stacks; leaves the pass does not project through (embeddings, heads,
-    norms) come back None.  Accumulate over batches and sqrt to get
-    ||X_j||_2.  MoE layers raise: their expert-bank hook (routed-row
-    rescale) is not ported, and wanda would silently degrade to magnitude
-    on every expert bank.
+    stacks, MoE expert banks with their routed-row rescale included
+    (``models.moe.moe_apply``); leaves the pass does not project through
+    (embeddings, heads, routers, norms) come back None.  Accumulate over
+    batches and sqrt to get ||X_j||_2.
     """
     from repro_torch.core import tape as tape_mod
-    moe = sorted({k for k in cfg.layer_kinds if k.startswith("moe")})
-    if moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the stats pass of MoE layers ({', '.join(moe)}) "
-            "is not ported yet")
     tokens = _tokens(params, batch["tokens"])
     x = cm.embed_lookup(params["embed"], tokens)
     B, S, _ = x.shape

@@ -9,7 +9,9 @@ dispatch buffer (G, E, C, d) runs through ``common.expert_dense_pair`` and
 ``common.expert_dense``: compressed SparseTensor banks through the
 hand-written ``nm_matmul_expert``, dense banks through one batched matmul.
 The combine gathers each assignment's row back (0 for a dropped one),
-weights it by its renormalised gate and sums over the k choices.
+weights it by its renormalised gate and sums over the k choices.  While a
+stats tape records, the expert banks' inputs go to it with each expert's
+routed-row count (the reference's hook).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import tape as _tape
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
 
@@ -112,11 +115,25 @@ def moe_apply(p: PyTree, x: torch.Tensor, *, top_k: int,
     flat = torch.zeros((G * E * C + 1, d), dtype=x.dtype, device=x.device)
     flat.index_put_((rows.reshape(-1),), src.reshape(-1, d))
     buf = flat[:-1].view(G, E, C, d)
-    # The calibration stats tape (the reference records the dispatch buffer
-    # with per-expert routed-token counts here) comes with calibration.
+
+    t = _tape.current_tape()
+    if t is not None:   # per-(expert, input-feature) activation stats
+        # The capacity buffer is zero-padded (unfilled slots, dropped
+        # tokens): zeros add nothing to the sum of squares, but an
+        # expert's sample size is its routed-row count, not G*C, so the
+        # tape rescales its sums to the T tokens a dense FFN sees.
+        routed = _one_hot(e_idx, E).sum(dim=(0, 1))
+        t.record(p["up"]["kernel"], buf.transpose(0, 1), count=routed,
+                 ref_count=T)
+        t.record(p["gate"]["kernel"], buf.transpose(0, 1), count=routed,
+                 ref_count=T)
 
     h, g = cm.expert_dense_pair(p["up"], p["gate"], buf)
-    out_buf = cm.expert_dense(p["down"], h * cm.silu(g))
+    h = h * cm.silu(g)
+    if t is not None:
+        t.record(p["down"]["kernel"], h.transpose(0, 1), count=routed,
+                 ref_count=T)
+    out_buf = cm.expert_dense(p["down"], h)
 
     y_tk = out_buf[g_iota, e_idx.clamp(max=E - 1), p_idx]   # (G, Tl*k, d)
     y_tk = torch.where(keep[..., None], y_tk, 0)            # dropped -> 0

@@ -1,8 +1,9 @@
 """Compressed weight format: ``SparseTensor``, the 2:4 layout ``nm_matmul``
 executes.
 
-Port of ``repro.sparse.formats`` (the unstructured ``BitMask`` storage
-format and the tensor-parallel tags are not ported yet).  For a dense
+Port of ``repro.sparse.formats`` (the tensor-parallel tags are not ported
+yet), with ``BitMask``, the unstructured keep-mask storage, 8 masks per
+byte.  For a dense
 kernel (..., K, N) pruned 2:4 along K it stores ``vals`` (..., K/2, N) in
 the serving compute dtype plus the in-group positions, either int8
 (``idx_bits=8``: (..., K/2, N)) or packed 4 per byte (``idx_bits=2``:
@@ -105,3 +106,45 @@ class SparseTensor:
     def __repr__(self):
         return (f"SparseTensor(shape={self.shape}, dtype={self.dtype}, "
                 f"idx_bits={self.idx_bits})")
+
+
+class BitMask:
+    """Boolean mask packed 8 per byte: a flat uint8 buffer and the shape.
+
+    Little-endian within a byte (mask entry 8 i + j is bit j of byte i), the
+    flat mask zero-padded to a multiple of 8: the reference's bytes, bit
+    for bit."""
+
+    def __init__(self, bits: torch.Tensor, shape: tuple[int, ...]):
+        self.bits = bits
+        self.shape = tuple(shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.bits.numel()
+
+    @classmethod
+    def pack(cls, mask: torch.Tensor) -> "BitMask":
+        flat = mask.reshape(-1).to(torch.uint8)
+        pad = -flat.numel() % 8
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        weights = torch.ones(8, dtype=torch.uint8, device=flat.device) << \
+            torch.arange(8, dtype=torch.uint8, device=flat.device)
+        return cls((flat.reshape(-1, 8) * weights).sum(
+            dim=-1, dtype=torch.uint8), tuple(mask.shape))
+
+    def to_dense(self) -> torch.Tensor:
+        n = torch.Size(self.shape).numel()
+        shifts = torch.arange(8, dtype=torch.uint8, device=self.bits.device)
+        flat = ((self.bits[:, None] >> shifts) & 1).reshape(-1)[:n]
+        return flat.to(torch.bool).reshape(self.shape)
+
+    def __repr__(self):
+        return f"BitMask(shape={self.shape}, nbytes={self.nbytes})"
+
+
+def sparse_leaves(t) -> list[SparseTensor]:
+    """Every ``SparseTensor`` leaf of a tree, in flatten order."""
+    from repro_torch import tree
+    return [x for x in tree.leaves(t) if isinstance(x, SparseTensor)]

@@ -1,4 +1,4 @@
-"""Mask trees -> compressed format.  Port of ``repro.sparse.pack``.
+"""Mask trees -> compressed formats.  Port of ``repro.sparse.pack``.
 
 The mask, not a top-k recomputation, is the source of truth: export ties
 are broken by the dual V (``core.mirror.export_masks``), so positions come
@@ -6,9 +6,12 @@ from the mask and ``to_dense() == W * mask`` holds exactly.
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
-from repro_torch.sparse.formats import SparseTensor, _pack_idx2
+from repro_torch import tree
+from repro_torch.sparse.formats import BitMask, SparseTensor, _pack_idx2
 
 
 def nm_positions(mask: torch.Tensor, *, m: int = 4,
@@ -45,3 +48,15 @@ def pack_nm(w: torch.Tensor, mask: torch.Tensor, *, idx_bits: int = 8,
     if idx_bits == 2:
         return SparseTensor(vals, _pack_idx2(idx), idx_bits=2)
     return SparseTensor(vals, idx, idx_bits=8)
+
+
+def pack_mask_tree(masks: Any) -> Any:
+    """Boolean mask tree -> ``BitMask`` tree (None leaves stay None)."""
+    return tree.tree_map(lambda m: None if m is None else BitMask.pack(m),
+                         masks)
+
+
+def unpack_mask_tree(packed: Any) -> Any:
+    """``BitMask`` tree -> boolean mask tree (None leaves stay None)."""
+    return tree.tree_map(
+        lambda b: b.to_dense() if isinstance(b, BitMask) else None, packed)

@@ -151,3 +151,50 @@ def assert_calibration_matches(jbank, tbank):
         for k in a:
             np.testing.assert_allclose(b[k], a[k], rtol=2e-3, atol=1e-6,
                                        err_msg=k)
+
+
+# the tiny families of benchmarks/common.py, field for field
+TINY = {
+    "llama-tiny": dict(name="llama-tiny", family="dense", d_model=128,
+                       num_layers=4, num_heads=4, num_kv_heads=2,
+                       head_dim=32, d_ff=384, vocab_size=512),
+    "moe-tiny": dict(name="moe-tiny", family="moe", d_model=128,
+                     num_layers=4, num_heads=4, num_kv_heads=2, head_dim=32,
+                     d_ff=256, moe_d_ff=256, vocab_size=512,
+                     pattern=("moe",), num_experts=4, top_k=2),
+}
+
+
+def tiny_model(name: str):
+    """(jax cfg, torch cfg, jax params, torch params) of the committed
+    trained ``results/bench_models/<name>.pkl`` (an arch outside the
+    config registry: each cfg is built from ``TINY``)."""
+    import pathlib
+    import pickle
+
+    import jax.numpy as jnp
+
+    from repro.configs.base import ModelConfig as JaxModelConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import load_params_pickle
+    path = (pathlib.Path(__file__).resolve().parent.parent / "results"
+            / "bench_models" / f"{name}.pkl")
+    with open(path, "rb") as f:
+        jp = jax.tree.map(jnp.asarray, pickle.load(f))
+    return (JaxModelConfig(**TINY[name]), ModelConfig(**TINY[name]), jp,
+            load_params_pickle(path))
+
+
+def tiny_bank(name: str):
+    """The committed ``results/bench_banks/<name>-unstructured`` bank (the
+    benchmarks' stochria calibration), loaded by each package."""
+    import pathlib
+
+    from repro.configs.base import ModelConfig as JaxModelConfig
+    from repro.sparse.bank import MaskBank as JaxMaskBank
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.sparse.bank import MaskBank
+    d = (pathlib.Path(__file__).resolve().parent.parent / "results"
+         / "bench_banks" / f"{name}-unstructured")
+    return (JaxMaskBank.load(d, cfg=JaxModelConfig(**TINY[name])),
+            MaskBank.load(d, cfg=ModelConfig(**TINY[name]), device="cpu"))

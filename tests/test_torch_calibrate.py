@@ -71,13 +71,23 @@ def test_collect_stats_matches_reference(smoke):
 
 
 def test_collect_stats_raises_for_moe_layers():
+    """MoE layers no longer raise: the expert-bank hook records every bank
+    (stats (L, E, K)), and only an unknown impl raises.  The values are
+    held against the reference's in tests/test_torch_tape.py."""
     cfg = dataclasses.replace(get_config("mixtral-8x22b"), d_model=32,
                               num_layers=1, num_heads=2, num_kv_heads=1,
                               head_dim=16, moe_d_ff=32, vocab_size=64)
     params = TM.init_params(cfg, 0, device="cpu")
     calib = [{"tokens": np.zeros((1, 8), np.int32)}]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tcal.collect_stats(cfg, params, calib)
+    for impl in ("jit", "tape"):
+        stats = tcal.collect_stats(cfg, params, calib, impl=impl)
+        got = {p.split("']['")[-2]: tuple(v.shape)
+               for p, v in tree.flatten_with_path(stats) if v is not None
+               and "['moe']" in p}
+        assert got == {"up": (1, 8, 32), "gate": (1, 8, 32),
+                       "down": (1, 8, 32)}, impl
+    with pytest.raises(ValueError, match="unknown stats impl"):
+        tcal.collect_stats(cfg, params, calib, impl="xla")
 
 
 # --- the 30-step calibration, both packages, and their banks ----------------

@@ -673,3 +673,211 @@ def test_spec_is_lossless_on_the_card(cuda_device, draft):
     after = fns.capture_counts()
     assert all(after[s] == n for s, n in counts.items())
     assert all(n == 1 for n in after.values())
+
+
+# --- the paper's evaluation and the rest of calibration ---------------------
+
+def _mini_moe():
+    """A 2-layer mixtral-shaped config at smoke-like widths (d 64, 8
+    experts, top-2) and its params from seed 0, on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), d_model=64,
+                              num_layers=2, num_heads=4, num_kv_heads=2,
+                              head_dim=16, moe_d_ff=96, vocab_size=128)
+    return cfg, M.init_params(cfg, 0, device="cpu")
+
+
+def _calib(cfg, n=2, batch=2, seq=32):
+    from repro_torch.data.synthetic import batches_for
+    return batches_for(cfg, n=n, batch=batch, seq=seq, split="calib")
+
+
+@pytest.mark.cuda
+def test_eval_ppl_on_the_card_syncs_once(cuda_device):
+    """eval_ppl of dense, masked-dense and 2:4-compressed smoke llama on
+    the card against the CPU (rtol 2e-3, the CPU tests' bf16 bound), the
+    loop body under ``set_sync_debug_mode("error")`` (no host sync until
+    the one read), and the compressed run through nm_matmul at B*S rows."""
+    from repro_torch import tree
+    from repro_torch.optim import losses
+    cfg, params, sparse = _smoke_members(cuda_device)
+    from repro_torch.sparse.bank import MaskBank
+    masked = MaskBank.load(_BANK, device=cuda_device).sparse_params(
+        params, compressed=False)
+    from repro_torch.data.synthetic import batches_for
+    valid = batches_for(cfg, n=2, batch=4, seq=64, split="valid")
+    for name, p in (("dense", params), ("masked", masked),
+                    ("compressed", sparse)):
+        want = losses.eval_ppl(cfg, tree.to_device(p, "cpu"), valid)
+        staged = [{"tokens": torch.as_tensor(b["tokens"],
+                                             device=cuda_device)}
+                  for b in valid]
+        before = nm_matmul.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tot, n = losses.eval_nll(cfg, p, staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = nm_matmul.launches - before
+        assert launches == (7 * cfg.num_layers * len(valid)
+                            if name == "compressed" else 0), (name, launches)
+        got = float(np.exp(min(float(tot) / n, 30.0)))
+        assert abs(got - losses.eval_ppl(cfg, p, valid)) <= 1e-6 * got
+        np.testing.assert_allclose(got, want, rtol=2e-3, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_no_mirror_step_on_the_card(cuda_device):
+    """Two Eq. 8 steps (stochria, rho 1e-5, l2 0.01) on the card against
+    the CPU: the objective at rtol 2e-3 and the update W - W0 as
+    tests/test_torch_eval.py holds it against the reference."""
+    from functools import partial
+
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig, get_smoke_config
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import prng
+    from repro_torch.core.mirror import no_mirror_step
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.models import model as M
+    from repro_torch.optim.losses import lm_loss
+    cfg = get_smoke_config("llama3.2-1b")
+    p0 = M.init_params(cfg, 0, device="cpu")
+    calib = _calib(cfg)
+    stats = cal.collect_stats(cfg, p0, calib)
+    pcfg = PruneConfig(local_metric="stochria", rho=1e-5)
+    out = {}
+    for d in ("cpu", cuda_device):
+        W = tree.to_device(tree.tree_map(lambda x: x.float().clone(), p0), d)
+        st = tree.to_device(stats, d)
+        for n in range(2):
+            W, loss = no_mirror_step(
+                pcfg, partial(lm_loss, cfg), W,
+                {"tokens": torch.as_tensor(calib[n]["tokens"], device=d)},
+                st, prunable_map(W), prng.key(11), n, l2=0.01)
+        out[str(d)] = (tree.to_device(W, "cpu"), float(loss))
+    (wc, lc), (wg, lg) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(lg, lc, rtol=2e-3)
+    for (path, a), (_, b), (_, w0) in zip(tree.flatten_with_path(wc),
+                                          tree.flatten_with_path(wg),
+                                          tree.flatten_with_path(p0)):
+        da, db = (a - w0).double(), (b - w0).double()
+        tol = 2e-2 * da.abs().max() + 2 * torch.from_numpy(np.spacing(
+            w0.abs().numpy().astype(np.float32))).double()
+        assert bool(((db - da).abs() <= tol).all()), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["jit", "tape"])
+def test_moe_stats_on_the_card(cuda_device, impl):
+    """MoE stats (expert banks with their routed-row rescale) on the card
+    against the CPU: the aggregate relative error per leaf within 1e-2
+    (the CPU tests' bound for routing near-ties), and the card's tape
+    against its jitted pass within stats_parity's 5e-2."""
+    from repro_torch import tree
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core.prunable import prunable_map
+    cfg, p0 = _mini_moe()
+    calib = _calib(cfg)
+    cpu = cal.collect_stats(cfg, p0, calib, impl=impl)
+    card = cal.collect_stats(cfg, tree.to_device(p0, cuda_device), calib,
+                             impl=impl)
+    worst, ok, n = cal.stats_parity(tree.to_device(card, "cpu"), cpu,
+                                    prunable_map(p0), tol=1e-2)
+    assert ok and n == 7, worst
+    other = cal.collect_stats(cfg, tree.to_device(p0, cuda_device), calib,
+                              impl="jit" if impl == "tape" else "tape")
+    assert cal.stats_parity(card, other, prunable_map(p0))[1]
+
+
+@pytest.mark.cuda
+def test_moe_search_on_the_card(cuda_device):
+    """Three wanda 2:4 steps over expert banks (L, E, K, N) on the card:
+    the fused step, prox24 and nm_mask24 launch on the (L*E*K, N) views,
+    and Gamma/V match the CPU's within 1e-4 of max|V| (the CPU tests'
+    search bound); the exported masks equal the CPU's but for counted
+    near-ties."""
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import mirror
+    cfg, p0 = _mini_moe()
+    calib = _calib(cfg)
+    stats = cal.collect_stats(cfg, p0, calib)
+    pcfg = PruneConfig(local_metric="wanda", mode="nm", steps=3)
+    before = (prox24.launches, saliency_fused_step.launches,
+              nm_mask24.launches)
+    cpu, _ = cal.run_search(cfg, pcfg, p0, calib, stats)
+    card, _ = cal.run_search(cfg, pcfg, tree.to_device(p0, cuda_device),
+                             calib, tree.to_device(stats, cuda_device))
+    mc = mirror.export_masks(pcfg, cpu.Gamma, 0.5, V=cpu.V)
+    mg = mirror.export_masks(pcfg, card.Gamma, 0.5, V=card.V)
+    after = (prox24.launches, saliency_fused_step.launches,
+             nm_mask24.launches)
+    assert [a - b for a, b in zip(after, before)] == [3 * 7, 3 * 7, 7]
+    diff = 0
+    for (path, vc), (_, vg) in zip(tree.flatten_with_path(cpu.V),
+                                   tree.flatten_with_path(card.V)):
+        if vc is None:
+            continue
+        scale = float(vc.abs().max())
+        assert float((vg.cpu() - vc).abs().max()) <= 1e-4 * scale, path
+        a = dict(tree.flatten_with_path(mc))[path]
+        b = dict(tree.flatten_with_path(mg))[path].cpu()
+        diff += int((a != b).sum())
+    assert diff <= 8
+
+
+@pytest.mark.cuda
+def test_bitmask_and_sampling_card_equal_cpu(cuda_device):
+    """BitMask bytes, the gumbel draws (f32 and bf16) and a categorical
+    sample on the card equal the CPU's bit for bit, and the launcher's
+    --temperature loop gives the CPU's stream at smoke width."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.sparse import BitMask
+    g = torch.Generator().manual_seed(0)
+    m = torch.rand((37, 129), generator=g) < 0.3
+    a, b = BitMask.pack(m), BitMask.pack(m.to(cuda_device))
+    assert torch.equal(a.bits, b.bits.cpu())
+    assert torch.equal(b.to_dense().cpu(), m)
+    for dt in (torch.float32, torch.bfloat16):
+        x = prng.gumbel(prng.key(100), (4, 128256), dtype=dt)
+        y = prng.gumbel(prng.key(100), (4, 128256), cuda_device, dtype=dt)
+        assert torch.equal(x, y.cpu()), dt
+        logits = torch.randn((4, 128256), generator=g).to(dt)
+        assert torch.equal(prng.categorical(prng.key(7), logits),
+                           prng.categorical(prng.key(7), logits.to(
+                               cuda_device)).cpu())
+    cfg = get_smoke_config("llama3.2-1b")
+    toks = torch.from_numpy(batches_for(cfg, n=1, batch=2, seq=16,
+                                        split="valid")[0]["tokens"])
+    p = M.serving_params(M.init_params(cfg, 0, device="cpu"))
+    from repro_torch import tree
+    want = generate(cfg, p, toks, 8, temperature=1.0)[0]
+    got = generate(cfg, tree.to_device(p, cuda_device), toks, 8,
+                   temperature=1.0)[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_launcher_sparse_on_the_card(cuda_device, tmp_path, capsys):
+    """``--sparse --save-artifact`` and ``--temperature`` through the serve
+    launcher on the card at smoke width."""
+    from repro_torch.launch import serve
+    from repro_torch.sparse.bank import MaskBank
+    serve.main(["--arch", "llama3.2-1b", "--smoke", "--batch", "2",
+                "--prompt-len", "32", "--gen", "6", "--sparse",
+                "--save-artifact", str(tmp_path / "bank"),
+                "--temperature", "0.8"])
+    out = capsys.readouterr().out
+    assert "saved mask bank" in out and "sample continuation" in out
+    bank = MaskBank.load(tmp_path / "bank", device="cpu")
+    assert bank.meta["steps_run"] == 30 and bank.pcfg.mode == "nm"
