@@ -86,10 +86,50 @@ result line):
               surfaces replayed == eager, the engine's step eager and
               graph per member, tok/s, spec's accept rate and tok/s
               against the verifier alone; peak memory.
-8. bank     - the committed mask bank at smoke width through
+8. eval     - the paper's evaluation loop at llama3.2-1b's full width on
+              phase 6's weights and calibration batches: ``eval_ppl`` of
+              the dense weights, phase 6's 2:4 bank (masked-dense and
+              compressed), the stochria unstructured search at 0.5-0.7,
+              the one-shot baselines and the Eq. 8 ablation; stats jit
+              against tape; the serve launcher's ``--sparse`` and
+              ``--temperature``; mixtral-8x22b's stats (2 layers); the
+              committed moe-tiny's calibration card against CPU and its 2:4
+              eval.
+9. train    - (a) ``launch.train.main`` at llama3.2-1b's published widths
+              (random weights, seed 0), torch's default algorithms: 20
+              steps of 8 x 256 tokens, remat on: the median fenced step,
+              tok/s, the model-FLOPs share of the bf16 peak, peak memory,
+              and the host's share of it (threads, the collector's passes,
+              the allocator's retries and cudaMalloc calls); (b) under ``torch.use_deterministic_algorithms``, the same
+              run with checkpoints at steps 15 (``save_async``) and 20
+              (its losses and median step beside (a)'s): the host copy, write and restore
+              times, the step-20 checkpoint restored == the final state,
+              byte for byte; its step 20 then made torn (LATEST 15, as if
+              the run died during its final save) and a second launcher
+              call resumes at step 15: its first batch a fresh loader's
+              batch 15, its steps and final (params, AdamWState) the
+              straight run's bit for bit; the optimizer update alone
+              against its bytes bound and
+              ``torch.optim.AdamW(fused=True)``; at most two step
+              directories (~30 GB) on disk, free space checked first,
+              deleted at the end; (c) tests/test_system.py's model trained
+              on the card by its recipe, its claims with its bounds (dense
+              ppl < 60, monotone 0.5 -> 0.6, no collapse, UniPruning <=
+              1.1 x magnitude at 0.6, exact budgets, the 2:4 kernel product,
+              compressed ppl == masked-dense within 1e-3, W0 untouched),
+              ``saliency_fused_step``, ``prox24``, ``nm_mask24`` and
+              ``nm_matmul`` launched on the trained weights and counted,
+              each call held against its plain version on the same inputs
+              (the search kernels at their first call of each signature,
+              bit for bit; every ``nm_mask24`` mask exactly; every
+              ``nm_matmul`` product within phase 3's tolerance);
+              (d) moe-tiny trained on the card by benchmarks/common.py's
+              recipe, its held-out ppl below the untrained model's, beside
+              the committed weights'.
+10. bank    - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-9. summary  - the card's line, a ``{"kernels": [...]}`` line (the eight
+11. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -647,11 +687,11 @@ def f32_issue_per_s(torch, dev) -> float:
     return sms * 128 * mhz * 1e6
 
 
-def phase_prox24(torch, dev, paths: dict) -> dict:
+def phase_prox24(torch, dev, paths: dict, untimed: tuple = ()) -> dict:
     """prox24 in place (as the search runs it) against ref.prox24_ref, bit
     for bit, at each leaf shape of each calibration path; bounds by bytes
     (over 67e12 f32 ops a second, the table's) and by the issue rate of its
-    unfused f32 ops."""
+    unfused f32 ops.  The paths named in ``untimed`` are checked only."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.nm_prox import prox24
     g = torch.Generator(device=dev)
@@ -676,6 +716,10 @@ def phase_prox24(torch, dev, paths: dict) -> dict:
                 f"prox24 ({R}, {N}): differs from its plain version (max "
                 f"err {err})")
             del want, got
+            if path in untimed:
+                print(f"  prox24 f32 ({R:6d}, {N:5d}) in place  "
+                      f"bit-identical  ({path}, not timed)")
+                continue
             copies = max(1, -(-2 * L2_BYTES // (R * N * 4)))
             ws = [w.clone() for _ in range(copies)]
             ms = device_ms(torch, lambda i: prox24(ws[i], lam=PROX_LAM,
@@ -693,6 +737,8 @@ def phase_prox24(torch, dev, paths: dict) -> dict:
                   f"kernel {ms:8.4f} ms  plain {plain:8.4f} ms  bound "
                   f"{b_ms:7.4f} ms ({b_by})  {b_ms / ms:6.1%} of bound; "
                   f"issue bound {issue_ms:7.4f} ms  {issue_ms / ms:6.1%}")
+        if path in untimed:
+            continue
         out[path] = _per_step(path_rows, leaves)
         by = {r["LKN"]: r for r in path_rows}
         out[path]["issue_bound_ms"] = sum(by[lkn]["issue_bound_ms"]
@@ -711,11 +757,12 @@ def phase_prox24(torch, dev, paths: dict) -> dict:
             "by_path": out}
 
 
-def phase_saliency(torch, dev, paths: dict) -> dict:
+def phase_saliency(torch, dev, paths: dict, untimed: tuple = ()) -> dict:
     """saliency_fused_step against its plain version, bit for bit, at each
     leaf shape of each calibration path: wanda, magnitude and ria, with
     and without the median divisor; timed as the search runs it (wanda,
-    divisor, in place over V and Gamma)."""
+    divisor, in place over V and Gamma), except on the paths named in
+    ``untimed``."""
     from repro_torch.core.metrics import median_element
     from repro_torch.kernels.saliency_fuse import (saliency_fused_step,
                                                    saliency_fused_step_plain)
@@ -753,6 +800,10 @@ def phase_saliency(torch, dev, paths: dict) -> dict:
                           f"{N}): differs from its plain version (max err "
                           f"{err})")
                     del want, got
+            if path in untimed:
+                print(f"  saliency_fused_step ({R:6d}, {N:5d}) 6 variants "
+                      f"bit-identical  ({path}, not timed)")
+                continue
             elem = R * N * 20 + R * 4
             copies = max(1, -(-2 * L2_BYTES // elem))
             states = [(v.clone(), gam.clone()) for _ in range(copies)]
@@ -772,6 +823,8 @@ def phase_saliency(torch, dev, paths: dict) -> dict:
                   f"bit-identical; wanda / median in place: kernel {ms:8.4f}"
                   f" ms  plain {plain:8.4f} ms  bound {b_ms:7.4f} ms "
                   f"({b_by})  {b_ms / ms:6.1%} of bound")
+        if path in untimed:
+            continue
         out[path] = _per_step(path_rows, leaves)
         rows += path_rows
         print(f"  saliency_fused_step, one {path} search step "
@@ -2955,7 +3008,573 @@ def phase_moe_calibration(torch, dev, card: str, launches: dict,
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the committed bank, card against CPU
+# Phase 9: training (the launcher at full width, resume, the system test on
+# a model the card trained, moe-tiny)
+# ---------------------------------------------------------------------------
+
+# the launcher at llama3.2-1b's published widths: 20 steps of 8 x 256
+# tokens, remat on (the launcher's), a checkpoint at step 15 and the final
+# one at 20
+TRAIN_ARGS = ["--arch", "llama3.2-1b", "--steps", "20", "--batch", "8",
+              "--seq", "256", "--ckpt-every", "15", "--log-every", "1"]
+TRAIN_STEPS, TRAIN_TOKENS, RESUME_AT = 20, 8 * 256, 15
+# tests/test_system.py's CFG and recipe, field for field
+SYS_CFG = dict(name="sys", family="dense", d_model=96, num_layers=3,
+               num_heads=4, num_kv_heads=2, head_dim=24, d_ff=256,
+               vocab_size=512)
+SYS_KERNELS = ("saliency_fused_step", "prox24", "nm_mask24", "nm_matmul")
+
+
+def _train_dir():
+    d = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+@contextlib.contextmanager
+def launcher_recorded(torch, times: dict, batches: list):
+    """The train launcher with its checkpoint manager timed (the host copy
+    inside ``save_async``, each write on the worker thread, each restore)
+    and its loader recorded ((cursor index, tokens) per batch), and its
+    standard output captured as ``times["lines"]`` (echoed indented)."""
+    import io
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.synthetic import ShardedLoader
+    from repro_torch.launch import train as launch_train
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    class Timed(CheckpointManager):
+        def save_async(self, step, state, **kw):
+            self.wait()       # the previous write is not this copy's time
+            timed("save_async_s",
+                  lambda: super(Timed, self).save_async(step, state, **kw))
+
+        def _write(self, step, flat, metadata):
+            timed("write_s",
+                  lambda: super(Timed, self)._write(step, flat, metadata))
+
+        def restore(self, template, **kw):
+            out = timed("restore_s",
+                        lambda: super(Timed, self).restore(template, **kw))
+            torch.cuda.synchronize()
+            return out
+
+    class Recorded(ShardedLoader):
+        def __next__(self):
+            i = self.cursor.index
+            b = super().__next__()
+            batches.append((i, b["tokens"].copy()))
+            return b
+
+    saved = launch_train.CheckpointManager, launch_train.ShardedLoader
+    launch_train.CheckpointManager, launch_train.ShardedLoader = \
+        Timed, Recorded
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    finally:
+        launch_train.CheckpointManager, launch_train.ShardedLoader = saved
+        times["lines"] = buf.getvalue().splitlines()
+        for line in times["lines"]:
+            print("  | " + line)
+
+
+@contextlib.contextmanager
+def host_state(torch, out: dict):
+    """What the process holds when a host-bound run starts, and what took
+    the host during it: live threads, objects Python's collector tracks,
+    the caching allocator's reserved bytes; then the collector's passes
+    and their seconds, the allocator's retries and cudaMalloc / cudaFree
+    calls."""
+    import threading
+    out.update({"threads": sorted(t.name for t in threading.enumerate()),
+                "gc_tracked": len(gc.get_objects()),
+                "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+                "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30})
+    keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    before = torch.cuda.memory_stats()
+    passes, t0 = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            passes.append((info["generation"], time.perf_counter() - t0[0]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(on_gc)
+        after = torch.cuda.memory_stats()
+        out.update({k: after.get(k, 0) - before.get(k, 0) for k in keys})
+        out["gc_passes"] = [sum(g == n for g, _ in passes) for n in range(3)]
+        out["gc_s"] = sum(s for _, s in passes)
+
+
+def _state_leaves(out: dict) -> list:
+    from repro_torch.ckpt.checkpoint import flatten_state
+    return [x for _, x in flatten_state((out["params"], out["ostate"]))]
+
+
+def phase_train_launcher(torch, dev, card: str) -> dict:
+    """(a) and (b): see the module docstring, phase 9."""
+    import math
+    import re
+
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import DataCursor, ShardedLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    cfg = get_config("llama3.2-1b")
+    n_params = sum(math.prod(s) for s in tree.leaves(M.param_shapes(cfg)))
+    ckpt_bytes = 3 * 4 * n_params
+    d = _train_dir()
+    free = shutil.disk_usage(d).free
+    need = 2 * ckpt_bytes + 2 ** 30
+    check(free >= need, f"{d}: {free / 1e9:.1f} GB free, the two step "
+          f"checkpoints of phase 9 need {need / 1e9:.1f} GB")
+    args = TRAIN_ARGS + ["--ckpt-dir", str(d)]
+    line = re.compile(r"^step (\d+) loss (\d+\.\d{4}) gnorm (\d+\.\d{3}) "
+                      r"\((\d+\.\d)s\)$")
+    out = {"params": n_params, "ckpt_gb": ckpt_bytes / 1e9}
+    print(f"  llama3.2-1b: {n_params / 1e9:.4f} B params, checkpoints of "
+          f"{ckpt_bytes / 1e9:.2f} GB into {d} ({free / 1e9:.1f} GB free); "
+          "(a) in torch's default mode, (b) under "
+          "torch.use_deterministic_algorithms(True, warn_only=True)")
+    try:
+        # -- (a) default mode, timed: 20 steps ------------------------------
+        times_a, seen_a, host_a = {}, [], {}
+        torch.cuda.reset_peak_memory_stats()
+        with launcher_recorded(torch, times_a, seen_a), \
+                host_state(torch, host_a):
+            ra = launch_train.main(TRAIN_ARGS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lines = times_a["lines"]
+        check([int(m.group(1)) for m in map(line.match, lines[:-1]) if m]
+              == list(range(TRAIN_STEPS)) and lines[-1].startswith("done: "),
+              f"launcher lines {lines}")
+        log = ra["log"]
+        check(all(math.isfinite(x) for _, l, g, _ in log for x in (l, g))
+              and log[-1][1] < log[0][1], f"losses {log}")
+        check([i for i, _ in seen_a] == list(range(TRAIN_STEPS)),
+              f"(a) read batches {[i for i, _ in seen_a]}")
+        dts = [b[3] - a[3] for a, b in zip(log, log[1:])]
+        step_s = statistics.median(dts)
+        flops = 6 * n_params * TRAIN_TOKENS
+        out.update({
+            "mode": "default", "step_ms": step_s * 1e3,
+            "step_ms_all": [x * 1e3 for x in dts],
+            "tok_s": TRAIN_TOKENS / step_s, "peak_gib": peak,
+            "model_flops_share": flops / step_s / BF16_OPS_PER_S,
+            "loss_first_last": (log[0][1], log[-1][1])})
+        print(f"  (a) [{card}] default mode, 20 steps of 8 x 256: median "
+              f"fenced step {step_s * 1e3:.1f} ms (steps 1-19: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in dts)}), "
+              f"{out['tok_s']:.0f} tok/s; model FLOPs 6 * {n_params:.4g} * "
+              f"{TRAIN_TOKENS} = {flops:.4g} a step (remat's second forward "
+              f"not counted) over the step: "
+              f"{100 * out['model_flops_share']:.2f}% of the "
+              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak; peak "
+              f"memory {peak:.2f} GiB; loss {log[0][1]:.2f} -> "
+              f"{log[-1][1]:.2f}")
+        out["host"] = host_a
+        print(f"  (a) the host: {len(host_a['threads'])} threads "
+              f"{host_a['threads']}, {host_a['gc_tracked']} objects tracked "
+              f"by the collector and {host_a['reserved_gib']:.2f} GiB "
+              f"reserved ({host_a['allocated_gib']:.2f} allocated) at the "
+              f"start; during the run {host_a['gc_passes']} collector "
+              f"passes by generation, {host_a['gc_s']:.3f} s, allocator "
+              f"retries {host_a['num_alloc_retries']}, cudaMalloc "
+              f"{host_a['num_device_alloc']}, cudaFree "
+              f"{host_a['num_device_free']}")
+        log_a = [(s, l, g) for s, l, g, _ in log]
+        del ra
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) deterministic mode: straight with checkpoints at 15 and 20,
+        # then torn at 20 and resumed --------------------------------------
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            times_s, seen_s = {}, []
+            with launcher_recorded(torch, times_s, seen_s):
+                rst = launch_train.main(args)
+            log_s = [(s, l, g) for s, l, g, _ in rst["log"]]
+            mgr = CheckpointManager(d)
+            check(mgr.all_steps() == [RESUME_AT, TRAIN_STEPS],
+                  f"steps on disk {mgr.all_steps()}")
+            t0 = time.perf_counter()
+            (rp, rs), meta = mgr.restore((rst["params"], rst["ostate"]))
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            got = _state_leaves({"params": rp, "ostate": rs})
+            check(meta == {"next_step": TRAIN_STEPS} and all(
+                x.device == y.device and torch.equal(x, y)
+                for x, y in zip(got, _state_leaves(rst), strict=True)),
+                "the restored step-20 (params, AdamWState) differ from the "
+                "saved state")
+            del rp, rs, got
+            mgr.close()
+            # the first run died after its step-15 checkpoint, during its
+            # final one: the step-20 directory never committed
+            (d / f"step_{TRAIN_STEPS:08d}").rename(
+                d / f"step_{TRAIN_STEPS:08d}.tmp")
+            (d / "LATEST").write_text(str(RESUME_AT))
+            times_b, seen_b = {}, []
+            with launcher_recorded(torch, times_b, seen_b):
+                rb = launch_train.main(args)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        out.update({"save_async_host_copy_s": times_s["save_async_s"][0],
+                    "write_s": times_s["write_s"], "restore_s": t_restore})
+        print(f"  (b) checkpoints: save_async's host copy of "
+              f"{ckpt_bytes / 1e9:.2f} GB "
+              f"{times_s['save_async_s'][0]:.2f} s, writes "
+              + ", ".join(f"{x:.1f}" for x in times_s["write_s"])
+              + f" s (step 15 on the worker thread, step 20 at the end); "
+              f"restore of step 20 {t_restore:.1f} s: equal to the saved "
+              f"state, every byte")
+        lines = times_b["lines"]
+        check(lines[0] == f"resumed at step {RESUME_AT}", f"(b) {lines[:2]}")
+        fresh = ShardedLoader(cfg, global_batch=8, seq=256)
+        for _ in range(RESUME_AT):
+            next(fresh)
+        want = next(fresh)["tokens"]
+        check(seen_b[0][0] == RESUME_AT
+              and np.array_equal(seen_b[0][1], want)
+              and np.array_equal(seen_b[0][1], next(ShardedLoader(
+                  cfg, global_batch=8, seq=256,
+                  cursor=DataCursor(index=RESUME_AT)))["tokens"]),
+              f"(b) resumed at batch {seen_b[0][0]}, not a fresh loader's "
+              f"batch {RESUME_AT}")
+        straight = log_s[RESUME_AT:]
+        resumed = [(s, l, g) for s, l, g, _ in rb["log"]]
+        same = all(torch.equal(x, y) for x, y in zip(
+            _state_leaves(rb), _state_leaves(rst), strict=True))
+        check(resumed == straight and same,
+              f"(b) resumed steps {resumed} vs straight {straight}; final "
+              f"state equal: {same}")
+        step_b = statistics.median(
+            b[3] - a[3] for a, b in zip(rst["log"], rst["log"][1:]))
+        out.update({"default_log_equals_deterministic": log_a == log_s,
+                    "deterministic_step_ms": step_b * 1e3,
+                    "resume_restore_s": times_b["restore_s"][0],
+                    "resume_write_s": times_b["write_s"]})
+        print(f"  (b) the straight run's 20 (loss, grad_norm) "
+              f"{'equal' if log_a == log_s else 'differ from'} (a)'s "
+              f"default-mode ones, its median step {step_b * 1e3:.1f} ms "
+              f"(deterministic mode, with checkpoints); step 20 made torn, "
+              f"LATEST 15; the second "
+              f"call resumed at step 15 (restore "
+              f"{times_b['restore_s'][0]:.1f} s), read batch 15 == a fresh "
+              f"loader's batch 15, and its steps 15-19 (loss, grad_norm) and "
+              f"final (params, AdamWState) equal the straight run's bit for "
+              f"bit; final write {times_b['write_s'][0]:.1f} s")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del rst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the optimizer update alone, on (b)'s final state ---------------------
+    params, state = rb["params"], rb["ostate"]
+    del rb
+    grads = tree.tree_map(torch.clone, state.mu)
+    ocfg = opt.AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS)
+    moved = 7 * 4 * n_params      # p, g, m, v read; p, m, v written
+
+    def adamw():
+        opt.adamw_update(ocfg, grads, state, params)
+
+    def fused():
+        fused_opt.step()
+
+    flat = tree.leaves(params)
+    for p, g in zip(flat, tree.leaves(grads)):
+        p.grad = g
+    fused_opt = torch.optim.AdamW(flat, lr=3e-4, betas=(0.9, 0.95),
+                                  eps=1e-8, weight_decay=0.01, fused=True)
+    t = {}
+    for name, fn in (("adamw_update", adamw), ("fused", fused),
+                     ("adamw_update ", adamw), ("fused ", fused)):
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(3):
+            fn()
+        e1.record()
+        e1.synchronize()
+        t.setdefault(name.strip(), []).append(e0.elapsed_time(e1) / 3)
+    out.update({"optimizer_ms": min(t["adamw_update"]),
+                "optimizer_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "fused_adamw_ms": min(t["fused"])})
+    print(f"  optimizer: adamw_update over {n_params / 1e9:.4f} B f32 "
+          f"params {out['optimizer_ms']:.2f} ms (runs "
+          + ", ".join(f"{x:.2f}" for x in t["adamw_update"])
+          + f"); bound {out['optimizer_bound_ms']:.2f} ms ({moved / 1e9:.1f}"
+          f" GB: p, g, m, v read once, p, m, v written once); "
+          f"torch.optim.AdamW(fused=True), the same update in other "
+          f"roundings (weight decay as p *= 1 - lr wd): "
+          f"{out['fused_adamw_ms']:.2f} ms")
+    del params, state, grads, flat, fused_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def sparse_calls_checked(torch, seen: dict):
+    """While open, every ``nm_mask24`` call (through ``core/masks.py``) and
+    every ``nm_matmul`` call (through ``sparse/apply.py``) is held against
+    its plain version on the same inputs: the mask exactly, the product
+    within phase 3's tolerance for its output dtype; every call still
+    launches and counts.  ``seen`` gets (shape, mismatches) per mask and
+    (rows, K, N, max err) per product."""
+    from repro_torch.core import masks
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.nm_spmm import nm_matmul_plain
+    from repro_torch.sparse import apply
+    saved = masks.nm_mask24, apply.nm_matmul
+
+    def mask(s):
+        got = saved[0](s)
+        mism = int((got != ref.nm_mask_ref(s)).sum())
+        seen.setdefault("nm_mask24", []).append((tuple(s.shape), mism))
+        check(mism == 0, f"nm_mask24 {tuple(s.shape)} on trained scores "
+              f"differs from its plain version in {mism} entries")
+        return got
+
+    def matmul(x, vals, idx, **kw):
+        got = saved[1](x, vals, idx, **kw)
+        want = nm_matmul_plain(x, vals, idx, **kw)
+        tol = BF16_TOL if got.dtype == torch.bfloat16 else F32_TOL
+        err = float((got.float() - want.float()).abs().max())
+        key = (x.shape[0], x.shape[1], vals.shape[-1])
+        seen.setdefault("nm_matmul", []).append((*key, err))
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"nm_matmul (M, K, N) = {key} {got.dtype} on trained weights: "
+              f"max err {err} over rtol=atol={tol}")
+        return got
+
+    masks.nm_mask24, apply.nm_matmul = mask, matmul
+    try:
+        yield seen
+    finally:
+        masks.nm_mask24, apply.nm_matmul = saved
+
+
+def system_claims(torch, dev, launches: dict) -> dict:
+    """(c): tests/test_system.py's recipe and claims, on the card, from
+    ``init_params`` seed 0; the kernels' launches counted per path."""
+    import math
+    from repro_torch import tree
+    from repro_torch.configs.base import ModelConfig, PruneConfig
+    from repro_torch.core import calibrate, mirror
+    from repro_torch.core import masks as masks_mod
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.nm_spmm import nm_matmul
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.optim.losses import eval_ppl
+    from repro_torch.sparse.apply import sparsify_params
+    cfg = ModelConfig(**SYS_CFG)
+    params = M.init_params(cfg, 0, device=dev)
+    train = batches_for(cfg, n=40, batch=12, seq=96, split="train")
+    valid = batches_for(cfg, n=3, batch=12, seq=96, split="valid")
+    train = [{"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+             for b in train]
+    step = make_train_step(cfg, opt.AdamWConfig(lr=2e-3, warmup_steps=20,
+                                                total_steps=200),
+                           accum=1, remat=False)
+    ostate = opt.adamw_init(params)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(200):
+        params, ostate, m = step(params, ostate, train[i % len(train)])
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    t_train = time.perf_counter() - t0
+    ppl = {"dense": eval_ppl(cfg, params, valid)}
+    check(ppl["dense"] < 60, f"dense ppl {ppl['dense']}")
+
+    calib = batches_for(cfg, n=8, batch=8, seq=96, split="calib")
+    stats = calibrate.collect_stats(cfg, params, calib[:3])
+    pcfg = PruneConfig(local_metric="stochria", steps=40)
+    seen, sparse_seen = {}, {}
+    with counted(launches, "system test: stochria search 0.5/0.6"), \
+            search_calls_checked(torch, seen):
+        pruned, state, _ = calibrate.unipruning_prune(
+            cfg, pcfg, params, calib, sparsities=[0.5, 0.6])
+    ppl["UniPruning 0.5"] = eval_ppl(cfg, pruned[0.5], valid)
+    ppl["UniPruning 0.6"] = eval_ppl(cfg, pruned[0.6], valid)
+    mb = calibrate.baseline_masks("magnitude", params, stats, 0.6)
+    ppl["magnitude 0.6"] = eval_ppl(cfg, masks_mod.apply_masks(params, mb),
+                                    valid)
+    d, p50, p60 = ppl["dense"], ppl["UniPruning 0.5"], ppl["UniPruning 0.6"]
+    m60 = mirror.export_masks(pcfg, state.Gamma, 0.6, V=state.V)
+    sp60 = masks_mod.sparsity_of(m60)
+    check(math.isfinite(p50) and math.isfinite(p60)
+          and d <= p50 <= p60 * 1.05 and p60 < 40 * d
+          and p60 <= ppl["magnitude 0.6"] * 1.10 and abs(sp60 - 0.6) < 0.01,
+          f"the system test's claims: {ppl}, sparsity at 0.6 {sp60}")
+
+    calib = batches_for(cfg, n=6, batch=8, seq=96, split="calib")
+    pcfg = PruneConfig(local_metric="wanda", mode="nm", steps=25)
+    with counted(launches, "system test: wanda 2:4 search"), \
+            search_calls_checked(torch, seen), \
+            sparse_calls_checked(torch, sparse_seen):
+        pruned, state, _ = calibrate.unipruning_prune(
+            cfg, pcfg, params, calib, sparsities=[0.5])
+        masks = mirror.export_masks(pcfg, state.Gamma, 0.5, V=state.V)
+    sp = masks_mod.sparsity_of(masks)
+    ppl["2:4 masked-dense"] = eval_ppl(cfg, pruned[0.5], valid)
+    flat_w = dict(tree.flatten_with_path(pruned[0.5]))
+    path = next(p for p, x in tree.flatten_with_path(masks)
+                if x is not None and x.shape[-2] % 4 == 0)
+    w = flat_w[path][0].float()
+    vals, idx = kref.compress_24(w)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = 0.1 * torch.randn((16, w.shape[0]), generator=g, device=dev)
+    with counted(launches, "system test: 2:4 product and eval"), \
+            sparse_calls_checked(torch, sparse_seen):
+        y = nm_matmul(x, vals, idx)
+        comp = sparsify_params(params, masks, axes=M.param_axes(cfg))
+        ppl["2:4 compressed"] = eval_ppl(cfg, comp, valid)
+    mm_err = float((y - x @ w).abs().max())
+    mm_tol = float(2e-4 + 2e-4 * (x @ w).abs().max())
+    check(abs(sp - 0.5) < 1e-6 and mm_err <= mm_tol
+          and math.isfinite(ppl["2:4 masked-dense"])
+          and abs(ppl["2:4 compressed"] / ppl["2:4 masked-dense"] - 1)
+          <= 1e-3,
+          f"2:4: sparsity {sp}, kernel product err {mm_err} (tol {mm_tol}), "
+          f"ppl {ppl}")
+
+    before = [x.clone() for x in tree.leaves(params)]
+    calib = batches_for(cfg, n=4, batch=4, seq=64, split="calib")
+    with counted(launches, "system test: W0 untouched"), \
+            search_calls_checked(torch, seen):
+        calibrate.unipruning_prune(cfg, PruneConfig(local_metric="wanda",
+                                                    steps=5),
+                                   params, calib, sparsities=[0.5])
+    check(all(torch.equal(a, b) for a, b in zip(before,
+                                                tree.leaves(params))),
+          "the search wrote W0")
+    mm_calls = sparse_seen.get("nm_matmul", [])
+    check(len(sparse_seen.get("nm_mask24", [])) == sum(
+              launches[k]["nm_mask24"] for k in launches
+              if k.startswith("system test"))
+          and len(mm_calls) == launches[
+              "system test: 2:4 product and eval"]["nm_matmul"] - 1,
+          f"checked calls {[(k, len(v)) for k, v in sparse_seen.items()]} "
+          f"vs launches {launches}")
+    return {"ppl": ppl, "train_s": t_train, "loss_first_last":
+            (losses[0], losses[-1]), "kernel_err": (mm_err, mm_tol),
+            "sparsity_60": sp60, "search_signatures_checked": len(seen),
+            "nm_mask24_checked": len(sparse_seen["nm_mask24"]),
+            "nm_matmul_checked": len(mm_calls),
+            "nm_matmul_shapes": sorted({c[:3] for c in mm_calls}),
+            "nm_matmul_max_err": max(c[3] for c in mm_calls)}
+
+
+def moe_tiny_trained(torch, dev) -> dict:
+    """(d): benchmarks/common.py's moe-tiny recipe on the card from
+    ``init_params`` seed 0; its held-out ppl beside the committed weights'
+    (benchmarks/common.py evaluate's batches: 3 of 12 x 128)."""
+    import math
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import load_params_pickle
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.optim.losses import eval_ppl
+    cfg = ModelConfig(**MOE_TINY)
+    steps = 300
+    params = M.init_params(cfg, 0, device=dev)
+    valid = batches_for(cfg, n=3, batch=12, seq=128, split="valid")
+    train = [{"tokens": torch.from_numpy(b["tokens"]).to(dev)} for b in
+             batches_for(cfg, n=50, batch=16, seq=128, split="train")]
+    out = {"untrained": eval_ppl(cfg, params, valid)}
+    step = make_train_step(cfg, opt.AdamWConfig(
+        lr=1.5e-3, warmup_steps=steps // 10, total_steps=steps), accum=1,
+        remat=False)
+    ostate = opt.adamw_init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        params, ostate, m = step(params, ostate, train[i % len(train)])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["trained"] = eval_ppl(cfg, params, valid)
+    out["committed"] = eval_ppl(cfg, load_params_pickle(
+        ROOT / "results" / "bench_models" / "moe-tiny.pkl", device=dev),
+        valid)
+    check(math.isfinite(out["trained"])
+          and out["trained"] < out["untrained"],
+          f"moe-tiny trained on the card: {out}")
+    return out
+
+
+def phase_train(torch, dev, card: str) -> dict:
+    """Phase 9: see the module docstring."""
+    out = phase_train_launcher(torch, dev, card)
+    launches = {}
+    t0 = time.perf_counter()
+    out["system"] = system_claims(torch, dev, launches)
+    out["system"]["s"] = time.perf_counter() - t0
+    ppl = out["system"]["ppl"]
+    for k in SYS_KERNELS:
+        check(sum(v[k] for v in launches.values()) > 0,
+              f"the system test launched no {k}: {launches}")
+    out["launches"] = {k: {n: c for n, c in v.items() if c}
+                       for k, v in launches.items()}
+    print(f"  (c) [{card}] tests/test_system.py's model trained on the card "
+          f"(200 steps {out['system']['train_s']:.1f} s, loss "
+          f"{out['system']['loss_first_last'][0]:.3f} -> "
+          f"{out['system']['loss_first_last'][1]:.3f}); every claim held "
+          f"with the test's bounds; ppl "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ppl.items())
+          + f"; the 2:4 kernel product err {out['system']['kernel_err'][0]:.2e}"
+          f" (tol {out['system']['kernel_err'][1]:.2e}); held against their "
+          f"plain versions on the trained inputs: "
+          f"{out['system']['search_signatures_checked']} search-kernel "
+          f"signatures bit for bit, {out['system']['nm_mask24_checked']} "
+          f"nm_mask24 masks exactly, {out['system']['nm_matmul_checked']} "
+          f"nm_matmul products at (M, K, N) "
+          f"{out['system']['nm_matmul_shapes']} (max err "
+          f"{out['system']['nm_matmul_max_err']:.2e}); launches "
+          f"{out['launches']} ({out['system']['s']:.1f} s)")
+    out["moe_tiny"] = moe_tiny_trained(torch, dev)
+    r = out["moe_tiny"]
+    print(f"  (d) [{card}] moe-tiny, benchmarks/common.py's recipe (lr "
+          f"1.5e-3, 300 steps of 16 x 128) on the card in "
+          f"{r['train_s']:.1f} s: held-out ppl {r['trained']:.4f} (untrained "
+          f"{r['untrained']:.2f}); the committed JAX-trained weights "
+          f"{r['committed']:.4f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the committed bank, card against CPU
 # ---------------------------------------------------------------------------
 
 def phase_bank(torch, dev) -> None:
@@ -3038,7 +3657,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/10] device")
+    print("[1/11] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -3050,7 +3669,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/10] build")
+    print("[2/11] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -3059,8 +3678,9 @@ def main() -> int:
     print(f"  kernels built ({', '.join(ENTRY_POINTS)}: one nvcc each, in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
 
-    print(f"[3/10] kernels against their plain versions [{card}]")
-    from repro_torch.configs.base import get_config, get_smoke_config
+    print(f"[3/11] kernels against their plain versions [{card}]")
+    from repro_torch.configs.base import (ModelConfig, get_config,
+                                         get_smoke_config)
     t0 = time.perf_counter()
     mm = phase_nm_matmul(torch, dev)
     mask = phase_nm_mask24(torch, dev)
@@ -3070,14 +3690,18 @@ def main() -> int:
                        get_smoke_config("llama3.2-1b")),
                    # one layer's up bank of mixtral-8x22b: the search's
                    # (L*E*K, N) view of an expert-bank leaf
-                   "mixtral-8x22b expert bank": {"up": EXPERT_LEAF}}
-    prox = phase_prox24(torch, dev, calib_paths)
-    fused = phase_saliency(torch, dev, calib_paths)
+                   "mixtral-8x22b expert bank": {"up": EXPERT_LEAF},
+                   # phase 9's system test: tests/test_system.py's model,
+                   # checked only (its leaves are ~55-300 KB: timing them
+                   # past the L2 takes up to ~1900 copies a shape)
+                   "system test": calib_leaves(ModelConfig(**SYS_CFG))}
+    prox = phase_prox24(torch, dev, calib_paths, untimed=("system test",))
+    fused = phase_saliency(torch, dev, calib_paths, untimed=("system test",))
     flash = phase_flash_decode(torch, dev)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/10] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/11] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         {"nm_matmul": 7, "nm_matmul_expert": 0},
@@ -3085,7 +3709,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/10] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/11] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -3094,7 +3718,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/10] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/11] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -3103,7 +3727,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/10] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/11] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -3111,7 +3735,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/10] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/11] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -3123,10 +3747,18 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[9/10] committed mask bank at smoke width, card vs CPU")
+    print(f"[9/11] training: the launcher at full width, its resume, the "
+          f"system test on a model the card trained, moe-tiny [{card}]")
+    t0 = time.perf_counter()
+    trained = phase_train(torch, dev, card)
+    t_train = time.perf_counter() - t0
+    print(f"  phase took {t_train:.1f} s")
+
+    torch.cuda.empty_cache()
+    print("[10/11] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
-    print("[10/10] summary")
+    print("[11/11] summary")
     paths = {"llama3.2-1b": llama["launches"],
              "mixtral-8x22b": moe["launches"],
              "calibrate llama3.2-1b": calib["launches"]}
@@ -3135,8 +3767,9 @@ def main() -> int:
             paths[f"{name} kv_shards={S}"] = r["launches"]
     for S, r in fleet["by_kv"].items():
         paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
-    # phase 8's paths, each with the kernels it launched
-    for name, launched in evalr["launches"].items():
+    # phase 8's and phase 9's paths, each with the kernels it launched
+    for name, launched in {**evalr["launches"],
+                           **trained["launches"]}.items():
         paths[name] = {k: v for k, v in launched.items() if v}
     # kernel launches the profiler saw on the CUDA-graph engine's runs of
     # phases 4-5's paths (2 requests), replays included, by kernel function (nm_mma_kernel
@@ -3231,12 +3864,16 @@ def main() -> int:
                  "has no Pallas counterpart"},
     ]
     print(f"  {time.perf_counter() - t_start:.1f} s in all (the fleet phase "
-          f"{t_fleet:.1f} s, the evaluation phase {t_eval:.1f} s)")
+          f"{t_fleet:.1f} s, the evaluation phase {t_eval:.1f} s, the "
+          f"training phase {t_train:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
                         for k, r in evalr["rows"].items()},
         "moe-tiny 2:4": evalr["moe_tiny"], "peak_gib": evalr["peak_gib"]}}))
+    # phase 9's training, on a line of its own
+    print(json.dumps({"training": {
+        k: v for k, v in trained.items() if k != "launches"}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,119 @@
-"""Named artifacts.  Port of ``repro.ckpt.checkpoint``'s
-``save_artifact`` / ``load_artifact`` (step checkpoints come with
-training).
+"""Atomic, resumable checkpoints and named artifacts.  Port of
+``repro.ckpt.checkpoint``.
 
-An artifact is a directory with ``manifest.json`` (``{"metadata": ...,
-"leaves": {keystr path: {file, shape, dtype} | null}}``) and one ``.npy``
-per non-None leaf (``leaf_<flatten index>.npy``), as the JAX package writes
-it, so either package reads the other's artifacts.
+Layout, the reference's, so either package restores the other's:
+
+  <dir>/step_<N>.tmp/      - written first
+      manifest.json        - {"step", "metadata", "leaves": {keystr path:
+                             {file, shape, dtype} | null}}
+      leaf_<i>.npy         - one per non-None leaf, i its flatten index
+  <dir>/step_<N>/          - the atomic rename of the .tmp dir
+  <dir>/LATEST             - text file with the committed step number
+
+A crash mid-save leaves only a .tmp dir, never a torn commit.
+``save_async`` copies the state to the host before it returns (so the
+training step may update its tensors in place at once) and writes it on a
+worker thread; ``wait`` (or the next save) joins it.  Leaves are saved
+whole and restored onto the template's device: a checkpoint restores
+onto any card.  Restoring onto a mesh comes with tensor parallelism
+(ROADMAP A item 7).
+
+A checkpoint state is a tree (:mod:`repro_torch.tree`) or the step state
+``(params, AdamWState)`` the reference saves, whose paths read
+``[0]['embed']['table']``, ``[1].mu['embed']['table']`` and
+``[1].count``.  An artifact is a directory with the same manifest
+(``{"metadata", "leaves"}``) and leaf files.
 """
 from __future__ import annotations
 
+import concurrent.futures as futures
 import json
 import os
 import pathlib
 import shutil
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.optim.optimizers import AdamWState
+
+PyTree = Any
 
 
-def _host(leaf):
+def _parts(state: PyTree) -> list[tuple[str, Any]] | None:
+    """The step state ``(params, AdamWState)`` as (keystr prefix, tree)
+    parts, in jax's flatten order of a tuple and the registered dataclass;
+    None for any other state, which is one tree."""
+    if (isinstance(state, tuple) and len(state) == 2
+            and isinstance(state[1], AdamWState)):
+        params, st = state
+        return [("[0]", params), ("[1].mu", st.mu), ("[1].nu", st.nu),
+                ("[1].count", st.count)]
+    return None
+
+
+def flatten_state(state: PyTree) -> list[tuple[str, Any]]:
+    """[(keystr path, leaf)] of a checkpoint state in jax's flatten order:
+    a tree, or the step state ``(params, AdamWState)``."""
+    parts = _parts(state)
+    if parts is None:
+        return tree.flatten_with_path(state)
+    return [x for prefix, t in parts
+            for x in tree.flatten_with_path(t, prefix)]
+
+
+def _map_state(fn: Callable, state: PyTree) -> PyTree:
+    """``fn(keystr path, leaf)`` over every leaf, keeping the structure."""
+    parts = _parts(state)
+    if parts is None:
+        return tree.map_with_path(fn, state)
+    params, mu, nu, count = (tree.map_with_path(fn, t, prefix)
+                             for prefix, t in parts)
+    return params, AdamWState(mu=mu, nu=nu, count=count)
+
+
+def _host(leaf) -> np.ndarray:
+    """A copy of the leaf in host memory, never a view of it."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            raise TypeError("bf16 leaves have no numpy dtype: checkpoint "
+                            "the f32 masters")
+        return (leaf.clone() if leaf.device.type == "cpu"
+                else leaf.cpu()).numpy()
+    return np.array(leaf)
 
+
+def _to_host(t: PyTree) -> list[tuple[str, Any]]:
+    return [(p, None if x is None else _host(x))
+            for p, x in flatten_state(t)]
+
+
+def _write_tree(tmp: pathlib.Path, final: pathlib.Path,
+                flat: list[tuple[str, Any]], manifest_extra: dict) -> None:
+    """Serialize flattened host leaves under tmp, then atomically commit
+    to final."""
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = {**manifest_extra, "leaves": {}}
+    for i, (path, leaf) in enumerate(flat):
+        if leaf is None:
+            manifest["leaves"][path] = None
+            continue
+        fname = f"leaf_{i:06d}.npy"
+        np.save(tmp / fname, leaf)
+        manifest["leaves"][path] = {"file": fname, "shape": list(leaf.shape),
+                                    "dtype": str(leaf.dtype)}
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    if final.exists():  # re-save (final + periodic, or an artifact update)
+        shutil.rmtree(final)
+    os.replace(tmp, final)  # atomic commit
+
+
+# -- named artifacts (non-step state: mask banks, calibration results) -------
 
 def save_artifact(directory: str | os.PathLike, t: Any, *,
                   metadata: dict | None = None) -> None:
@@ -33,24 +121,8 @@ def save_artifact(directory: str | os.PathLike, t: Any, *,
     everything goes to ``<dir>.tmp`` first, which then replaces ``dir``."""
     final = pathlib.Path(directory)
     final.parent.mkdir(parents=True, exist_ok=True)
-    tmp = final.parent / (final.name + ".tmp")
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
-    manifest = {"metadata": metadata or {}, "leaves": {}}
-    for i, (path, leaf) in enumerate(tree.flatten_with_path(t)):
-        if leaf is None:
-            manifest["leaves"][path] = None
-            continue
-        a = _host(leaf)
-        fname = f"leaf_{i:06d}.npy"
-        np.save(tmp / fname, a)
-        manifest["leaves"][path] = {"file": fname, "shape": list(a.shape),
-                                    "dtype": str(a.dtype)}
-    (tmp / "manifest.json").write_text(json.dumps(manifest))
-    if final.exists():   # re-save over an earlier artifact
-        shutil.rmtree(final)
-    os.replace(tmp, final)  # atomic commit
+    _write_tree(final.parent / (final.name + ".tmp"), final, _to_host(t),
+                {"metadata": metadata or {}})
 
 
 def load_artifact(directory: str | os.PathLike, template: Any
@@ -66,3 +138,90 @@ def load_artifact(directory: str | os.PathLike, template: Any
         return None if ent is None else np.load(d / ent["file"])
 
     return tree.map_with_path(leaf, template), manifest["metadata"]
+
+
+# -- step checkpoints ---------------------------------------------------------
+
+class CheckpointManager:
+    def __init__(self, directory: str | os.PathLike, *, keep: int = 3):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._pool = futures.ThreadPoolExecutor(max_workers=1)
+        self._pending: futures.Future | None = None
+
+    # -- save ---------------------------------------------------------------
+
+    def save(self, step: int, state: PyTree, *, metadata: dict | None = None
+             ) -> None:
+        self.wait()
+        self._write(step, _to_host(state), metadata or {})
+
+    def save_async(self, step: int, state: PyTree, *,
+                   metadata: dict | None = None) -> None:
+        """Copy ``state`` to the host now, write it on the worker thread."""
+        self.wait()
+        self._pending = self._pool.submit(self._write, step, _to_host(state),
+                                          metadata or {})
+
+    def wait(self) -> None:
+        """Join the pending write; re-raises its error."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def close(self) -> None:
+        """Join the pending write and stop the worker thread."""
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown()
+
+    def _write(self, step: int, flat: list, metadata: dict) -> None:
+        _write_tree(self.dir / f"step_{step:08d}.tmp",
+                    self.dir / f"step_{step:08d}", flat,
+                    {"step": step, "metadata": metadata})
+        latest_tmp = self.dir / "LATEST.tmp"
+        latest_tmp.write_text(str(step))
+        os.replace(latest_tmp, self.dir / "LATEST")
+        self._gc()
+
+    def _gc(self) -> None:
+        for s in self.all_steps()[:-self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # -- restore ------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.name.split("_")[1]) for p in self.dir.iterdir()
+                      if p.is_dir() and p.name.startswith("step_")
+                      and not p.name.endswith(".tmp"))
+
+    def latest_step(self) -> int | None:
+        f = self.dir / "LATEST"
+        if not f.exists():
+            steps = self.all_steps()
+            return steps[-1] if steps else None
+        return int(f.read_text().strip())
+
+    def restore(self, template: PyTree, *, step: int | None = None
+                ) -> tuple[PyTree, dict]:
+        """Restore into the structure of ``template`` (default: the latest
+        step).  Each leaf comes back a tensor on the template leaf's device
+        (the CPU where the template leaf is not a tensor); None where the
+        checkpoint has no file for its path.  Returns (tree, metadata)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found in {self.dir}")
+        d = self.dir / f"step_{step:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        by_path = manifest["leaves"]
+
+        def leaf(path, tmpl):
+            ent = by_path.get(path)
+            if ent is None:
+                return None
+            dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
+            return torch.from_numpy(np.load(d / ent["file"])).to(dev)
+
+        return _map_state(leaf, template), manifest["metadata"]

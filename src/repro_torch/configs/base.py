@@ -127,3 +127,23 @@ class PruneConfig:
     # batch-dim slices of each calibration batch, shrinking activation
     # memory at fixed effective batch.  1 = off.
     grad_accum: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_serve(self) -> bool:
+        return self.kind != "train"
+
+
+SHAPE_CELLS: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}

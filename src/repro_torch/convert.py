@@ -1,9 +1,10 @@
 """Carry the JAX package's params into the port.
 
-The reference's params come from threefry draws, which torch cannot replay,
-so a test that compares the two packages on the same weights initialises
-them in JAX, pulls them to the host (``jax.device_get``: a tree of numpy
-arrays) and converts them here.  The trained benchmark models the reference
+The reference's params are ``jax.random.truncated_normal`` draws:
+``core/prng.py`` replays their threefry bits but not the inverse-erf
+transform of them, so a test that compares the two packages on the same
+weights initialises them in JAX, pulls them to the host
+(``jax.device_get``: a tree of numpy arrays) and converts them here.  The trained benchmark models the reference
 cached under ``results/bench_models/*.pkl`` are such numpy trees already
 (:func:`load_params_pickle`).  Expert banks (layers, E, d_in, d_out) and an
 untied ``lm_head`` carry across like every other leaf.  This module imports

@@ -7,13 +7,16 @@ prompts are the reference's prompts token for token:
   p=0.20: copy of the token 8 positions back (induction structure)
   p=0.25: zipfian unigram draw
 
-Batches are a pure function of (seed, split, index).  Only the text
-families are covered: the frame/patch stubs of the audio and vision
-families come with those families.
+Batches are a pure function of (seed, split, index), so any host can
+compute its shard and a restart resumes from a cursor with no replay
+(:class:`ShardedLoader`).  Only the text families are covered: the
+frame/patch stubs of the audio and vision families come with those
+families.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -69,3 +72,43 @@ def batches_for(model_cfg, *, n: int, batch: int, seq: int, split: str,
     ccfg = CorpusConfig(vocab_size=model_cfg.vocab_size, seed=seed)
     return [{"tokens": sample_tokens(ccfg, split, i, batch, seq)}
             for i in range(start, start + n)]
+
+
+@dataclasses.dataclass
+class DataCursor:
+    """Checkpointable loader state: (split, next_index)."""
+    split: str = "train"
+    index: int = 0
+
+
+class ShardedLoader:
+    """Per-host loader: host h of H reads batch rows [h*b/H, (h+1)*b/H) of
+    the global batch at the cursor, then advances it.  Yields numpy
+    batches, as :func:`batches_for` does."""
+
+    def __init__(self, model_cfg, *, global_batch: int, seq: int,
+                 split: str = "train", seed: int = 0, host_id: int = 0,
+                 num_hosts: int = 1, cursor: DataCursor | None = None):
+        if global_batch % num_hosts:
+            raise ValueError(f"global_batch {global_batch} is not a multiple "
+                             f"of num_hosts {num_hosts}")
+        self.model_cfg = model_cfg
+        self.global_batch = global_batch
+        self.seq = seq
+        self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.cursor = cursor or DataCursor(split=split)
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        i = self.cursor.index
+        self.cursor.index += 1
+        full = batches_for(self.model_cfg, n=1, batch=self.global_batch,
+                           seq=self.seq, split=self.cursor.split,
+                           seed=self.seed, start=i)[0]
+        per = self.global_batch // self.num_hosts
+        lo = self.host_id * per
+        return {k: v[lo:lo + per] for k, v in full.items()}

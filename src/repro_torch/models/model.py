@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
@@ -81,9 +82,11 @@ def _build(cfg: ModelConfig, b: Builder) -> PyTree:
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device=None) -> PyTree:
     """Fan-in truncated-normal init from ``torch.Generator(device)`` seeded
-    with ``seed``, on the card unless ``device`` names another.  (The
-    reference's threefry draws cannot be replayed in torch: to reproduce
-    its params, convert them with ``repro_torch.convert``.)"""
+    with ``seed``, on the card unless ``device`` names another.  (These are
+    not the reference's params: ``core/prng.py`` replays its threefry bits,
+    but not ``jax.random.truncated_normal``'s inverse-erf transform of
+    them, so a test that needs the reference's params converts them with
+    ``repro_torch.convert``.)"""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -144,12 +147,29 @@ def _tokens(params: PyTree, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).long()
 
 
+def _layer_apply(cfg: ModelConfig, pattern, lp: PyTree, x: torch.Tensor,
+                 ctx: Ctx):
+    """One layer of a stage: its blocks in order.  Returns (x, the layer's
+    MoE aux loss or None, {block: cache})."""
+    aux_total, out = None, {}
+    for j, kind in enumerate(pattern):
+        x, aux, out[str(j)] = blk.block_apply_full(kind, cfg, lp[str(j)], x,
+                                                   ctx)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total, out
+
+
 def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
-           unroll: bool = False):
+           unroll: bool = False, remat: bool = False):
     """Embed + every layer: (hidden states before the final norm, summed
     MoE aux loss, caches).  ``unroll``: register every layer's sliced
     params, under its stage's path and its layer index, with the eager
-    stats tape if one records (the reference's unrolled tape pass)."""
+    stats tape if one records (the reference's unrolled tape pass).
+    ``remat``: each layer runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scanned layer body): the backward
+    keeps only the layer's input and recomputes the rest, with the same
+    ops, so the gradients are the ones without it."""
     tape = None
     if unroll:
         from repro_torch.core import tape as tape_mod
@@ -169,12 +189,13 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
         for i, lp in enumerate(_unstack(sp, repeats)):
             if tape is not None:
                 tape.register_layer(lp, f"['stages'][{s}]", i)
-            out = {}
-            for j, kind in enumerate(pattern):
-                x, aux, out[str(j)] = blk.block_apply_full(
-                    kind, cfg, lp[str(j)], x, ctx)
-                if aux is not None:
-                    aux_total = aux_total + aux
+            if remat:
+                x, aux, out = checkpoint(_layer_apply, cfg, pattern, lp, x,
+                                         ctx, use_reentrant=False)
+            else:
+                x, aux, out = _layer_apply(cfg, pattern, lp, x, ctx)
+            if aux is not None:
+                aux_total = aux_total + aux
             per_layer.append(out)
         caches.append(_stack(per_layer) if cache_capacity else None)
     return x, aux_total, caches
@@ -188,12 +209,15 @@ def _unembed(cfg: ModelConfig, params: PyTree, x: torch.Tensor):
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: dict, *,
-            cache_capacity: int = 0, unroll: bool = False):
+            remat: bool = False, cache_capacity: int = 0,
+            unroll: bool = False):
     """Full forward. Returns (logits fp32 (B, S, V), aux, caches); aux is
     the MoE load-balancing loss summed over layers (0 without MoE).
-    ``unroll``: the eager stats tape's pass (:func:`_trunk`)."""
+    ``remat``: recompute each layer in the backward (:func:`_trunk`); off
+    when ``cache_capacity`` is set, as in the reference.  ``unroll``: the
+    eager stats tape's pass (:func:`_trunk`)."""
     x, aux, caches = _trunk(cfg, params, batch["tokens"], cache_capacity,
-                            unroll)
+                            unroll, remat=remat and not cache_capacity)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux, caches
 

@@ -11,12 +11,15 @@ from repro_torch.models import model as M
 
 
 def lm_loss(cfg: ModelConfig, params: Any, batch: dict, *,
-            aux_weight: float = 0.01, unroll: bool = False):
+            remat: bool = False, aux_weight: float = 0.01,
+            unroll: bool = False):
     """Next-token cross entropy over f32 log-softmax.  batch["tokens"]:
     (B, S); optional batch["mask"]: (B, S) loss weights.  Returns
-    (loss, {"nll", "aux"}), device scalars.  ``unroll``: the eager stats
-    tape's pass (``models.model.forward``)."""
-    logits, aux, _ = M.forward(cfg, params, batch, unroll=unroll)
+    (loss, {"nll", "aux"}), device scalars.  ``remat``: recompute each
+    layer in the backward; ``unroll``: the eager stats tape's pass (both
+    ``models.model.forward``)."""
+    logits, aux, _ = M.forward(cfg, params, batch, remat=remat,
+                               unroll=unroll)
     tokens = M._tokens(params, batch["tokens"])
     targets = tokens[:, 1:]
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)

@@ -3,12 +3,25 @@ the JAX reference and the repro_torch port and compare trees leaf by leaf
 by key path."""
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.sparse.formats import SparseTensor as JaxSparseTensor
 from repro_torch import tree
 from repro_torch.convert import params_from_numpy
 from repro_torch.sparse.formats import SparseTensor
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch's CPU ops on one thread for the module, restored after: the
+    test runner runs several worker processes on the machine's cores, and
+    each torch process spinning up a thread per core slows every worker by
+    an order of magnitude.  A module that imports it gets it (autouse)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_torch(a) -> torch.Tensor:

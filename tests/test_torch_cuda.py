@@ -881,3 +881,120 @@ def test_launcher_sparse_on_the_card(cuda_device, tmp_path, capsys):
     assert "saved mask bank" in out and "sample continuation" in out
     bank = MaskBank.load(tmp_path / "bank", device="cpu")
     assert bank.meta["steps_run"] == 30 and bank.pcfg.mode == "nm"
+
+
+# --- training on the card ----------------------------------------------------
+
+def _global_rel(a, b, base=None) -> float:
+    """||a - b|| / ||b - base|| over the leaves of two trees, in f64."""
+    from repro_torch import tree
+    num = den = 0.0
+    bl = tree.leaves(base) if base is not None else None
+    for i, (x, y) in enumerate(zip(tree.leaves(a), tree.leaves(b),
+                                   strict=True)):
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        num += float(((x - y) ** 2).sum())
+        ref = y - bl[i].cpu().double() if bl is not None else y
+        den += float((ref ** 2).sum())
+    return (num / den) ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x22b"])
+def test_train_step_card_matches_cpu(cuda_device, arch):
+    """3 AdamW steps of the smoke model (remat on, accum 2) on the card
+    against the CPU from the same weights, at the CPU parity tests'
+    tolerances against the jitted reference (tests/test_torch_train.py:
+    the card's bf16 matmuls round in other places than the CPU's, as the
+    reference's do): loss rtol 2e-3 / 1e-2 (dense / MoE), grad_norm 1e-2
+    / 3e-2, params within 2e-4 of their norm and 0.12 of the update, the
+    moments within 2e-2 / 0.2."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    dense = arch == "llama3.2-1b"
+    cfg = get_smoke_config(arch)
+    p0 = M.init_params(cfg, 0, device="cpu")
+    ocfg = opt.AdamWConfig(lr=3e-4, total_steps=3, warmup_steps=1)
+    step = make_train_step(cfg, ocfg, accum=2, remat=True)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = tree.to_device(tree.tree_map(torch.clone, p0), dev)
+        state = opt.adamw_init(params)
+        mets = []
+        for b in batches_for(cfg, n=3, batch=4, seq=32, split="train"):
+            params, state, m = step(params, state, b)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        assert tree.device_of(params).type == torch.device(dev).type
+        runs.append((params, state, mets))
+    (cp, cs, cm), (gp, gs, gm) = runs
+    for (l0, g0), (l1, g1) in zip(cm, gm):
+        assert abs(l1 / l0 - 1) <= (2e-3 if dense else 1e-2)
+        assert abs(g1 / g0 - 1) <= (1e-2 if dense else 3e-2)
+    assert int(gs.count) == 3 and gs.count.is_cuda
+    assert _global_rel(gp, cp) <= 2e-4
+    assert _global_rel(gp, cp, base=p0) <= 0.12
+    assert max(_global_rel(gs.mu, cs.mu), _global_rel(gs.nu, cs.nu)) <= \
+        (2e-2 if dense else 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x22b"])
+def test_remat_gradients_equal_no_remat_on_the_card(cuda_device, arch):
+    """Under ``torch.use_deterministic_algorithms`` (the embedding's and
+    the log-softmax gather's backward accumulate with atomics otherwise),
+    remat's gradients equal no remat's bit for bit on the card."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.models import model as M
+    from repro_torch.optim.losses import lm_loss
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, 0, device=cuda_device)
+    tokens = torch.from_numpy(batches_for(cfg, n=1, batch=4, seq=64,
+                                          split="train")[0]["tokens"])
+    grads = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, True):
+            leaves = [x.detach().requires_grad_(True)
+                      for x in tree.leaves(params)]
+            W = tree.unflatten_like(params, leaves)
+            loss, met = lm_loss(cfg, W, {"tokens": tokens}, remat=remat)
+            grads.append((loss.detach(), met["aux"].detach(),
+                          torch.autograd.grad(loss, leaves)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l0, a0, g0), (l1, a1, g1) = grads
+    assert torch.equal(l0, l1) and torch.equal(a0, a1)
+    for x, y in zip(g0, g1, strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    """``save_async`` of CUDA tensors, then an in-place update that must not
+    reach the saved bytes; the restore lands on the template's card."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.optim import optimizers as opt
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = {"w": torch.randn((1024, 512), generator=g,
+                               device=cuda_device),
+              "b": [torch.randn((512,), generator=g, device=cuda_device)]}
+    state = (params, opt.adamw_init(params))
+    want = [x.cpu().clone() for x in (params["w"], params["b"][0])]
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(3, state, metadata={"next_step": 3})
+    params["w"].add_(1.0)
+    params["b"][0].mul_(2.0)
+    state[1].count += 5
+    mgr.close()
+    (rp, rs), meta = mgr.restore(state)
+    assert meta == {"next_step": 3}
+    assert rp["w"].is_cuda and rs.count.is_cuda and int(rs.count) == 0
+    assert torch.equal(rp["w"].cpu(), want[0])
+    assert torch.equal(rp["b"][0].cpu(), want[1])
+    assert not rs.mu["w"].any()

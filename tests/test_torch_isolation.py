@@ -183,3 +183,32 @@ def test_kv_shards_serving_with_jax_and_repro_unimportable():
                        text=True, cwd=str(ROOT), timeout=300,
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
+
+
+def test_cpu_training_with_jax_and_repro_unimportable(tmp_path):
+    """The train launcher trains 2 smoke steps on the CPU without jax,
+    checkpoints, and a second call resumes from its checkpoint."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)    # beside the test runner's workers
+        from repro_torch.launch import train
+        argv = ["--arch", "llama3.2-1b", "--smoke", "--batch", "2",
+                "--seq", "32", "--log-every", "1", "--device", "cpu",
+                "--ckpt-dir", {str(tmp_path / "ck")!r}]
+        train.main(argv + ["--steps", "2"])
+        train.main(argv + ["--steps", "3"])
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(ROOT), timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
+    lines = r.stdout.splitlines()
+    assert all(x.startswith("step ") for x in lines[:2])
+    assert "resumed at step 2" in lines
+    assert sum(x.startswith("done: ") for x in lines) == 2
