@@ -9,7 +9,9 @@ result line):
 1. device   - the card's name and power limit; TF32 and reduced-precision
               bf16 reductions off for the plain reference paths.
 2. build    - the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-              source, all started together, sm_90a).
+              source, all started together, sm_90a), and beside them
+              ptxas's registers and spills of the decode attention
+              kernel's D 256 and G 8 instantiations.
 3. kernels  - each kernel against its plain PyTorch version on the card at
               each main path's shapes, with its device time (CUDA graph of
               back-to-back launches over enough weight bytes to defeat the
@@ -22,7 +24,9 @@ result line):
               prunable leaf of full-width and smoke llama3.2-1b, bit for
               bit; the decode attention kernels (flash_decode,
               flash_decode_partial, the combine) at llama's serving shapes,
-              its long cache, mixtral's window and a ragged capacity, rows
+              its long cache, mixtral's window, a ragged capacity and
+              phase 10's gemma3-1b (G 4, D 256) and yi-6b (G 8, D 128)
+              heads at serving and long caches (these also in f32), rows
               at different positions and all-masked shards, against their
               plain versions and ``F.scaled_dot_product_attention``'s time
               (with the planner's capacity splits P per case); prox24's
@@ -125,11 +129,25 @@ result line):
               ``nm_matmul`` product within phase 3's tolerance);
               (d) moe-tiny trained on the card by benchmarks/common.py's
               recipe, its held-out ppl below the untrained model's, beside
-              the committed weights'.
-10. bank    - the committed mask bank at smoke width through
+              the committed weights'; the held-out batches' hash and
+              numpy version, and the committed weights' ppl on the card
+              and on this host's CPU in one process, within 2e-3.
+10. gemma   - phase 4's path at the published widths of gemma3-1b (whole:
+              26 layers, 5:1 local:global, window 512, QK-norm, scaled
+              embeddings, gelu; decode attention at G 4, D 256), yi-6b
+              (G 8, D 128; cut in depth) and gemma2-2b (softcaps and
+              sandwich norms; cut in depth; its decode attention stays on
+              the plain path at every ``kv_shards``, as the reference's),
+              each with its capacity-8192 step; yi's verify pass against
+              sequential decode; then the trained gemma-tiny: eval_ppl
+              dense and at 0.5 / 0.6 under its committed bank on the card
+              and on this host's CPU in one process, and a 5-step wanda
+              2:4 calibration card vs CPU, every search-kernel signature
+              and nm_mask24 mask held against its plain version.
+11. bank    - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-11. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+12. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -211,6 +229,51 @@ def device_ms(torch, fn, n_calls: int) -> float:
         times.append(e0.elapsed_time(e1) / n_calls)
     del graph
     return statistics.median(times)
+
+
+def start_ptxas_report():
+    """``nvcc -cubin -Xptxas -v`` of ``csrc/flash_decode.cu``, started in
+    the background beside the build (its own cubin under build/, not the
+    library the wrappers load, which the same flags without ``-v``
+    build)."""
+    from repro_torch.kernels import _build
+    out = ROOT / "build" / "flash_decode_ptxas.cubin"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+           "-o", str(out), str(_build.CSRC / "flash_decode.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_report(proc) -> dict:
+    """Registers and spill bytes of each ``flash_decode_kernel``
+    instantiation at D 256 or G 8 (the shapes this slice added), from
+    ptxas's report: "dtype D G partial" -> (registers, spill stores,
+    spill loads)."""
+    import re
+    text, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text[-2000:]}")
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"flash_decode_kernelI(13__nv_bfloat16|f)Li(\d+)ELi"
+                      r"(\d+)ELb([01])E", line)
+        if "Compiling entry function" in line:
+            cur = None
+            if m:
+                dt = "bf16" if m.group(1) != "f" else "f32"
+                D, G = int(m.group(2)), int(m.group(3))
+                if D == 256 or G == 8:
+                    cur = f"{dt} D{D} G{G} {'partial' if m.group(4) == '1' else 'out'}"
+                    out[cur] = [0, 0, 0]
+        elif cur and "spill stores" in line:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[cur][1:] = n[1:3]
+        elif cur and "Used" in line and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers",
+                                        line).group(1))
+    check(len(out) == 28, f"ptxas report: {len(out)} D 256 / G 8 "
+          "instantiations, want 28")
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def logit_err(torch, got, want, ulps: int):
@@ -457,7 +520,18 @@ def phase_nm_matmul_expert(torch, dev) -> dict:
 FLASH_CASES = (("llama serving", 4, 8, 4, 64, 256, (1, 4)),
                ("llama long cache", 4, 8, 4, 64, 8192, (1, 4, 16)),
                ("mixtral window", 4, 8, 6, 128, 4096, (1, 4)),
-               ("ragged C, smoke heads", 3, 2, 2, 32, 148, (1, 4)))
+               ("ragged C, smoke heads", 3, 2, 2, 32, 148, (1, 4)),
+               # phase 10's shapes: gemma3-1b's one kv head of 4 x 256 at
+               # its 512-slot window and a global layer's long cache,
+               # yi-6b's 4 kv heads of 8 x 128 at serving and long caches
+               ("gemma3 window", 4, 1, 4, 256, 512, (1, 4)),
+               ("gemma3 long cache", 4, 1, 4, 256, 8192, (1, 4)),
+               ("yi serving", 4, 4, 8, 128, 256, (1, 4)),
+               ("yi long cache", 4, 4, 8, 128, 8192, (1, 4)))
+# the cases also held against their plain versions in f32 (checked, not
+# timed): f32 at D 256 takes the kernel's one-stage ring
+FLASH_F32 = ("gemma3 window", "gemma3 long cache", "yi serving",
+             "yi long cache")
 FLASH_KERNELS = ("flash_decode", "flash_decode_partial", "combine_partials")
 
 
@@ -554,10 +628,26 @@ def phase_flash_decode(torch, dev) -> dict:
                                    (*parts, q.dtype), comb)
             # the combine of the kernel's partials against flash_decode_ref
             r_e, _ = flash_ratio(torch, "flash_decode", (q, k, v, bias), comb)
-            for what, r in (("flash_decode", r_fd), ("flash_decode_partial",
-                                                     r_p),
-                            ("combine_partials", r_c),
-                            ("partial + combine vs flash_decode_ref", r_e)):
+            checks = [("flash_decode", r_fd), ("flash_decode_partial", r_p),
+                      ("combine_partials", r_c),
+                      ("partial + combine vs flash_decode_ref", r_e)]
+            f32 = None
+            if label in FLASH_F32:
+                fq, fk, fv = q.float(), k.float(), v.float()
+                f_parts = flash_decode_partial(fq, fk, fv, bias, shards=S)
+                f_out = flash_decode(fq, fk, fv, bias)
+                f_comb = combine_partials(*f_parts, torch.float32)
+                torch.cuda.synchronize()
+                f32 = {"flash_decode": flash_ratio(
+                    torch, "flash_decode", (fq, fk, fv, bias), f_out),
+                    "flash_decode_partial": flash_ratio(
+                        torch, "flash_decode_partial", (fq, fk, fv, bias),
+                        f_parts, S),
+                    "combine_partials": flash_ratio(
+                        torch, "flash_decode", (fq, fk, fv, bias), f_comb)}
+                checks += [(f"{n} f32", r[0]) for n, r in f32.items()]
+                del fq, fk, fv, f_parts, f_out, f_comb
+            for what, r in checks:
                 check(r <= 1, f"{what} {label} B={B} K={K} G={G} D={D} "
                       f"C={C} S={S}: {r:.3f} of the tolerance")
             qb, ob = B * K * G * D * 2, B * K * G * D * 2
@@ -586,6 +676,13 @@ def phase_flash_decode(torch, dev) -> dict:
                        "max_abs_err": e_c, "ms": ms_c, "plain_ms": plain_c,
                        "library_ms": None, "bound_ms": b_c[0],
                        "bound_by": b_c[1]}}
+            if f32:
+                row["f32_max_abs_err"] = {n: r[1] for n, r in f32.items()}
+                print(f"  f32 {label} C={C} S={S}: flash_decode, "
+                      f"flash_decode_partial, partial + combine within "
+                      + ", ".join(f"{r[0]:.3f}" for r in f32.values())
+                      + " of the tolerance (max err "
+                      + ", ".join(f"{r[1]:.1e}" for r in f32.values()) + ")")
             if S == 1:
                 ms = device_ms(torch, lambda i: flash_decode(
                     q, *kvs[i], bias), copies)
@@ -1153,8 +1250,6 @@ def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
     steps 4-23), the step replayed from a CUDA graph against the eager
     step, a profiler's kernels over 3 eager steps, and the step itself
     (``step``, with its own caches) for :func:`paired_graph_ms`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     caches = M.init_caches(cfg, 4, 256, device=dev)
     tok = torch.from_numpy(batch[:4, 0]).to(dev)
     steps = []
@@ -1173,15 +1268,11 @@ def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
                              kv_shards=kv_shards)[0]
 
     replay_ok = replay_matches_eager(torch, step)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler_window(torch) as prof:
         for _ in range(3):
             step()
-        torch.cuda.synchronize()
     # the kernels themselves (an operator's row would count them twice)
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
+    evs = [e for e in device_events(prof) if e.self_device_time_total > 0]
     nm = sum(e.count for e in evs if "nm_mma_kernel" in e.key
              or "nm_simt_kernel" in e.key)
     return {"step_ms": statistics.median(steps[4:]) * 1e3,
@@ -1229,6 +1320,7 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
 
     steps = {S: path(S) for S in LONG_KV_SHARDS}
     L = cfg.num_layers
+    rings = sorted(M.cache_lengths(cfg, LONG_CAPACITY))
     out, logits = {}, {}
     for S, step in steps.items():
         for name in FLASH_KERNELS:
@@ -1236,9 +1328,10 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
         logits[S] = step().clone()
         launches = {name: getattr(fd, name).launches
                     for name in FLASH_KERNELS}
-        want = {"flash_decode": L if S == 1 else 0,
-                "flash_decode_partial": L if S not in (None, 1) else 0,
-                "combine_partials": L if S not in (None, 1) else 0}
+        attn = attn_kernels_on(cfg, S)
+        want = {"flash_decode": L if attn and S == 1 else 0,
+                "flash_decode_partial": L if attn and S != 1 else 0,
+                "combine_partials": L if attn and S != 1 else 0}
         check(launches == want, f"capacity {LONG_CAPACITY}, kv_shards={S}: "
               f"launches {launches} in one decode step, want {want}")
         check(bool(torch.isfinite(logits[S]).all()),
@@ -1259,8 +1352,9 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
     graph = paired_graph_ms(torch, steps)
     for S, (med, lo, hi) in graph.items():
         out[S].update(graph_ms=med, graph_min_ms=lo, graph_max_ms=hi)
-        print(f"  capacity {LONG_CAPACITY} (every slot valid, "
-              f"{n_bytes / 1e9:.3f} GB of K/V), kv_shards={S}: CUDA graph "
+        print(f"  capacity {LONG_CAPACITY} (every slot valid, rings "
+              f"{rings}, {n_bytes / 1e9:.3f} GB of K/V), kv_shards={S}: "
+              f"CUDA graph "
               f"replayed {med:.3f} ms "
               f"per decode step (median of 10 rounds in turns, {lo:.3f}-"
               f"{hi:.3f}); logits vs None worst {out[S]['worst']:.3f} of the "
@@ -1271,6 +1365,10 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
 
 PROMPT_LENS = (32, 128, 48, 96, 64, 80)
 MAX_TOKENS = 16
+# the profiled graph run's tokens per request: the profiler drops kernel
+# records past its buffers (3 of ~55k were lost at 16 tokens on
+# gemma3-1b's 26 layers), and every dropped record fails the count
+PROFILED_TOKENS = 8
 # profiler kernel names -> the wrappers whose launches they are
 PROFILED = {"nm_spmm": ("nm_mma_kernel", "nm_simt_kernel"),
             "flash_decode": ("flash_decode_kernel",),
@@ -1285,35 +1383,73 @@ def serving_prompts(cfg) -> list:
     return [batch[i, :n] for i, n in enumerate(PROMPT_LENS)]
 
 
-def profiled_launches(torch, fn) -> dict:
-    """``fn()`` under the profiler: kernel launches by wrapper name
-    (``PROFILED``), CUDA graph replays included."""
-    from torch.autograd import DeviceType
+PROFILER_WARMUP = 32     # spin kernels launched before the profiled work
+
+
+@contextlib.contextmanager
+def profiler_window(torch):
+    """``torch.profiler`` (CPU and CUDA activities) over the block, which
+    starts after ``PROFILER_WARMUP`` spin kernels and a 0.2 s wait.  Late
+    in the script the tracer missed the first kernels of a window: the
+    first 3 2:4 launches of gemma3-1b's first profiled windows, in three
+    runs of the script; the spin kernels take that place.  Yields the profiler; :func:`device_events` leaves
+    the spin kernels out."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PROFILER_WARMUP):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    return {name: sum(e.count for e in evs
-                      if any(k in e.key for k in keys))
-            for name, keys in PROFILED.items()}
+        time.sleep(0.2)
+        yield prof
+        torch.cuda.synchronize()
+
+
+def device_events(prof, spin: bool = False) -> list:
+    """The profiler's device rows (kernels, memcpy), without the warm-up's
+    spin kernels (or only them: ``spin``)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and ("spin_kernel" in e.key) == spin]
+
+
+def profiled_launches(torch, fn) -> dict:
+    """``fn()`` under the profiler: kernel launches by wrapper name
+    (``PROFILED``), CUDA graph replays included, and (``"warm-up"``) how
+    many of the ``PROFILER_WARMUP`` spin kernels it saw."""
+    with profiler_window(torch) as prof:
+        fn()
+    evs = device_events(prof)
+    return {"warm-up": sum(e.count for e in device_events(prof, spin=True)),
+            **{name: sum(e.count for e in evs
+                         if any(k in e.key for k in keys))
+               for name, keys in PROFILED.items()}}
+
+
+def attn_kernels_on(cfg, kv_shards) -> bool:
+    """Whether decode attention at ``kv_shards`` runs the kernels: a
+    softcapped model (gemma2) takes the plain replicated path at every
+    ``kv_shards``, as the reference stays on its replicated branch."""
+    return kv_shards is not None and not cfg.attn_softcap
 
 
 def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
                       L: int, kv_shards) -> dict:
     """The counted requests again, on the engine's CUDA-graph step: run 1
     captures the decode graph at its first step, run 2 is timed, run 3 is
-    profiled (each replayed kernel counted by name); each run's streams
-    equal the eager run's, and neither later run captures again."""
+    profiled (each replayed kernel counted by name; 2 requests of
+    ``PROFILED_TOKENS``); each run's streams equal the eager run's (its
+    first tokens), and neither later run captures again."""
+    attn = attn_kernels_on(eng.cfg, kv_shards)
     n_tok = sum(len(w) for w in want)
     res = {}
     for run in ("capture", "timed", "profiled"):
         # the profiled run takes the first 2 requests: the profiler's cost
         # grows with the events it keeps
         n = 2 if run == "profiled" else len(prompts)
-        rids = [eng.submit(p, MAX_TOKENS) for p in prompts[:n]]
+        m = PROFILED_TOKENS if run == "profiled" else MAX_TOKENS
+        rids = [eng.submit(p, m) for p in prompts[:n]]
         steps0, pre0 = eng.decode_steps, eng.prefill_calls
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1321,12 +1457,14 @@ def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
             box = {}
             launches = profiled_launches(
                 torch, lambda: box.update(out=eng.run()))
+            warm = launches.pop("warm-up")
             out = box["out"]
         else:
             out = eng.run()
         torch.cuda.synchronize()
         res[run + "_s"] = time.perf_counter() - t0
-        check([out[r] for r in rids] == want[:n], f"kv_shards={kv_shards}: "
+        check([out[r] for r in rids] == [w[:m] for w in want[:n]],
+              f"kv_shards={kv_shards}: "
               f"the graph engine's streams ({run} run) differ from the eager "
               "engine's")
         check(eng.fns.capture_counts() == {"decode": 1},
@@ -1335,24 +1473,28 @@ def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
     steps, pre = eng.decode_steps - steps0, eng.prefill_calls - pre0
     nm = sum(per_layer.values()) * L * (steps + pre)
     want_l = {"nm_spmm": nm,
-              "flash_decode": 0 if kv_shards is None else L * steps,
-              "combine_partials": 0 if kv_shards in (None, 1) else L * steps}
+              "flash_decode": L * steps if attn else 0,
+              "combine_partials": L * steps if attn and kv_shards != 1
+              else 0}
     check(launches == want_l, f"kv_shards={kv_shards}: the profiled graph "
           f"run launched {launches}, want {want_l} (2:4 kernels: one per "
           "projection and bank per forward; decode attention: one per layer "
-          "per decode step)")
+          f"per decode step); the profiler saw {warm} of its "
+          f"{PROFILER_WARMUP} warm-up kernels")
     res.update(tok_s=n_tok / res["timed_s"], launches=launches,
-               decode_steps=steps, prefills=pre)
+               decode_steps=steps, prefills=pre, profiler_warmup_seen=warm)
     return res
 
 
 def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
-                long_cache: bool = False) -> dict:
+                long_cache: bool = False, verify: bool = False) -> dict:
     """Serve ``cfg`` at its widths from random weights with 2:4 magnitude
     masks; ``per_layer`` is each kernel's launches per layer per forward
     (a prefill or a decode step).  ``long_cache``: also the decode step at
     capacity 8192 (:func:`long_cache_steps`).  Then compressed against
-    masked-dense, routing included where the model has MoE layers."""
+    masked-dense, routing included where the model has MoE layers.
+    ``verify``: then the compressed weights' verify pass against
+    sequential decode (:func:`verify_vs_sequential`)."""
     from repro_torch import tree
     from repro_torch.core.calibrate import baseline_masks
     from repro_torch.data.synthetic import batches_for
@@ -1369,6 +1511,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
 
     L = cfg.num_layers
     n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds)
+    # one stacked leaf per projection or bank of each block of the stages
+    n_leaves = 7 * sum(len(pattern) for pattern, _ in M.make_stages(cfg))
     torch.cuda.reset_peak_memory_stats()
     params0 = M.init_params(cfg, 0, device=dev)
     n_params = sum(x.numel() for x in tree.leaves(params0))
@@ -1414,8 +1558,9 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
           "kv_shards=None launched a decode attention kernel")
     check(all(len(out[r]) == max_tokens for r in rids),
           f"requests finished with {[len(out[r]) for r in rids]} tokens")
-    check(launches["nm_mask24"] == 7,
-          f"nm_mask24 launched {launches['nm_mask24']} times, want 7")
+    check(launches["nm_mask24"] == n_leaves,
+          f"nm_mask24 launched {launches['nm_mask24']} times, want "
+          f"{n_leaves}")
     for name in PATH_KERNELS:
         want = per_layer[name] * L * forwards
         check(launches[name] == want,
@@ -1423,7 +1568,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     print("  " + check_path_calls(torch, calls))
     del calls
     rep = compressed_report(sparse, masks)
-    check(rep["fallback_leaves"] == 0 and rep["kernel_native_packed"] == 7
+    check(rep["fallback_leaves"] == 0
+          and rep["kernel_native_packed"] == n_leaves
           and rep["ratio"] == 0.5625,
           f"compression: {rep['fallback_leaves']} fallbacks, ratio "
           f"{rep['ratio']}")
@@ -1469,10 +1615,13 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
                                       for r in kv_rids),
               f"kv_shards={S}: requests finished with "
               f"{[len(kv_out[r]) for r in kv_rids]} tokens")
+        attn = attn_kernels_on(cfg, S)
         want = {"nm_mask24": 0,
-                "flash_decode": L * e.decode_steps if S == 1 else 0,
-                "flash_decode_partial": 0 if S == 1 else L * e.decode_steps,
-                "combine_partials": 0 if S == 1 else L * e.decode_steps,
+                "flash_decode": L * e.decode_steps if attn and S == 1 else 0,
+                "flash_decode_partial": L * e.decode_steps if attn and S != 1
+                else 0,
+                "combine_partials": L * e.decode_steps if attn and S != 1
+                else 0,
                 **{name: per_layer[name] * L * fw for name in PATH_KERNELS}}
         check(kv_launches == want, f"kv_shards={S}: launches {kv_launches}, "
               f"want {want} ({L} layers per decode step)")
@@ -1541,7 +1690,8 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
               f"(3 runs, one decode graph captured); warm run "
               f"{g['timed_s']:.3f} s = {g['tok_s']:.1f} tok/s (capture run "
               f"{g['capture_s']:.3f} s); profiler over 2 of the requests "
-              f"({g['profiled_s']:.1f} s with its processing), replays "
+              f"x {PROFILED_TOKENS} tokens ({g['profiled_s']:.1f} s with its "
+              f"processing), replays "
               f"included: {g['launches']} over {g['prefills']} eager "
               f"prefills + {g['decode_steps']} replayed decode steps")
     for S, r in by_kv.items():
@@ -1628,11 +1778,65 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     check(rerouted <= MAX_REROUTED_ROWS,
           f"{rerouted} of {total} rows re-routed, more than "
           f"{MAX_REROUTED_ROWS}")
-    return {"launches": launches, "step_ms": step_ms,
+    verified = (verify_vs_sequential(torch, M, cfg, eng.params, prompt)
+                if verify else None)
+    return {"launches": launches, "step_ms": step_ms, "verify": verified,
             "step_dev_ms": step_dev_ms, "prefill_ms": prefill_ms,
             "peak_gib": peak / 2 ** 30, "kv_runs": kv_runs,
             "steps_by_kv": by_kv, "long_cache": long,
             "graph_runs": graph_runs}
+
+
+VERIFY_TOKENS = 4     # fed tokens per row of phase 10's verify check
+
+
+def verify_vs_sequential(torch, M, cfg, params, prompt) -> dict:
+    """The verify pass (teacher-forced, ``VERIFY_TOKENS`` fed tokens per
+    row in one call) against the same tokens fed one decode step at a
+    time, from the prompt's prefill: each column's logits within
+    LOGIT_ULPS_FULL bf16 ulps of the row's max, its greedy token the
+    sequential one's but for counted near-ties (the reference's margin at
+    most twice the measured difference), the written ring rows equal.  On
+    the CPU the columns are bit-equal (tests/test_torch_gemma.py); on the
+    card the batched and the one-row products sum in other orders
+    (ROADMAP R9), so the bit-equal rows are counted, not required."""
+    B, P = prompt.shape
+    fed = prompt[:, :VERIFY_TOKENS].flip(-1).contiguous()
+    t = torch.full((B,), P, dtype=torch.int32, device=prompt.device)
+    with torch.inference_mode():
+        _, c1 = M.prefill(cfg, params, {"tokens": prompt}, cache_capacity=96)
+        c2 = [{j: {n: x.clone() for n, x in c.items()} for j, c in st.items()}
+              for st in c1]
+        got, _ = M.verify_step(cfg, params, fed, c1, t)
+        seq = []
+        for i in range(VERIFY_TOKENS):
+            lg, c2 = M.decode_step(cfg, params, fed[:, i], c2, t + i)
+            seq.append(lg)
+    worst, equal, ties = 0.0, 0, []
+    for i, want in enumerate(seq):
+        for r in range(B):
+            g, w = got[r, i], want[r]
+            err, tol = logit_err(torch, g, w, LOGIT_ULPS_FULL)
+            check(err <= tol, f"verify column {i} row {r}: logits differ "
+                  f"from sequential decode by {err} over {tol}")
+            worst = max(worst, err / tol)
+            equal += int(torch.equal(g, w))
+            a, b = int(w.argmax()), int(g.argmax())
+            if a != b:
+                margin = float(w[a] - w[b])
+                check(margin <= 2 * err, f"verify column {i} row {r}: "
+                      f"token {b} vs sequential {a}, margin {margin}")
+                ties.append((i, r, margin, err))
+    same_rows = all(torch.equal(x.float(), y.float())
+                    for s1, s2 in zip(c1, c2) for j in s1
+                    for n in s1[j] for x, y in [(s1[j][n], s2[j][n])])
+    out = {"worst": worst, "bit_equal": equal, "columns": B * VERIFY_TOKENS,
+           "near_ties": ties, "caches_equal": same_rows}
+    print(f"  verify ({VERIFY_TOKENS} fed tokens x {B} rows, compressed "
+          f"weights) vs sequential decode: logits worst {worst:.3f} of the "
+          f"tolerance, {equal} of {B * VERIFY_TOKENS} columns bit-equal, "
+          f"greedy near-ties {ties}; ring rows written equal: {same_rows}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1784,8 +1988,6 @@ def profile_steps(torch, cfg, pcfg, params0, stats, batch, n: int) -> dict:
     each part of a step (fenced, exclusive), then, over another ``n``
     under the profiler, the kernels' device time by kind."""
     from functools import partial
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
     from repro_torch.core import mirror
     from repro_torch.core.metrics import median_element
@@ -1809,8 +2011,7 @@ def profile_steps(torch, cfg, pcfg, params0, stats, batch, n: int) -> dict:
         fenced = steps()
     parts = {k: v / n * 1e3 for k, v in parts.items()}
     parts["other"] = fenced - sum(parts.values())
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler_window(torch) as prof:
         wall = steps()
     # the median selection: what topk costs against a full sort and
     # kthvalue, on the largest leaf's scores
@@ -1836,8 +2037,8 @@ def profile_steps(torch, cfg, pcfg, params0, stats, batch, n: int) -> dict:
           f"median selections disagree: {median}")
     del flat
     buckets, launches = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+    for e in device_events(prof):
+        if e.self_device_time_total > 0:
             b = _bucket(e.key)
             buckets[b] = buckets.get(b, 0.0) + e.self_device_time_total / n
             launches += e.count
@@ -2510,12 +2711,6 @@ ABLATION = dict(rho=1e-5, l2=0.01, steps=10, seed=11,
                 sparsities=(0.5, 0.6))
 SPARSE_ARGS = ("--batch", "4", "--prompt-len", "64", "--gen", "12")
 TEMPERATURE = 0.8
-# the moe-tiny family of benchmarks/common.py, field for field, and its
-# committed trained weights
-MOE_TINY = dict(name="moe-tiny", family="moe", d_model=128, num_layers=4,
-                num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256,
-                moe_d_ff=256, vocab_size=512, pattern=("moe",),
-                num_experts=4, top_k=2)
 EVAL_KERNELS = ("nm_matmul", "nm_matmul_expert", "prox24",
                 "saliency_fused_step", "nm_mask24")
 
@@ -2889,8 +3084,8 @@ def phase_moe_calibration(torch, dev, card: str, launches: dict,
     the CPU, and eval_ppl of its compressed bank through nm_matmul_expert
     against masked-dense."""
     from repro_torch import tree
-    from repro_torch.configs.base import (ModelConfig, PruneConfig,
-                                          get_config)
+    from repro_torch.configs.base import PruneConfig, get_config
+    from repro_torch.configs.tiny import FAMILIES
     from repro_torch.convert import load_params_pickle
     from repro_torch.core import calibrate as cal
     from repro_torch.core.prunable import prunable_map
@@ -2941,7 +3136,7 @@ def phase_moe_calibration(torch, dev, card: str, launches: dict,
     torch.cuda.empty_cache()
 
     # -- the committed trained moe-tiny: calibration card vs CPU, then eval --
-    tcfg = ModelConfig(**MOE_TINY)
+    tcfg = FAMILIES["moe-tiny"]
     p_cpu = load_params_pickle(ROOT / "results" / "bench_models"
                                / "moe-tiny.pkl")
     tcal = batches_for(tcfg, n=8, batch=4, seq=64, split="calib")
@@ -3500,14 +3695,15 @@ def moe_tiny_trained(torch, dev) -> dict:
     ``init_params`` seed 0; its held-out ppl beside the committed weights'
     (benchmarks/common.py evaluate's batches: 3 of 12 x 128)."""
     import math
-    from repro_torch.configs.base import ModelConfig
+    from repro_torch import tree
+    from repro_torch.configs.tiny import FAMILIES
     from repro_torch.convert import load_params_pickle
     from repro_torch.data.synthetic import batches_for
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt
     from repro_torch.optim.losses import eval_ppl
-    cfg = ModelConfig(**MOE_TINY)
+    cfg = FAMILIES["moe-tiny"]
     steps = 300
     params = M.init_params(cfg, 0, device=dev)
     valid = batches_for(cfg, n=3, batch=12, seq=128, split="valid")
@@ -3525,9 +3721,22 @@ def moe_tiny_trained(torch, dev) -> dict:
     torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t0
     out["trained"] = eval_ppl(cfg, params, valid)
-    out["committed"] = eval_ppl(cfg, load_params_pickle(
-        ROOT / "results" / "bench_models" / "moe-tiny.pkl", device=dev),
-        valid)
+    # the committed weights on the card and on this host's CPU, in one
+    # process, on the same batches (ROADMAP C2 / R16: another numpy draws
+    # another corpus, so a card ppl is compared only with this CPU's)
+    committed = load_params_pickle(ROOT / "results" / "bench_models"
+                                   / "moe-tiny.pkl")
+    out["committed"] = eval_ppl(cfg, tree.to_device(committed, dev), valid)
+    out["committed_cpu"] = eval_ppl(cfg, committed, valid)
+    out["corpus"] = corpus_line(valid)
+    rel = abs(out["committed"] - out["committed_cpu"]) / out["committed_cpu"]
+    print(f"  (d) moe-tiny's held-out batches: {out['corpus']} (numpy 2.0.2 "
+          f"draws sha256 1352cef40c60d54b, sum 1135026); the committed "
+          f"weights' eval_ppl card {out['committed']:.4f} vs this host's CPU "
+          f"{out['committed_cpu']:.4f} (rel {rel:.2e}, tolerance "
+          f"{EVAL_RTOL})")
+    check(rel <= EVAL_RTOL, f"moe-tiny eval_ppl card {out['committed']} vs "
+          f"CPU {out['committed_cpu']}: {rel:.2e} past {EVAL_RTOL}")
     check(math.isfinite(out["trained"])
           and out["trained"] < out["untrained"],
           f"moe-tiny trained on the card: {out}")
@@ -3569,12 +3778,162 @@ def phase_train(torch, dev, card: str) -> dict:
           f"1.5e-3, 300 steps of 16 x 128) on the card in "
           f"{r['train_s']:.1f} s: held-out ppl {r['trained']:.4f} (untrained "
           f"{r['untrained']:.2f}); the committed JAX-trained weights "
-          f"{r['committed']:.4f}")
+          f"{r['committed']:.4f} (this host's CPU {r['committed_cpu']:.4f})")
     return out
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the committed bank, card against CPU
+# Phase 10: the gemma and yi families
+# ---------------------------------------------------------------------------
+
+# (arch, layers served or None for the published depth): gemma3-1b whole;
+# yi-6b and gemma2-2b at their published widths, cut in depth only (the
+# script's time limit; see PERF.md section 4)
+GEMMA_YI = (("gemma3-1b", None), ("yi-6b", 8), ("gemma2-2b", 6))
+GEMMA_TINY_STEPS = 5
+EVAL_RTOL = 2e-3            # the CPU tests' eval tolerance (ROADMAP R10)
+
+
+def corpus_line(batches) -> str:
+    """The sha256 prefix and token sum of a list of synthetic batches, and
+    the numpy that drew them (``Generator.zipf``'s stream is not kept
+    fixed across numpy versions: ROADMAP R16)."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for b in batches:
+        h.update(b["tokens"].tobytes())
+    return (f"sha256 {h.hexdigest()[:16]}, token sum "
+            f"{sum(int(b['tokens'].sum()) for b in batches)}, numpy "
+            f"{np.__version__}")
+
+
+def gemma_tiny_card_vs_cpu(torch, dev, card: str, launches: dict) -> dict:
+    """The trained gemma-tiny (``results/bench_models/gemma-tiny.pkl``):
+    eval_ppl dense and at 0.5 / 0.6 under the committed
+    ``gemma-tiny-unstructured`` bank, on the card and on this host's CPU
+    in one process (the bank's masks card == CPU), within EVAL_RTOL; then
+    a wanda 2:4 calibration on the card (every search-kernel signature and
+    every ``nm_mask24`` mask held against its plain version) and on the
+    CPU, Gamma/V within the CPU tests' tolerance and the masks equal but
+    for near-ties."""
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig
+    from repro_torch.configs.tiny import FAMILIES
+    from repro_torch.convert import load_params_pickle
+    from repro_torch.core import masks as masks_mod
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.calibrate import calibrate_to_bank
+    from repro_torch.optim.losses import eval_ppl
+    from repro_torch.sparse.bank import MaskBank
+    cfg = FAMILIES["gemma-tiny"]
+    p_cpu = load_params_pickle(ROOT / "results" / "bench_models"
+                               / "gemma-tiny.pkl")
+    p_card = tree.to_device(p_cpu, dev)
+    valid = batches_for(cfg, n=3, batch=12, seq=128, split="valid")
+    bank_dir = ROOT / "results" / "bench_banks" / "gemma-tiny-unstructured"
+    banks = {d: MaskBank.load(bank_dir, cfg=cfg, device=d)
+             for d in (dev, "cpu")}
+    rows = {}
+    for s in (None, 0.5, 0.6):
+        params = {}
+        if s is None:
+            params = {"card": p_card, "cpu": p_cpu}
+        else:
+            mc = banks[dev].masks_at(sparsity=s)
+            mh = banks["cpu"].masks_at(sparsity=s)
+            for (path, a), (_, b) in zip(tree.flatten_with_path(mc),
+                                         tree.flatten_with_path(mh),
+                                         strict=True):
+                check((a is None) == (b is None)
+                      and (a is None or torch.equal(a.cpu(), b)),
+                      f"gemma-tiny bank masks at {s} differ between card "
+                      f"and CPU at {path}")
+            params = {"card": masks_mod.apply_masks(p_card, mc),
+                      "cpu": masks_mod.apply_masks(p_cpu, mh)}
+        ppl = {k: eval_ppl(cfg, p, valid) for k, p in params.items()}
+        rel = abs(ppl["card"] - ppl["cpu"]) / ppl["cpu"]
+        check(rel <= EVAL_RTOL, f"gemma-tiny eval_ppl at {s}: card "
+              f"{ppl['card']} vs CPU {ppl['cpu']} ({rel:.2e} > {EVAL_RTOL})")
+        rows["dense" if s is None else str(s)] = {**ppl, "rel": rel}
+    print(f"  gemma-tiny (trained, committed; softcaps, sandwich norms, "
+          f"gelu) eval_ppl over evaluate's batches ({corpus_line(valid)}), "
+          f"card vs this host's CPU in one process: "
+          + "; ".join(f"{k} {r['card']:.4f} vs {r['cpu']:.4f} (rel "
+                      f"{r['rel']:.1e})" for k, r in rows.items())
+          + f"; tolerance rtol {EVAL_RTOL}")
+    # -- a short wanda 2:4 calibration, card vs CPU --------------------------
+    calib = batches_for(cfg, n=8, batch=4, seq=64, split="calib")
+    pcfg = PruneConfig(local_metric="wanda", mode="nm",
+                       steps=GEMMA_TINY_STEPS, stats_batches=4)
+    bdir = _banks_dir()
+    on, seen, checked = {}, {}, {}
+    name = "calibrate gemma-tiny wanda 2:4"
+    for d in (dev, "cpu"):
+        key = "card" if d is dev else "cpu"
+        t0 = time.perf_counter()
+        ctx = ((counted(launches, name), search_calls_checked(torch, seen),
+                sparse_calls_checked(torch, checked)) if d is dev else ())
+        with contextlib.ExitStack() as stack:
+            for c in ctx:
+                stack.enter_context(c)
+            on[key] = calibrate_to_bank(
+                bdir / key, cfg=cfg, pcfg=pcfg, params=tree.to_device(
+                    p_cpu, d), calib=calib, arch=cfg.name, smoke=False,
+                log_every=GEMMA_TINY_STEPS)
+            if d is dev:
+                on[key].masks_at()
+        on[key + "_s"] = time.perf_counter() - t0
+    n_leaves = 7 * len(cfg.pattern)
+    got = launches[name]
+    check(got["saliency_fused_step"] == n_leaves * GEMMA_TINY_STEPS
+          and got["prox24"] == n_leaves * GEMMA_TINY_STEPS
+          and got["nm_mask24"] == n_leaves,
+          f"gemma-tiny calibration launches {got}")
+    check(len(checked.get("nm_mask24", ())) == n_leaves,
+          f"gemma-tiny: {len(checked.get('nm_mask24', ()))} nm_mask24 "
+          f"masks checked, want {n_leaves}")
+    worst, ties, n = banks_agree(torch, on["card"], on["cpu"], pcfg)
+    print(f"  gemma-tiny {GEMMA_TINY_STEPS}-step wanda 2:4, card "
+          f"{on['card_s']:.1f} s vs CPU {on['cpu_s']:.1f} s: launches "
+          f"{ {k: v for k, v in got.items() if v} }; search-kernel "
+          f"signatures bit for bit {sorted(k[:2] for k in seen)}, "
+          f"{len(checked['nm_mask24'])} nm_mask24 masks exactly; Gamma/V "
+          f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
+          "differ in the masks, each a near-tie")
+    shutil.rmtree(bdir, ignore_errors=True)
+    return {"eval": rows, "calibration": {
+        "card_s": on["card_s"], "cpu_s": on["cpu_s"], "worst": worst,
+        "near_ties": ties, "groups": n}}
+
+
+def phase_gemma_yi(torch, dev, card: str) -> dict:
+    """Phase 10: gemma3-1b, yi-6b and gemma2-2b served at their published
+    widths through phase 4's path (:func:`phase_serve`), then the trained
+    gemma-tiny card against CPU: see the module docstring."""
+    from repro_torch.configs.base import get_config
+    out, launches = {}, {}
+    for arch, layers in GEMMA_YI:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        print(f"  -- {arch}" + (f", {layers} of {get_config(arch).num_layers}"
+                                " layers" if layers else ", whole") + " --")
+        out[arch] = phase_serve(torch, dev, card, cfg,
+                                {"nm_matmul": 7, "nm_matmul_expert": 0},
+                                long_cache=True, verify=arch == "yi-6b")
+        out[arch]["s"] = time.perf_counter() - t0
+        print(f"  {arch} took {out[arch]['s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["gemma-tiny"] = gemma_tiny_card_vs_cpu(torch, dev, card, launches)
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the committed bank, card against CPU
 # ---------------------------------------------------------------------------
 
 def phase_bank(torch, dev) -> None:
@@ -3657,7 +4016,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/11] device")
+    print("[1/12] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -3669,16 +4028,22 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/11] build")
+    print("[2/12] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report()
     build()
     for name in ENTRY_POINTS:
         library(name)
     print(f"  kernels built ({', '.join(ENTRY_POINTS)}: one nvcc each, in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
+    spills = ptxas_report(ptxas)
+    print(f"  ptxas, flash_decode_kernel at D 256 or G 8 (registers, spill "
+          f"store bytes, spill load bytes), {time.perf_counter() - t0:.1f} s "
+          "with the build: " + "; ".join(f"{k} {v}"
+                                        for k, v in sorted(spills.items())))
 
-    print(f"[3/11] kernels against their plain versions [{card}]")
+    print(f"[3/12] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -3701,7 +4066,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/11] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/12] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         {"nm_matmul": 7, "nm_matmul_expert": 0},
@@ -3709,7 +4074,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/11] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/12] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -3718,7 +4083,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/11] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/12] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -3727,7 +4092,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/11] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/12] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -3735,7 +4100,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/11] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/12] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -3747,7 +4112,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/11] training: the launcher at full width, its resume, the "
+    print(f"[9/12] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -3755,30 +4120,40 @@ def main() -> int:
     print(f"  phase took {t_train:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[10/11] committed mask bank at smoke width, card vs CPU")
+    torch.cuda.empty_cache()
+    print(f"[10/12] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+          f"at their published widths, the trained gemma-tiny card vs CPU "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    gemma = phase_gemma_yi(torch, dev, card)
+    t_gemma = time.perf_counter() - t0
+    print(f"  phase took {t_gemma:.1f} s")
+
+    torch.cuda.empty_cache()
+    print("[11/12] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
-    print("[11/11] summary")
-    paths = {"llama3.2-1b": llama["launches"],
-             "mixtral-8x22b": moe["launches"],
-             "calibrate llama3.2-1b": calib["launches"]}
-    for name, run in (("llama3.2-1b", llama), ("mixtral-8x22b", moe)):
+    print("[12/12] summary")
+    served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
+              **{arch: gemma[arch] for arch, _ in GEMMA_YI}}
+    paths = {"calibrate llama3.2-1b": calib["launches"]}
+    for name, run in served.items():
+        paths[name] = run["launches"]
         for S, r in run["kv_runs"].items():
             paths[f"{name} kv_shards={S}"] = r["launches"]
     for S, r in fleet["by_kv"].items():
         paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
-    # phase 8's and phase 9's paths, each with the kernels it launched
-    for name, launched in {**evalr["launches"],
-                           **trained["launches"]}.items():
+    # phase 8's, 9's and 10's paths, each with the kernels it launched
+    for name, launched in {**evalr["launches"], **trained["launches"],
+                           **gemma["launches"]}.items():
         paths[name] = {k: v for k, v in launched.items() if v}
     # kernel launches the profiler saw on the CUDA-graph engine's runs of
-    # phases 4-5's paths (2 requests), replays included, by kernel function (nm_mma_kernel
-    # serves both 2:4 wrappers, flash_decode_kernel both decode attention
-    # wrappers)
+    # phases 4-5's and 10's paths (2 requests), replays included, by
+    # kernel function (nm_mma_kernel serves both 2:4 wrappers,
+    # flash_decode_kernel both decode attention wrappers)
     graph_paths = {(name if S is None else f"{name} kv_shards={S}"):
                    g["launches"]
-                   for name, run in (("llama3.2-1b", llama),
-                                     ("mixtral-8x22b", moe))
+                   for name, run in served.items()
                    for S, g in run["graph_runs"].items()}
 
     def flash_row(name, case, S):
@@ -3839,13 +4214,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_decode.py:58",
          **counts("flash_decode"),
          **flash_row("flash_decode", "llama serving", 1),
-         "llama_graph_step_ms": {
+         "graph_step_ms": {name: {
              **{f"C256 kv_shards={S}": r["graph_ms"]
-                for S, r in llama["steps_by_kv"].items()},
+                for S, r in run["steps_by_kv"].items()},
              **{f"C{LONG_CAPACITY} kv_shards={S}": r["graph_ms"]
-                for S, r in llama["long_cache"].items()}},
+                for S, r in (run["long_cache"] or {}).items()}}
+             for name, run in served.items() if name != "mixtral-8x22b"},
          "work": "one llama3.2-1b decode layer's attention at serving: "
                  "B=4 slots, 8 kv heads x 4 query heads of 64, C=256, bf16; "
+                 "by_case: every phase-3 case, gemma3-1b's 1 kv head x 4 "
+                 "of 256 and yi-6b's 4 kv heads x 8 of 128 included; "
                  "library: F.scaled_dot_product_attention (enable_gqa)"},
         {"name": "flash_decode_partial", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
@@ -3865,7 +4243,8 @@ def main() -> int:
     ]
     print(f"  {time.perf_counter() - t_start:.1f} s in all (the fleet phase "
           f"{t_fleet:.1f} s, the evaluation phase {t_eval:.1f} s, the "
-          f"training phase {t_train:.1f} s)")
+          f"training phase {t_train:.1f} s, the gemma and yi phase "
+          f"{t_gemma:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -3874,6 +4253,21 @@ def main() -> int:
     # phase 9's training, on a line of its own
     print(json.dumps({"training": {
         k: v for k, v in trained.items() if k != "launches"}}))
+    # phase 10's serving, on a line of its own (the CUDA-graph decode
+    # step's ms paired across kv_shards, prefill, peak memory)
+    print(json.dumps({"gemma_yi": {
+        **{arch: {"prefill_ms": r["prefill_ms"], "peak_gib": r["peak_gib"],
+                  "eager_step_ms": r["step_ms"], "s": r["s"],
+                  "graph_ms": {str(S): v["graph_ms"]
+                               for S, v in r["steps_by_kv"].items()},
+                  "long_graph_ms": {str(S): v["graph_ms"]
+                                    for S, v in (r["long_cache"]
+                                                 or {}).items()},
+                  "graph_tok_s": {str(S): g["tok_s"]
+                                  for S, g in r["graph_runs"].items()},
+                  "verify": r["verify"]}
+           for arch, r in ((a, gemma[a]) for a, _ in GEMMA_YI)},
+        "gemma-tiny": gemma["gemma-tiny"], "ptxas": spills}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

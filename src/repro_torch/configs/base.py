@@ -2,7 +2,9 @@
 
 Field-for-field copy of ``repro.configs.base`` (which imports jax): a bank
 artifact's ``pcfg`` and a config's fields mean the same in both packages.
-Config modules so far: ``llama3.2-1b`` and ``mixtral-8x22b``.
+Config modules so far: ``llama3.2-1b``, ``mixtral-8x22b``, ``gemma3-1b``,
+``gemma2-2b`` and ``yi-6b``; the paper-table harness's tiny families are
+in ``configs/tiny.py``.
 """
 from __future__ import annotations
 

@@ -24,8 +24,8 @@
 // block's range (the last chunk of a split that is no whole number of
 // chunks) are zero-filled and get s = -inf, so p = 0 and they count nowhere.
 //
-// What bounds it: bytes.  Each K and V row is read once (128 or 256 B of
-// bf16 per head at D = 64 or 128) for about 4 G flops: about G flops per
+// What bounds it: bytes.  Each K and V row is read once (128, 256 or 512 B
+// of bf16 per head at D = 64, 128 or 256) for about 4 G flops: about G flops per
 // byte against the card's ~20 f32 flops per byte of HBM.  All G query heads
 // of the group share each row as it is read (the point of GQA at decode).
 // Streaming at the card's rate needs a few MB in flight, more than one
@@ -48,15 +48,18 @@
 //   captured, and the same bits on every call.
 // * A ring of chunks in shared memory.  Chunk i of a block's range goes to
 //   warp i % kWarps, which streams its chunks of kChunk slots of K and V
-//   plus the bias through kStages stages of its own, filled with 16-byte
+//   plus the bias through the stages of its own ring, filled with 16-byte
 //   cp.async.cg copies (4-byte ones for the bias), the cache read in its
 //   own (B, C, K, D) layout (slot stride K D, no transposed copy): the
-//   block's ring holds kWarps x kStages chunks, kWarps of them in flight
+//   block's ring holds kWarps x STAGES chunks, kWarps of them in flight
 //   while the warps compute on the others, and the loop has no block
 //   barrier.  Two stages a warp measured faster at the serving shapes than
 //   three or four (more shared memory a block for no more bytes in flight
 //   a SM), and 4 warps of 16-slot chunks faster than 2 or 8 warps or
-//   32-slot chunks.  Rows are padded by 16 bytes, so the 8 rows of an
+//   32-slot chunks.  Where two stages do not fit a block's 227 KB (f32 at
+//   D 256: 4 warps x 2 x 33 KB), each warp keeps one stage and waits for
+//   each chunk's copies before it computes (Shape::STAGES); bf16 at D 256
+//   keeps two (137 KB).  Rows are padded by 16 bytes, so the 8 rows of an
 //   ldmatrix (or of a quarter-warp's 16-byte reads) hit 8 different bank
 //   groups.
 // * Tensor cores for bf16.  q . k is mma.m16n8k16 (bf16 in, f32 sums: each
@@ -86,12 +89,9 @@ constexpr float kNegInf = -1e30f;  // the mask's bias and the initial max
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 16;         // slots per warp per ring stage
-constexpr int kStages = 2;         // ring stages per warp
 constexpr int kMaxSplits = 8;      // the portable cluster size
-// blocks an SM must hold: caps the registers, so that mixtral's 256 blocks
-// (8-block clusters of ~73 KB of shared memory at D 128) are all resident
-// at once; at the compiler's own count they measured slower
-constexpr int kMinBlocks = 3;
+constexpr int kSmemLimit = 227 * 1024;  // a block's dynamic shared memory
+constexpr int kSmemSM = 228 * 1024;     // an SM's, 1 KB a block reserved
 constexpr unsigned kFull = 0xffffffffu;
 
 // the shared-memory plan of one instantiation
@@ -105,13 +105,26 @@ struct Shape {
   static constexpr int DN = D / 8;            // 8-column output tiles
   static constexpr int KV_BYTES = kChunk * ROW * 16;  // K or V of a chunk
   static constexpr int STAGE = 2 * KV_BYTES + kChunk * 4;
-  static constexpr int WARP_RING = kStages * STAGE;
   static constexpr int STATE = (G * D + 16) * 4;  // acc, m, l in f32
   // the block's state, then (f32) q as f32 rows of D + 4
   static constexpr int FIXED = STATE + (MMA ? 0 : G * (D + 4) * 4);
+  // ring stages a warp: two, or one where two do not fit (f32 at D 256:
+  // 4 warps x 2 stages x 33 KB); one stage waits for each chunk's copies
+  static constexpr int STAGES =
+      FIXED + kWarps * 2 * STAGE <= kSmemLimit ? 2 : 1;
+  static constexpr int WARP_RING = STAGES * STAGE;
   static constexpr int SMEM = FIXED + kWarps * WARP_RING;
-  static_assert(RU >= 4 && RU <= 32 && D % 16 == 0 && G <= 8 &&
-                    WARP_RING >= STATE && SMEM <= 227 * 1024,
+  // blocks an SM must hold: caps the registers, so that mixtral's 256
+  // blocks (8-block clusters of ~73 KB of shared memory at D 128) are all
+  // resident at once (at the compiler's own count they measured slower);
+  // where shared memory admits fewer, the registers are not capped below
+  // what that count allows (D 256: one block, P . V's 32 n-tiles of f32
+  // sums a thread)
+  static constexpr int MIN_BLOCKS = 3 * (SMEM + 1024) <= kSmemSM   ? 3
+                                    : 2 * (SMEM + 1024) <= kSmemSM ? 2
+                                                                   : 1;
+  static_assert(RU >= 4 && RU <= 64 && D % 16 == 0 && G <= 8 &&
+                    WARP_RING >= STATE && SMEM <= kSmemLimit,
                 "head dim, group or shared memory");
 };
 
@@ -194,7 +207,7 @@ __device__ __forceinline__ unsigned bf16x2(__nv_bfloat162 h) {
 // 2t, + 1), its softmax state (m, l of head g, the same in the 4 lanes of
 // the row) and acc[dn] (columns dn 8 + 2t, + 1 of head g's output).
 template <typename T, int D, int G, bool kPartial>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, (Shape<T, D, G>::MIN_BLOCKS))
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
                     int C, int n, int P, float scale, T* __restrict__ out,
@@ -202,7 +215,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ l_o) {
   using Sh = Shape<T, D, G>;
   constexpr int RU = Sh::RU, ROW = Sh::ROW, NT = Sh::NT, KS = Sh::KS;
-  constexpr int DN = Sh::DN;
+  constexpr int DN = Sh::DN, ST = Sh::STAGES;
   constexpr int VEC = 16 / sizeof(T);
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -249,10 +262,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((size_t)b * C * K + h) * D;
   const float* bb = bias + (size_t)b * C;
 
-  // the warp's j-th chunk into its stage j % kStages; rows past the split's
-  // end are zero-filled (their source address stays inside the split)
+  // the warp's j-th chunk into its stage j % ST; rows past the split's end
+  // are zero-filled (their source address stays inside the split)
   auto load = [&](int j) {
-    unsigned char* st = ring + (j % kStages) * Sh::STAGE;
+    unsigned char* st = ring + (j % ST) * Sh::STAGE;
     const int cb = c0 + (warp + j * kWarps) * kChunk;
     const int cnt = min(kChunk, c1 - cb);
 #pragma unroll
@@ -270,7 +283,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
 #pragma unroll
-  for (int j = 0; j < kStages - 1; ++j) {
+  for (int j = 0; j < ST - 1; ++j) {
     if (j < mine) load(j);
     cp_async_commit();  // an empty group keeps the count uniform
   }
@@ -283,12 +296,20 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int x = 0; x < 4; ++x) acc[dn][x] = 0.0f;
 
   for (int j = 0; j < mine; ++j) {
-    cp_async_wait<kStages - 2>();  // this lane's copies of chunk j landed
-    __syncwarp();  // and the warp's; stage (j - 1) % kStages is free
-    if (j + kStages - 1 < mine) load(j + kStages - 1);
-    cp_async_commit();
+    if constexpr (ST == 1) {
+      __syncwarp();  // the warp is done with chunk j - 1: its stage is free
+      load(j);
+      cp_async_commit();
+      cp_async_wait<0>();  // this lane's copies of chunk j landed
+      __syncwarp();        // and the warp's
+    } else {
+      cp_async_wait<ST - 2>();  // this lane's copies of chunk j landed
+      __syncwarp();  // and the warp's; stage (j - 1) % ST is free
+      if (j + ST - 1 < mine) load(j + ST - 1);
+      cp_async_commit();
+    }
 
-    const unsigned char* st = ring + (j % kStages) * Sh::STAGE;
+    const unsigned char* st = ring + (j % ST) * Sh::STAGE;
     const unsigned char* sK = st;
     const unsigned char* sV = st + Sh::KV_BYTES;
     const float* sB = reinterpret_cast<const float*>(st + 2 * Sh::KV_BYTES);
@@ -582,6 +603,9 @@ cudaError_t launch_g(int G, bool partial, const void* q, const void* k,
     case 6:
       return launch_p<T, D, 6>(partial, q, k, v, bias, out, acc, m, l, B, C,
                                K, S, P, scale, st);
+    case 8:
+      return launch_p<T, D, 8>(partial, q, k, v, bias, out, acc, m, l, B, C,
+                               K, S, P, scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -601,14 +625,17 @@ cudaError_t launch_d(int D, int G, bool partial, const void* q,
     case 128:
       return launch_g<T, 128>(G, partial, q, k, v, bias, out, acc, m, l, B,
                               C, K, S, P, scale, st);
+    case 256:
+      return launch_g<T, 256>(G, partial, q, k, v, bias, out, acc, m, l, B,
+                              C, K, S, P, scale, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and out alike); D in {32, 64, 128},
-// G in {2, 4, 6}, S >= 1 dividing C, P in {1, 2, 4, 8} capacity splits per
+// dtype: 0 = f32, 1 = bf16 (q, k, v and out alike); D in {32, 64, 128,
+// 256}, G in {2, 4, 6, 8}, S >= 1 dividing C, P in {1, 2, 4, 8} capacity splits per
 // shard with P <= C / S.  partial = 0: out (B,K,G,D), S = 1; partial = 1:
 // acc (S,B,K,G,D), m and l (S,B,K,G) f32.  Every array is contiguous; q, k
 // and v 16-byte aligned.

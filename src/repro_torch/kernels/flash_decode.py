@@ -16,8 +16,8 @@ for CUDA tensors, or raising:
 Operands: q (B,K,G,D) - the G query heads of each kv head; k and v
 (B,C,K,D) - the cache in its own layout; bias (B,C) f32, 0 for a valid
 slot and -1e30 for a masked one.  The kernels take f32 or bf16 q/k/v
-(one dtype), D in {32, 64, 128}, G in {2, 4, 6}, v's head dim equal to
-D, contiguous operands and 16-byte aligned q, k and v.  Each launches
+(one dtype), D in {32, 64, 128, 256}, G in {2, 4, 6, 8}, v's head dim
+equal to D, contiguous operands and 16-byte aligned q, k and v.  Each launches
 on the current stream and never synchronises, so a decode step that
 calls them can be captured in a CUDA graph.
 
@@ -37,8 +37,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.nm_spmm import _sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
-GROUPS = (2, 4, 6)
+HEAD_DIMS = (32, 64, 128, 256)
+GROUPS = (2, 4, 6, 8)
 CHUNK = 16          # slots of a warp's ring stage in the kernel (kChunk)
 MAX_SPLITS = 8      # the portable cluster size (kMaxSplits)
 

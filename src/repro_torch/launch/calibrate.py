@@ -11,6 +11,9 @@ reference's.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact /tmp/bank --device cpu
 
+``--arch`` takes every config module of ``repro_torch.configs``:
+``llama3.2-1b``, ``mixtral-8x22b``, ``yi-6b``, ``gemma2-2b``, ``gemma3-1b``.
+
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Stage seconds
 are host clocks around work fenced with ``torch.cuda.synchronize``.
 ``--stats-impl tape`` takes the stats from the eager ``StatsTape`` oracle

@@ -22,7 +22,9 @@ Port of ``repro.launch.serve`` (the trace flags ``--trace-dir`` and
   prefill's token stays the argmax, as the reference's.
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Any ported
-arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window).
+arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window),
+``yi-6b``, ``gemma2-2b`` (softcaps, sandwich norms) and ``gemma3-1b``
+(QK-norm, 5:1 local:global).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b --gen 16
@@ -31,6 +33,8 @@ arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window).
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+      --smoke --sparse --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b \
       --fleet 0.0,0.5,2:4 --spec draft:2:4,verify:0.0,k:4 --device cpu

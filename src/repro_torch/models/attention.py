@@ -1,9 +1,10 @@
-"""Attention: GQA + RoPE + sliding window.  Port of
+"""Attention: GQA + RoPE + sliding window + softcap + QK-norm.  Port of
 ``repro.models.attention`` for the ``attn`` and ``local`` kinds (global and
-sliding-window causal attention; softcap, QK-norm and MLA come with the
-families that use them).
+sliding-window causal attention, gemma's logit softcap and QK-norm; MLA
+comes with its family).
 
-Two execution paths:
+Two execution paths (and :func:`reference_attention`, the reference's
+materialised oracle, for tests):
 
 * :func:`flash_attention` - prefill and calibration, plain torch as in
   the reference, which leaves it to XLA.  The reference's
@@ -20,7 +21,9 @@ Two execution paths:
 
   - ``None`` (default): the reference's replicated ``decode_attend``,
     plain torch, which rounds ``p / l`` to the cache dtype (bf16) before
-    PV;
+    PV.  A softcapped layer (gemma2) always takes it, whatever
+    ``kv_shards`` says, as the reference stays on its replicated branch
+    under a softcap (``attention.py:354``);
   - ``1``: the ``flash_decode`` kernel (``ops.py:76 decode_attention``),
     f32 probabilities;
   - ``S >= 2``: the reference's tensor-parallel branch on a mesh with
@@ -61,12 +64,15 @@ def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, *,
     return torch.where(ok, 0.0, NEG_INF)
 
 
-def _qk(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+def _qk(q: torch.Tensor, k: torch.Tensor, scale: float,
+        softcap: float = 0.0) -> torch.Tensor:
     # q: (B, Sq, K, G, D)  k: (B, Sk, K, D) -> (B, K, G, Sq, Sk) fp32
-    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    return cm.softcap(s, softcap)
 
 
-def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window):
+def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window,
+                     softcap=0.0):
     """One query block vs all (needed) kv blocks -> (normalized f32 output,
     m, l)."""
     B, Sq, K, G, _ = q_blk.shape
@@ -78,7 +84,7 @@ def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window):
     for ikv in range(k.shape[1] // kv_block):
         sl = slice(ikv * kv_block, (ikv + 1) * kv_block)
         kpos = ikv * kv_block + torch.arange(kv_block, device=dev)
-        s = _qk(q_blk, k[:, sl], scale)
+        s = _qk(q_blk, k[:, sl], scale, softcap)
         s = s + _mask_bias(qpos, kpos, window=window)[None, None, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -102,23 +108,24 @@ def _q_blocks(Sq, Sk, q_block, kv_block, device):
                -(-hi // kv_block) * kv_block)
 
 
-def _flash_fwd(q, k, v, window, scale, q_block, kv_block):
+def _flash_fwd(q, k, v, window, softcap, scale, q_block, kv_block):
     """Grouped q (B,Sq,K,G,D) -> (out in q.dtype, logsumexp L (B,K,G,Sq))."""
     os_, Ls = [], []
     for sl, qpos, n in _q_blocks(q.shape[1], k.shape[1], q_block, kv_block,
                                  q.device):
         o, m, l = _flash_fwd_block(q[:, sl], k[:, :n], v[:, :n], qpos=qpos,
                                    scale=scale, kv_block=kv_block,
-                                   window=window)
+                                   window=window, softcap=softcap)
         os_.append(o)
         Ls.append(m + torch.log(torch.clamp_min(l, 1e-30)))
     return torch.cat(os_, dim=1).to(q.dtype), torch.cat(Ls, dim=3)
 
 
 def _flash_bwd_block(q_blk, k, v, o_blk, L_blk, do_blk, *, qpos, scale,
-                     kv_block, window):
+                     kv_block, window, softcap=0.0):
     """Backward for one query block: (dq_blk, dk, dv), f32, dk/dv over the
-    block's visible kv length."""
+    block's visible kv length.  Under a softcap the logits are
+    t * cap with t = tanh(raw / cap), and ds takes the factor 1 - t t."""
     B, Sq, K, G, D = q_blk.shape
     Sk = k.shape[1]
     dev = q_blk.device
@@ -132,11 +139,17 @@ def _flash_bwd_block(q_blk, k, v, o_blk, L_blk, do_blk, *, qpos, scale,
         kpos = ikv * kv_block + torch.arange(kv_block, device=dev)
         ks, vs = k[:, sl].float(), v[:, sl].float()
         s = _qk(q_blk, k[:, sl], scale)
+        if softcap:
+            t = torch.tanh(s / torch.full((), softcap, device=dev))
+            s = t * softcap
         bias = _mask_bias(qpos, kpos, window=window)[None, None, None]
         p = torch.exp(s + bias - L_blk[..., None])          # (B,K,G,Sq,Sk)
         dp = torch.einsum("bqkgd,bskd->bkgqs", do_f, vs)
         dv[:, sl] += torch.einsum("bkgqs,bqkgd->bskd", p, do_f)
-        ds = p * (dp - Drow[..., None]) * scale
+        ds = p * (dp - Drow[..., None])
+        if softcap:
+            ds = ds * (1.0 - t * t)
+        ds = ds * scale
         dq += torch.einsum("bkgqs,bskd->bqkgd", ds, ks)
         dk[:, sl] += torch.einsum("bkgqs,bqkgd->bskd", ds, q_blk.float())
     return dq, dk, dv
@@ -148,16 +161,17 @@ class _Flash(torch.autograd.Function):
     query block and kv block (nothing quadratic is saved)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, scale, q_block, kv_block):
-        out, L = _flash_fwd(q, k, v, window, scale, q_block, kv_block)
+    def forward(ctx, q, k, v, window, softcap, scale, q_block, kv_block):
+        out, L = _flash_fwd(q, k, v, window, softcap, scale, q_block,
+                            kv_block)
         ctx.save_for_backward(q, k, v, out, L)
-        ctx.cfg = (window, scale, q_block, kv_block)
+        ctx.cfg = (window, softcap, scale, q_block, kv_block)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, L = ctx.saved_tensors
-        window, scale, q_block, kv_block = ctx.cfg
+        window, softcap, scale, q_block, kv_block = ctx.cfg
         dqs = []
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
@@ -166,19 +180,20 @@ class _Flash(torch.autograd.Function):
             dq_blk, dk_p, dv_p = _flash_bwd_block(
                 q[:, sl], k[:, :n], v[:, :n], out[:, sl], L[..., sl],
                 do[:, sl], qpos=qpos, scale=scale, kv_block=kv_block,
-                window=window)
+                window=window, softcap=softcap)
             dqs.append(dq_blk)
             dk[:, :n] += dk_p
             dv[:, :n] += dv_p
         return (torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None, None, None, None)
+                dv.to(v.dtype), None, None, None, None, None)
 
 
-def flash_attention(q, k, v, *, window=0, scale=None, q_block=None,
-                    kv_block=None):
-    """Causal attention, over the last ``window`` positions when window > 0.
-    q: (B,Sq,H,D) or (B,Sq,K,G,D); k,v: (B,Sk,K,D).  Returns (B,Sq,H,Dv)
-    (or grouped) in q.dtype."""
+def flash_attention(q, k, v, *, window=0, attn_softcap=0.0, scale=None,
+                    q_block=None, kv_block=None):
+    """Causal attention, over the last ``window`` positions when window > 0,
+    logits softcapped at ``attn_softcap`` when set.  q: (B,Sq,H,D) or
+    (B,Sq,K,G,D); k,v: (B,Sk,K,D).  Returns (B,Sq,H,Dv) (or grouped) in
+    q.dtype."""
     squeeze = q.dim() == 4
     if squeeze:
         B, Sq, H, D = q.shape
@@ -192,15 +207,33 @@ def flash_attention(q, k, v, *, window=0, scale=None, q_block=None,
         raise ValueError((Sq, q_block, Sk, kv_block))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out = _Flash.apply(q, k, v, window, scale, q_block, kv_block)
+        out = _Flash.apply(q, k, v, window, attn_softcap, scale, q_block,
+                           kv_block)
     else:
         out = torch.cat([
             _flash_fwd_block(q[:, sl], k[:, :n], v[:, :n], qpos=qpos,
-                             scale=scale, kv_block=kv_block,
-                             window=window)[0]
+                             scale=scale, kv_block=kv_block, window=window,
+                             softcap=attn_softcap)[0]
             for sl, qpos, n in _q_blocks(Sq, Sk, q_block, kv_block,
                                          q.device)], dim=1).to(q.dtype)
     return out.reshape(B, Sq, K * G, v.shape[-1]) if squeeze else out
+
+
+def reference_attention(q, k, v, *, window=0, attn_softcap=0.0, scale=None):
+    """The reference's materialised-logits oracle (``attention.py:216``):
+    the causal (and windowed) softmax over all f32 logits at once,
+    softcapped where set, the probabilities rounded to v's dtype before
+    PV.  q (B,Sq,H,D), k/v (B,Sk,K,D) -> (B,Sq,H,Dv) in v's dtype."""
+    B, Sq, H, D = q.shape
+    K, Sk = k.shape[2], k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    s = _qk(q.reshape(B, Sq, K, H // K, D), k, scale, attn_softcap)
+    qpos = (Sk - Sq) + torch.arange(Sq, device=q.device)
+    s = s + _mask_bias(qpos, torch.arange(Sk, device=q.device),
+                       window=window)[None, None, None]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, H, v.shape[-1]).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +241,27 @@ def flash_attention(q, k, v, *, window=0, scale=None, q_block=None,
 # ---------------------------------------------------------------------------
 
 def attn_init(b: Builder, *, d_model: int, num_heads: int, num_kv: int,
-              head_dim: int) -> PyTree:
+              head_dim: int, qk_norm: bool = False) -> PyTree:
     h, kv = num_heads * head_dim, num_kv * head_dim
-    return {
+    p = {
         "wq": cm.dense_init(b, d_model, h, ("embed", "qkv")),
         "wk": cm.dense_init(b, d_model, kv, ("embed", "qkv")),
         "wv": cm.dense_init(b, d_model, kv, ("embed", "qkv")),
         "wo": cm.dense_init(b, h, d_model, ("qkv", "embed")),
     }
+    if qk_norm:    # gemma3: per-head RMSNorm of q and k, scales over D
+        p["q_norm"] = {"scale": b.param((head_dim,), (None,), init="zeros")}
+        p["k_norm"] = {"scale": b.param((head_dim,), (None,), init="zeros")}
+    return p
+
+
+def _qk_normed(p: PyTree, q: torch.Tensor, k: torch.Tensor):
+    """q and k through their RMSNorms (over the head dim), when the layer
+    has them (``qk_norm``); before rope, as the reference."""
+    if "q_norm" in p:
+        q = cm.rmsnorm(p["q_norm"], q)
+        k = cm.rmsnorm(p["k_norm"], k)
+    return q, k
 
 
 def make_kv_cache(batch: int, capacity: int, num_kv: int, head_dim: int, *,
@@ -229,8 +275,8 @@ def make_kv_cache(batch: int, capacity: int, num_kv: int, head_dim: int, *,
 def attn_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
                     num_heads: int, num_kv: int, head_dim: int,
                     rope_theta: float = 1e4, use_rope: bool = True,
-                    window: int = 0, scale: float | None = None,
-                    cache_capacity: int = 0,
+                    window: int = 0, attn_softcap: float = 0.0,
+                    scale: float | None = None, cache_capacity: int = 0,
                     ) -> tuple[torch.Tensor, PyTree | None]:
     """Prefill path. Returns (y, kv_cache or None); a windowed layer's
     cache ring holds min(cache_capacity, window) slots."""
@@ -238,10 +284,12 @@ def attn_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
     q = cm.dense(p["wq"], x).reshape(B, S, num_heads, head_dim)
     k = cm.dense(p["wk"], x).reshape(B, S, num_kv, head_dim)
     v = cm.dense(p["wv"], x).reshape(B, S, num_kv, head_dim)
+    q, k = _qk_normed(p, q, k)
     if use_rope:
         q = cm.rope(q, positions, theta=rope_theta)
         k = cm.rope(k, positions, theta=rope_theta)
-    o = flash_attention(q, k, v, window=window, scale=scale)
+    o = flash_attention(q, k, v, window=window, attn_softcap=attn_softcap,
+                        scale=scale)
     y = cm.dense(p["wo"], o.reshape(B, S, num_heads * head_dim))
     cache = None
     if cache_capacity:
@@ -280,8 +328,8 @@ def ring_positions(t: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.where(p >= 0, p, tt + 1 + capacity)
 
 
-def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0,
-                  kv_shards=None):
+def decode_attend(q, cache_k, cache_v, kpos, t, *, attn_softcap=0.0,
+                  scale=None, window=0, kv_shards=None):
     """One-token attention against a cache.
 
     q: (B, H, D); cache_k/v: (B, C, K, D); kpos: position of each slot,
@@ -289,7 +337,8 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0,
     kpos <= t, and t - kpos < window when window > 0.  ``kv_shards``: None
     (replicated, plain torch), 1 (``flash_decode``) or S >= 2 dividing C
     (S capacity shards, ``flash_decode_partial`` + combine); see the
-    module docstring.
+    module docstring.  Softcapped logits (``attn_softcap``) take the
+    replicated path at any ``kv_shards``, as in the reference.
     """
     B, H, D = q.shape
     K = cache_k.shape[2]
@@ -301,7 +350,7 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0,
     ok = kb <= tb
     if window:
         ok &= tb - kb < window
-    if kv_shards is not None:
+    if kv_shards is not None and not attn_softcap:
         ksh.check_kv_shards(kv_shards, (cache_k.shape[1],))
         ok = ok.expand(B, cache_k.shape[1])
         if kv_shards == 1:
@@ -312,6 +361,7 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, scale=None, window=0,
                                           shards=kv_shards, scale=scale)
         return o.reshape(B, H, cache_v.shape[-1]).to(q.dtype)
     s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache_k.float()) * scale
+    s = cm.softcap(s, attn_softcap)
     s = torch.where(ok[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -325,7 +375,8 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
                       t: torch.Tensor, *, num_heads: int, num_kv: int,
                       head_dim: int, rope_theta: float = 1e4,
                       use_rope: bool = True, window: int = 0,
-                      scale: float | None = None, kv_shards: int | None = None,
+                      attn_softcap: float = 0.0, scale: float | None = None,
+                      kv_shards: int | None = None,
                       ) -> tuple[torch.Tensor, PyTree]:
     """Decode one token per row.  x: (B, 1, d); t: (B,) per-row positions.
 
@@ -341,6 +392,7 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
     q = cm.dense(p["wq"], x).reshape(B, 1, num_heads, head_dim)
     k = cm.dense(p["wk"], x).reshape(B, 1, num_kv, head_dim)
     v = cm.dense(p["wv"], x).reshape(B, 1, num_kv, head_dim)
+    q, k = _qk_normed(p, q, k)
     if use_rope:
         q = cm.rope(q, t[:, None], theta=rope_theta)
         k = cm.rope(k, t[:, None], theta=rope_theta)
@@ -349,8 +401,9 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
     cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     kpos = ring_positions(t, C)
-    o = decode_attend(q[:, 0], cache["k"], cache["v"], kpos, t, scale=scale,
-                      window=window, kv_shards=kv_shards)
+    o = decode_attend(q[:, 0], cache["k"], cache["v"], kpos, t,
+                      attn_softcap=attn_softcap, scale=scale, window=window,
+                      kv_shards=kv_shards)
     y = cm.dense(p["wo"], o.reshape(B, 1, num_heads * head_dim))
     return y, cache
 
@@ -358,7 +411,8 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
 def attn_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
                       t: torch.Tensor, *, num_heads: int, num_kv: int,
                       head_dim: int, rope_theta: float = 1e4,
-                      use_rope: bool = True, scale: float | None = None,
+                      use_rope: bool = True, attn_softcap: float = 0.0,
+                      scale: float | None = None,
                       ) -> tuple[torch.Tensor, PyTree]:
     """Teacher-forced S-token decode in one pass (speculative verify).
 
@@ -376,6 +430,7 @@ def attn_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
     q = cm.dense(p["wq"], x).reshape(B, S, num_heads, head_dim)
     k = cm.dense(p["wk"], x).reshape(B, S, num_kv, head_dim)
     v = cm.dense(p["wv"], x).reshape(B, S, num_kv, head_dim)
+    q, k = _qk_normed(p, q, k)
     pos = t.to(torch.int32)[:, None] + torch.arange(
         S, dtype=torch.int32, device=x.device)                  # (B, S)
     if use_rope:
@@ -390,6 +445,7 @@ def attn_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
     qg = q.reshape(B, S, K, G, head_dim)
     s = torch.einsum("bqkgd,bckd->bkgqc", qg.float(),
                      cache["k"].float()) * scale
+    s = cm.softcap(s, attn_softcap)
     kpos = ring_positions(pos[:, -1], C)                         # (B, C)
     ok = kpos[:, None, :] <= pos[:, :, None]                     # (B, S, C)
     s = torch.where(ok[:, None, None], s, NEG_INF)

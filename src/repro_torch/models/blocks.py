@@ -1,8 +1,10 @@
 """Per-layer-kind blocks.  Port of ``repro.models.blocks`` for the
 transformer kinds: ``attn`` (pre-norm attention + gated MLP, the llama
 block), ``local`` (the same over a sliding window), ``moe`` and
-``moe_local`` (attention, global or windowed, + the MoE FFN); every other
-kind raises until its family is ported.
+``moe_local`` (attention, global or windowed, + the MoE FFN), with gemma's
+sandwich norms (``post_ln1`` / ``post_ln2`` on the attention and FFN
+outputs) where the config sets ``sandwich_norm``; every other kind raises
+until its family is ported.
 
 Every block kind exposes:
   block_init(kind, b, cfg)                          -> params
@@ -71,6 +73,18 @@ def _residual_norm(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     return s.to(x.dtype), _norm(cfg, p, s).to(x.dtype)
 
 
+def _post_norm(cfg: ModelConfig, p: PyTree, name: str,
+               a: torch.Tensor) -> torch.Tensor:
+    """A sandwich norm of a block output (``post_ln1`` after attention,
+    ``post_ln2`` after the FFN) where the config has them, rounded to a's
+    dtype: the compiled reference keeps this rounding (unlike the sum
+    after it, see :func:`_residual_norm`; an unrounded norm output puts
+    many outputs of the layer an ulp off the reference's)."""
+    if not cfg.sandwich_norm:
+        return a
+    return _norm(cfg, p[name], a)
+
+
 def _attn_kwargs(cfg: ModelConfig, *, local: bool) -> dict:
     theta = cfg.rope_theta
     if local and cfg.local_rope_theta:
@@ -79,6 +93,7 @@ def _attn_kwargs(cfg: ModelConfig, *, local: bool) -> dict:
                 head_dim=cfg.head_dim, rope_theta=theta,
                 use_rope=cfg.use_rope,
                 window=cfg.sliding_window if local else 0,
+                attn_softcap=cfg.attn_softcap,
                 scale=cfg.attn_scale or None)
 
 
@@ -89,7 +104,7 @@ def block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
         "attn": attn.attn_init(b, d_model=cfg.d_model,
                                num_heads=cfg.num_heads,
                                num_kv=cfg.num_kv_heads,
-                               head_dim=cfg.head_dim),
+                               head_dim=cfg.head_dim, qk_norm=cfg.qk_norm),
         "ln2": _norm_init(b, cfg),
     }
     if kind in ("moe", "moe_local"):
@@ -100,6 +115,9 @@ def block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
             expert_sharded=cfg.num_experts % 16 == 0)
     else:
         p["mlp"] = mlp_init(b, cfg.d_model, cfg.d_ff)
+    if cfg.sandwich_norm:
+        p["post_ln1"] = _norm_init(b, cfg)
+        p["post_ln2"] = _norm_init(b, cfg)
     return p
 
 
@@ -111,6 +129,17 @@ def _ffn_apply(cfg: ModelConfig, p: PyTree, x: torch.Tensor):
     return mlp_apply(p["mlp"], x, act=cfg.act), None
 
 
+def _block_tail(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+                a: torch.Tensor):
+    """Everything after the attention output ``a``: the residual add into
+    the second norm, the FFN, its residual add; the sandwich norms around
+    both where the config has them.  Returns (x, aux)."""
+    h, n = _residual_norm(cfg, p["ln2"], x, _post_norm(cfg, p, "post_ln1",
+                                                        a))
+    f, aux = _ffn_apply(cfg, p, n)
+    return h + _post_norm(cfg, p, "post_ln2", f), aux
+
+
 def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
                      x: torch.Tensor, ctx: Ctx):
     _check_kind(kind)
@@ -118,9 +147,8 @@ def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
         p["attn"], _norm(cfg, p["ln1"], x), positions=ctx.positions,
         cache_capacity=ctx.cache_capacity,
         **_attn_kwargs(cfg, local=kind in _LOCAL))
-    h, n = _residual_norm(cfg, p["ln2"], x, a)
-    f, aux = _ffn_apply(cfg, p, n)
-    return h + f, aux, cache
+    x, aux = _block_tail(cfg, p, x, a)
+    return x, aux, cache
 
 
 def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int:
@@ -145,9 +173,8 @@ def block_apply_decode(kind: str, cfg: ModelConfig, p: PyTree,
     a, cache = attn.attn_apply_decode(
         p["attn"], _norm(cfg, p["ln1"], x), cache, t, kv_shards=kv_shards,
         **_attn_kwargs(cfg, local=kind in _LOCAL))
-    h, n = _residual_norm(cfg, p["ln2"], x, a)
-    f, _ = _ffn_apply(cfg, p, n)
-    return h + f, cache
+    x, _ = _block_tail(cfg, p, x, a)
+    return x, cache
 
 
 # kinds with a parallel verify path: full-capacity attention rings
@@ -171,6 +198,5 @@ def block_apply_verify(kind: str, cfg: ModelConfig, p: PyTree,
     del kw["window"]
     a, cache = attn.attn_apply_verify(p["attn"], _norm(cfg, p["ln1"], x),
                                       cache, t, **kw)
-    h, n = _residual_norm(cfg, p["ln2"], x, a)
-    f, _ = _ffn_apply(cfg, p, n)
-    return h + f, cache
+    x, _ = _block_tail(cfg, p, x, a)
+    return x, cache

@@ -12,6 +12,7 @@ Compute runs in bf16 over f32 parameters, as in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -149,6 +150,48 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * _logistic(x)
 
 
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """A Python float rounded to ``dtype``, as JAX rounds a weakly typed
+    scalar to its operand's dtype.  Multiplying a tensor by it rounds the
+    exact product once, as the reference's op does, and copies nothing to
+    the device (a CUDA graph may capture it)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` as the compiled reference
+    computes it: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))``
+    with c = sqrt(2/pi), each constant and each op rounded to x.dtype
+    (``F.gelu(approximate="tanh")`` rounds once, and differs in ~2% of
+    bf16 inputs).  On every bf16 input of magnitude >= 1e-30 this gives
+    XLA's CPU bits (below that XLA flushes denormals).  Under autograd the
+    gradient is autograd's through the same ops."""
+    c, a = (_rounded(v, x.dtype) for v in (math.sqrt(2 / math.pi), 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
+def act(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The FFN activation of a config's ``act``: silu or gelu."""
+    if name == "silu":
+        return silu(x)
+    if name == "gelu":
+        return gelu(x)
+    raise NotImplementedError(f"activation {name!r} is not ported yet")
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``tanh(x / cap) * cap`` (the reference's ``common.softcap``; a cap
+    of 0 is the identity).  The divisor is a tensor on x's device (filled
+    there, so a CUDA graph may capture it): a CUDA tensor divided by a
+    Python float is multiplied by its reciprocal instead.  torch's f32
+    ``tanh`` and XLA's CPU one (its own rational approximation) differ in
+    the last places: within 5 f32 ulps."""
+    if not cap:
+        return x
+    c = torch.full((), cap, dtype=x.dtype, device=x.device)
+    return torch.tanh(x / c) * _rounded(cap, x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -192,6 +235,12 @@ def embed_init(b: Builder, vocab: int, dim: int) -> PyTree:
 
 def embed_lookup(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"].to(COMPUTE_DTYPE)[tokens]
+
+
+def scale_embed(x: torch.Tensor, d_model: int) -> torch.Tensor:
+    """gemma's ``x * sqrt(d_model)`` on the bf16 embeddings: JAX rounds
+    the weakly typed scalar to x's dtype first, then the product."""
+    return x * _rounded(math.sqrt(d_model), x.dtype)
 
 
 def unembed(params: PyTree, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Feed-forward block: the gated SiLU MLP of llama.  Port of
-``repro.models.mlp`` (the GeLU and ungated variants come with their
-families)."""
+"""Feed-forward block: the gated MLP of llama (silu) and gemma (gelu).
+Port of ``repro.models.mlp`` (the ungated variant comes with its
+family)."""
 from __future__ import annotations
 
 from typing import Any
@@ -25,17 +25,16 @@ def mlp_init(b: Builder, d_model: int, d_ff: int) -> PyTree:
 
 def mlp_apply(p: PyTree, x: torch.Tensor, *, act: str = "silu"
               ) -> torch.Tensor:
-    """Gated MLP: down(act(gate(x)) * up(x)).  A compressed up/gate pair
-    runs as two kernel launches over the same x (``sparse_dense2``)."""
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r} is not ported yet")
+    """Gated MLP: down(act(gate(x)) * up(x)), act silu or gelu
+    (``common.act``).  A compressed up/gate pair runs as two kernel
+    launches over the same x (``sparse_dense2``)."""
     if _both_sparse(p["up"], p["gate"]):
         from repro_torch.sparse.apply import sparse_dense2
         h, g = sparse_dense2(p["up"]["kernel"], p["gate"]["kernel"], x)
     else:
         h = cm.dense(p["up"], x)
         g = cm.dense(p["gate"], x)
-    a = cm.silu(g)
+    a = cm.act(g, act)
     tape_x = None
     if isinstance(_tape.current_tape(), _tape.JitTape):
         # the jitted reference's stats pass fuses this product into the

@@ -7,8 +7,10 @@ the reference; per-layer parameters are stacked on a leading "layers" axis
 the layers slices ``[l]`` where the reference runs ``lax.scan``.
 
 Ported: the decoder families built from the ``attn``, ``local``, ``moe``
-and ``moe_local`` kinds (llama, mixtral), tied or untied embeddings;
-:func:`check_supported` names what is missing for any other config.
+and ``moe_local`` kinds (llama, mixtral, yi, gemma2, gemma3), tied or
+untied embeddings, gemma's scaled embeddings, attention and final logit
+softcaps, sandwich norms, QK-norm and gelu; :func:`check_supported` names
+what is missing for any other config.
 """
 from __future__ import annotations
 
@@ -35,12 +37,9 @@ def check_supported(cfg: ModelConfig) -> None:
         (f"layer kinds other than {', '.join(blk.KINDS)}",
          set(cfg.layer_kinds) - set(blk.KINDS)),
         ("shared experts", cfg.num_shared_experts),
-        ("attn_softcap", cfg.attn_softcap),
-        ("final_softcap", cfg.final_softcap),
-        ("qk_norm", cfg.qk_norm),
-        ("sandwich_norm", cfg.sandwich_norm),
-        ("scale_embed", cfg.scale_embed),
         ("norm other than rmsnorm", cfg.norm != "rmsnorm"),
+        ("activation other than silu or gelu",
+         cfg.act not in ("silu", "gelu")),
         ("encoder-decoder", cfg.is_encoder_decoder),
         ("vision input", cfg.vit_dim),
     ) if on]
@@ -147,6 +146,14 @@ def _tokens(params: PyTree, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).long()
 
 
+def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """The bf16 embeddings of ``tokens``, times sqrt(d_model) where the
+    config scales them (gemma)."""
+    x = cm.embed_lookup(params["embed"], tokens)
+    return cm.scale_embed(x, cfg.d_model) if cfg.scale_embed else x
+
+
 def _layer_apply(cfg: ModelConfig, pattern, lp: PyTree, x: torch.Tensor,
                  ctx: Ctx):
     """One layer of a stage: its blocks in order.  Returns (x, the layer's
@@ -177,7 +184,7 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
         if tape is not None:      # unstacked leaves
             tape.register_layer(params, "", -1)
     tokens = _tokens(params, tokens)
-    x = cm.embed_lookup(params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
     ctx = Ctx(positions=pos, cache_capacity=cache_capacity)
@@ -202,10 +209,13 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
 
 
 def _unembed(cfg: ModelConfig, params: PyTree, x: torch.Tensor):
-    """Logits (f32): the tied table, or the ``lm_head`` dense kernel."""
+    """Logits (f32): the tied table, or the ``lm_head`` dense kernel, then
+    the final softcap where the config has one (gemma2)."""
     if cfg.tie_embeddings:
-        return cm.unembed(params["embed"], x)
-    return cm.dense(params["lm_head"], x).float()
+        logits = cm.unembed(params["embed"], x)
+    else:
+        logits = cm.dense(params["lm_head"], x).float()
+    return cm.softcap(logits, cfg.final_softcap)
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: dict, *,
@@ -237,7 +247,7 @@ def stats_sumsq(cfg: ModelConfig, params: PyTree, batch: dict) -> PyTree:
     """
     from repro_torch.core import tape as tape_mod
     tokens = _tokens(params, batch["tokens"])
-    x = cm.embed_lookup(params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S))
     by_path: dict[str, torch.Tensor] = {}
@@ -291,7 +301,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
     attention path of every layer (``attention.decode_attend``): None
     replicated, 1 ``flash_decode``, S >= 2 S capacity shards."""
     token = _tokens(params, token)
-    x = cm.embed_lookup(params["embed"], token[:, None])
+    x = _embed(cfg, params, token[:, None])
     B = x.shape[0]
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     if t.dim() == 0:
@@ -320,7 +330,7 @@ def verify_step(cfg: ModelConfig, params: PyTree, tokens, caches: list, t):
     ``caches`` in place; the caller guarantees max(t) + S <= capacity (no
     ring wrap).  Returns (logits (B, S, V) f32, caches)."""
     tokens = _tokens(params, tokens)
-    x = cm.embed_lookup(params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     for (pattern, repeats), sp, cache in zip(make_stages(cfg),
                                              params["stages"], caches,

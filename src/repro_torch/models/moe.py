@@ -92,8 +92,6 @@ def moe_apply(p: PyTree, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu"
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y, aux load-balance loss).  x: (..., d)."""
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r} is not ported yet")
     orig_shape = x.shape
     d = x.shape[-1]
     T = x.numel() // d
@@ -129,7 +127,7 @@ def moe_apply(p: PyTree, x: torch.Tensor, *, top_k: int,
                  ref_count=T)
 
     h, g = cm.expert_dense_pair(p["up"], p["gate"], buf)
-    h = h * cm.silu(g)
+    h = h * cm.act(g, act)
     if t is not None:
         t.record(p["down"]["kernel"], h.transpose(0, 1), count=routed,
                  ref_count=T)

@@ -1,6 +1,8 @@
 """Helpers shared by the tests/test_torch_*.py files: carry arrays between
 the JAX reference and the repro_torch port and compare trees leaf by leaf
 by key path."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -8,6 +10,7 @@ import torch
 
 from repro.sparse.formats import SparseTensor as JaxSparseTensor
 from repro_torch import tree
+from repro_torch.configs.tiny import FAMILIES
 from repro_torch.convert import params_from_numpy
 from repro_torch.sparse.formats import SparseTensor
 
@@ -166,16 +169,9 @@ def assert_calibration_matches(jbank, tbank):
                                        err_msg=k)
 
 
-# the tiny families of benchmarks/common.py, field for field
-TINY = {
-    "llama-tiny": dict(name="llama-tiny", family="dense", d_model=128,
-                       num_layers=4, num_heads=4, num_kv_heads=2,
-                       head_dim=32, d_ff=384, vocab_size=512),
-    "moe-tiny": dict(name="moe-tiny", family="moe", d_model=128,
-                     num_layers=4, num_heads=4, num_kv_heads=2, head_dim=32,
-                     d_ff=256, moe_d_ff=256, vocab_size=512,
-                     pattern=("moe",), num_experts=4, top_k=2),
-}
+# the tiny families of benchmarks/common.py (repro_torch.configs.tiny),
+# as keyword arguments for either package's ModelConfig
+TINY = {name: dataclasses.asdict(cfg) for name, cfg in FAMILIES.items()}
 
 
 def tiny_model(name: str):

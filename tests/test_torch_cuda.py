@@ -366,7 +366,15 @@ _DECODE_CASES = [(4, 8, 4, 64, 256, 1), (4, 8, 4, 64, 256, 4),
                  (4, 8, 4, 64, 8192, 4), (4, 8, 4, 64, 8192, 16),
                  (4, 8, 6, 128, 4096, 1), (4, 8, 6, 128, 4096, 4),
                  (3, 2, 2, 32, 148, 1), (3, 4, 6, 32, 74, 1),
-                 (3, 2, 2, 32, 148, 4), (3, 4, 6, 32, 74, 2)]
+                 (3, 2, 2, 32, 148, 4), (3, 4, 6, 32, 74, 2),
+                 # gemma3-1b (one kv head of 4 x 256: at D 256 f32 keeps
+                 # one ring stage a warp) at its window and a long cache,
+                 # yi-6b (4 kv heads of 8 x 128, every row of the tile),
+                 # and both widths at a ragged C
+                 (4, 1, 4, 256, 512, 1), (4, 1, 4, 256, 512, 4),
+                 (4, 1, 4, 256, 8192, 1), (4, 4, 8, 128, 256, 1),
+                 (4, 4, 8, 128, 256, 4), (4, 4, 8, 128, 8192, 4),
+                 (3, 2, 8, 256, 148, 1), (3, 2, 8, 256, 148, 4)]
 
 
 @pytest.mark.cuda
@@ -420,7 +428,9 @@ def test_flash_decode_kernels_match_plain(cuda_device, case, dtype):
 _SPLIT_CASES = [(4, 8, 4, 64, 256, 1, [1, 40, 256, 33]),
                 (4, 8, 4, 64, 256, 2, [1, 100, 256, 129]),
                 (4, 8, 6, 128, 1024, 1, [1, 129, 1024, 700]),
-                (3, 2, 2, 32, 148, 1, [1, 74, 148])]
+                (3, 2, 2, 32, 148, 1, [1, 74, 148]),
+                (4, 1, 4, 256, 512, 1, [1, 40, 512, 65]),
+                (4, 4, 8, 128, 256, 2, [1, 100, 256, 129])]
 
 
 @pytest.mark.cuda
@@ -460,6 +470,14 @@ def test_flash_decode_kernels_refuse_what_they_do_not_take(cuda_device):
     q, k, v, bias = _decode_operands(0, 2, 2, 3, 32, 16, torch.bfloat16,
                                      cuda_device, [3, 9])
     with pytest.raises(ValueError, match="G in"):           # G = 3
+        flash_decode(q, k, v, bias)
+    q, k, v, bias = _decode_operands(0, 2, 1, 16, 32, 16, torch.bfloat16,
+                                     cuda_device, [3, 9])
+    with pytest.raises(ValueError, match="G in"):           # G = 16
+        flash_decode(q, k, v, bias)
+    q, k, v, bias = _decode_operands(0, 2, 1, 4, 512, 16, torch.bfloat16,
+                                     cuda_device, [3, 9])
+    with pytest.raises(ValueError, match="D in"):           # D = 512
         flash_decode(q, k, v, bias)
     q, k, v, bias = _decode_operands(0, 2, 2, 2, 32, 16, torch.float16,
                                      cuda_device, [3, 9])
@@ -595,6 +613,36 @@ def test_graph_engine_streams_equal_eager(cuda_device, weights, kv_shards):
     res = eng.run()
     assert [res[r] for r in rids] == want
     assert eng.fns.capture_counts() == {"decode": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_shards", [None, 1, 4])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "gemma2-2b", "yi-6b"])
+def test_gemma_and_yi_graph_engines_equal_eager(cuda_device, arch,
+                                                kv_shards):
+    """The smoke gemma3 (QK-norm, a 16-slot window, G 4), gemma2 (softcaps:
+    decode attention stays on the plain path at every kv_shards) and yi
+    (global attention) engines: replayed == eager, and the decode
+    attention kernels launched exactly where the path takes them."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_partial)
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    cfg = get_smoke_config(arch)
+    params = M.serving_params(M.init_params(cfg, 0, device=cuda_device))
+    prompts = _engine_prompts(cfg)
+    before = flash_decode.launches + flash_decode_partial.launches
+    with E.eager():
+        eng, want = _serve(cfg, params, cuda_device, prompts,
+                           kv_shards=kv_shards)
+    launched = flash_decode.launches + flash_decode_partial.launches - before
+    if kv_shards is None or cfg.attn_softcap:
+        assert launched == 0
+    else:
+        assert launched == cfg.num_layers * eng.decode_steps
+    _, got = _serve(cfg, params, cuda_device, prompts, kv_shards=kv_shards)
+    assert got == want
 
 
 @pytest.mark.cuda

@@ -24,7 +24,8 @@ Tolerances:
   * bf16 outputs: one bf16 ulp of the element plus 2e-5 (the f32 values
     differ as above, and may round to neighbouring bf16 values);
   * an all-masked shard: m == -1e30 and l == its slot count exactly;
-  * logits: 4 bf16 ulps of the largest logit (tests/test_torch_model.py);
+  * logits: 4 bf16 ulps of the largest logit (tests/test_torch_model.py),
+    for gemma3-1b and yi-6b (tests/test_torch_gemma.py) too;
   * greedy token streams exactly.
 """
 import pathlib
@@ -108,9 +109,11 @@ def _both(arrs, dtype):
 
 
 # (B, K, G, D, C): tests/test_kernels.py:163's dims, llama3.2-1b's heads
-# (8 kv x 4 of 64) and mixtral-8x22b's (8 kv x 6 of 128) at a small C
+# (8 kv x 4 of 64), mixtral-8x22b's (8 kv x 6 of 128), gemma3-1b's (1 kv x
+# 4 of 256) and yi-6b's (4 kv x 8 of 128) at a small C
 DIMS = [(2, 2, 4, 32, 128), (1, 1, 8, 64, 256), (2, 4, 1, 32, 64),
-        (2, 8, 4, 64, 64), (2, 8, 6, 128, 32)]
+        (2, 8, 4, 64, 64), (2, 8, 6, 128, 32), (4, 1, 4, 256, 64),
+        (4, 4, 8, 128, 64)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -156,6 +159,36 @@ def test_flash_decode_partial_plain_matches_jax_per_shard(shards, dtype):
         np.testing.assert_array_equal(m[s].numpy()[dead], np.float32(NEG))
         np.testing.assert_array_equal(l[s].numpy()[dead], np.float32(n))
     assert masked == shards - 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(4, 1, 4, 256, 64), (4, 4, 8, 128, 64)],
+                         ids=["gemma3 heads", "yi heads"])
+def test_wide_shapes_partial_and_combine_match_jax(dims, dtype):
+    """gemma3-1b's (G 4, D 256) and yi-6b's (G 8, D 128) through 4
+    capacity shards: each shard's state against the reference kernel on
+    its slice, the combine against the pmax / psum expression and the
+    oracle; row 0 sees only the first 9 slots (shards 1..3 all-masked)."""
+    B, K, G, D, C = dims
+    S, n = 4, C // 4
+    arrs = _operands(D + G, B, K, G, D, C, dtype, valid=[9, 40, 64, 17])
+    (jq, jk, jv, jb), (tq, tk, tv, tb) = _both(arrs, dtype)
+    acc, m, l = flash_decode_partial(tq, tk, tv, tb, shards=S)
+    parts = []
+    for s in range(S):
+        sl = slice(s * n, (s + 1) * n)
+        parts.append(jax_flash_decode_partial(jq, jk[:, sl], jv[:, sl],
+                                              jb[:, sl], bc=n,
+                                              interpret=True))
+        for got, want in zip((acc[s], m[s], l[s]), parts[-1]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=RTOL, atol=ATOL)
+    assert_out_close(combine_partials(acc, m, l, tq.dtype),
+                     _jax_combine(parts, jq.dtype), dtype)
+    ok = torch.from_numpy(arrs[3] == 0.0)
+    assert_out_close(tshard.decode_attend_sharded(tq, tk, tv, ok, shards=S,
+                                                  scale=D ** -0.5),
+                     jax_flash_decode_ref(jq, jk, jv, jb), dtype)
 
 
 def _jax_combine(parts, dtype):
@@ -260,10 +293,18 @@ def _ulps(want, n=4) -> float:
     return n * 2 ** -8 * float(np.abs(np.asarray(want, np.float32)).max())
 
 
+def _rings(cfg, C) -> list:
+    """The ring length of every block's decode attention in trace order:
+    each stage's pattern once (the reference scans each stage's body)."""
+    from repro_torch.models import blocks as tblk
+    return [tblk.cache_length(k, cfg, C) for pattern, _ in TM.make_stages(cfg)
+            for k in pattern]
+
+
 @pytest.fixture(scope="module")
 def smoke_models():
     out = {}
-    for arch in ("llama3.2-1b", "mixtral-8x22b"):
+    for arch in ("llama3.2-1b", "mixtral-8x22b", "gemma3-1b", "gemma2-2b"):
         jcfg = jax_smoke_config(arch)
         jp = JM.init_params(jcfg, jax.random.key(0))
         out[arch] = (jcfg, get_smoke_config(arch), jp,
@@ -271,14 +312,16 @@ def smoke_models():
     return out
 
 
-@pytest.mark.parametrize("kv_shards", [1, 2, 4])
-@pytest.mark.parametrize("arch,B,P,C", [("llama3.2-1b", 2, 12, 24),
-                                        ("mixtral-8x22b", 2, 20, 48)])
+@pytest.mark.parametrize("arch,B,P,C,kv_shards", [
+    (arch, *shape, S) for arch, *shape in (("llama3.2-1b", 2, 12, 24),
+                                           ("mixtral-8x22b", 2, 20, 48))
+    for S in (1, 2, 4)] + [("gemma3-1b", 2, 20, 48, S) for S in (1, 4)])
 def test_decode_step_kv_shards_match_jax(smoke_models, jax_kv_shards,
                                          port_calls, arch, B, P, C,
                                          kv_shards):
     """Prefill, then 4 teacher-forced decode steps with the rows at
-    different positions; mixtral's windowed ring (16 slots) wraps."""
+    different positions; mixtral's and gemma3's windowed rings (16 slots)
+    wrap, gemma3's global layers keep the whole capacity."""
     jcfg, cfg, jp, tp = smoke_models[arch]
     traced = jax_kv_shards(kv_shards)
     rng = np.random.default_rng(kv_shards)
@@ -297,12 +340,46 @@ def test_decode_step_kv_shards_match_jax(smoke_models, jax_kv_shards,
                                 torch.from_numpy(t), kv_shards=kv_shards)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                    atol=_ulps(jl), err_msg=f"step {i}")
-    # both sides took the sharded path in every layer: JAX traced its
-    # decode step once (the layers are one scanned body), the port ran
-    # every layer of every step
-    ring = min(C, cfg.sliding_window) if cfg.sliding_window else C
-    assert traced == [ring]
+    # both sides took the sharded path in every layer: JAX traced each
+    # stage's decode body once (its layers are one scanned body), the port
+    # ran every layer of every step
+    assert traced == _rings(cfg, C)
     assert port_calls == _want_calls(kv_shards, 4 * cfg.num_layers)
+
+
+@pytest.mark.parametrize("kv_shards", [1, 4])
+def test_softcapped_decode_takes_the_replicated_path(smoke_models,
+                                                     jax_kv_shards,
+                                                     port_calls, kv_shards):
+    """gemma2's attention softcap keeps the reference on its replicated
+    branch at any mesh (attention.py:354): the port's decode at any
+    ``kv_shards`` is its ``kv_shards=None`` path, bit for bit, and no
+    kernel wrapper is called."""
+    jcfg, cfg, jp, tp = smoke_models["gemma2-2b"]
+    traced = jax_kv_shards(kv_shards)
+    rng = np.random.default_rng(kv_shards)
+    toks = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    feed = rng.integers(0, cfg.vocab_size, (3, 2)).astype(np.int32)
+    jl, jc = jax.jit(lambda p, t: JM.prefill(jcfg, p, {"tokens": t},
+                                             cache_capacity=24))(jp, toks)
+    jdec = jax.jit(lambda p, tok, c, t: JM.decode_step(jcfg, p, tok, c, t))
+    runs = {}
+    for S in (None, kv_shards):
+        tl, tc = TM.prefill(cfg, tp, {"tokens": torch.from_numpy(toks)},
+                            cache_capacity=24)
+        runs[S] = []
+        for i in range(3):
+            t = torch.tensor([12 + i, 9 + 2 * i], dtype=torch.int32)
+            tl, tc = TM.decode_step(cfg, tp, torch.from_numpy(feed[i]), tc,
+                                    t, kv_shards=S)
+            runs[S].append(tl)
+    for i in range(3):
+        jl, jc = jdec(jp, jnp.asarray(feed[i]), jc,
+                      jnp.asarray([12 + i, 9 + 2 * i], jnp.int32))
+        assert torch.equal(runs[kv_shards][i], runs[None][i]), i
+        np.testing.assert_allclose(runs[None][i].numpy(), np.asarray(jl),
+                                   rtol=0, atol=_ulps(jl))
+    assert traced == [] and port_calls == {}
 
 
 def _streams(eng, prompts, max_tokens):
@@ -335,6 +412,27 @@ def test_bank_engine_streams_match_jax(jax_kv_shards, port_calls,
     assert _streams(eng, prompts, [m for _, m in reqs]) == want
     assert traced == [64]
     assert port_calls == _want_calls(kv_shards, 4 * eng.decode_steps)
+
+
+def test_gemma3_engine_streams_match_jax(smoke_models, jax_kv_shards,
+                                         port_calls):
+    """The smoke gemma3 (5:1 local:global, a 16-slot window, one kv head
+    of 4 query heads) served at capacity 48 with 4 capacity shards: the
+    local rings and the global ones both through the decode attention
+    kernels' plain versions (``kv_shards=1``: the decode-step test above);
+    the first prompt is longer than the window."""
+    kv_shards = 4
+    jcfg, cfg, jp, tp = smoke_models["gemma3-1b"]
+    traced = jax_kv_shards(kv_shards)
+    prompts = [list(range(3, 21)), [9, 10, 11]]
+    want = _streams(JaxServeEngine(jcfg, jp, slots=2, capacity=48),
+                    prompts, [5, 4])
+    eng = ServeEngine(cfg, tp, slots=2, capacity=48, device="cpu",
+                      kv_shards=kv_shards)
+    assert _streams(eng, prompts, [5, 4]) == want
+    assert traced == _rings(cfg, 48)
+    assert port_calls == _want_calls(kv_shards,
+                                     cfg.num_layers * eng.decode_steps)
 
 
 def test_mixtral_engine_streams_match_jax(jax_kv_shards, port_calls):

@@ -35,7 +35,11 @@ PLAN_SHAPES = [(4, 8, 256, 1), (4, 8, 256, 4), (4, 8, 8192, 1),
                (4, 8, 8192, 4), (4, 8, 8192, 16), (4, 8, 4096, 1),
                (4, 8, 4096, 4), (3, 2, 148, 1), (3, 2, 148, 4),
                (3, 4, 74, 1), (3, 4, 74, 2), (1, 1, 7, 1), (2, 2, 31, 1),
-               (1, 1, 64, 1), (1, 1, 65, 1), (2, 1, 1000, 8)]
+               (1, 1, 64, 1), (1, 1, 65, 1), (2, 1, 1000, 8),
+               # gemma3-1b's one kv head and yi-6b's four (phase 10)
+               (4, 1, 512, 1), (4, 1, 512, 4), (4, 1, 8192, 1),
+               (4, 1, 8192, 4), (4, 4, 256, 1), (4, 4, 256, 4),
+               (4, 4, 8192, 1), (4, 4, 8192, 4)]
 SM_COUNTS = [8, 132]
 
 
@@ -80,6 +84,10 @@ def test_plan_at_the_serving_shapes():
     assert split_bounds(148, 4, 2) == [(0, 18), (18, 37), (37, 55),
                                        (55, 74), (74, 92), (92, 111),
                                        (111, 129), (129, 148)]
+    # gemma3-1b's one kv head: 8 splits at every shape (its 512-slot
+    # window at S 4 in splits of one chunk); yi-6b's four: 4 at S 4
+    assert [plan_splits(*s, 132) for s in PLAN_SHAPES[16:]] == \
+        [8, 8, 8, 8, 8, 4, 8, 4]
 
 
 def _operands(seed, B, K, G, D, C, valid):
