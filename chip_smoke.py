@@ -147,7 +147,25 @@ result line):
 11. bank    - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-12. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+12. deepseek - deepseek-v2-lite-16b whole (27 layers: MLA with kv_lora
+              512, a dense first layer, then 64 routed experts top-6 and
+              2 shared) at its published widths through phase 4's path,
+              its 15.7 B weights made, 2:4-masked and packed a layer
+              slice at a time (the f32 tree would take 62.8 GB): every
+              2-D projection through ``nm_matmul`` (8 a layer at prefill,
+              6 at decode, where the absorbed attention reads w_uk / w_uv
+              dense) and every bank through ``nm_matmul_expert`` at E 64
+              (3 a MoE layer); the decode step at capacity 256 and 8192
+              (``kv_shards`` None: MLA has no decode attention kernel);
+              compressed against masked-dense with the masked-dense MoE
+              calls pinned to the compressed run's experts (every
+              routing it would change counted as a near-tie); verify
+              against sequential decode; then the smoke config's greedy
+              streams and a 5-step wanda 2:4 calibration, card against
+              this host's CPU, and a ``kv_shards`` engine refused.  Phase
+              3 holds both kernels at its shapes (K 10944, N 576, K 512,
+              E 64).
+13. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -160,6 +178,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import shutil
 import statistics
@@ -300,7 +319,18 @@ NM_MATMUL_SHAPES = {
     "mixtral-8x22b": ({"wq": (6144, 6144), "wk": (6144, 1024),
                        "wv": (6144, 1024), "wo": (6144, 6144)},
                       (1, 4, 31, 127)),
+    # an mla_moe layer's projections at decode (the absorbed decode reads
+    # w_uk / w_uv dense); prefill adds w_uk and w_uv, and the dense first
+    # layer its MLP (NM_MATMUL_EXTRA); packed2 only, the layout it serves
+    "deepseek-v2-lite-16b": ({"wq": (2048, 3072), "w_dkv": (2048, 576),
+                              "wo": (2048, 2048), "shared up": (2048, 2816),
+                              "shared gate": (2048, 2816),
+                              "shared down": (2816, 2048)}, (4, 127)),
 }
+NM_MATMUL_EXTRA = {"deepseek-v2-lite-16b": {
+    "w_uk": (512, 2048), "w_uv": (512, 2048), "dense up": (2048, 10944),
+    "dense gate": (2048, 10944), "dense down": (10944, 2048)}}
+PACKED2_ONLY = ("deepseek-v2-lite-16b",)
 # mixtral-8x22b's expert banks, (K, N) per expert, its expert count, and
 # the capacities C (rows per expert) its kernel calls see: 4 at decode
 # (4 slots), 16-40 for prefills of 31-127 tokens
@@ -308,6 +338,10 @@ EXPERT_SHAPES = {"up": (6144, 16384), "gate": (6144, 16384),
                  "down": (16384, 6144)}
 EXPERTS = 8
 EXPERT_MS = (1, 4, 16, 24, 32, 40)
+# deepseek-v2-lite-16b's banks: 64 experts, C 4 at decode (4 slots), 8-16
+# at its prefills of 31-127 tokens (top-6 of 64)
+DEEPSEEK_EXPERTS = (64, {"up": (2048, 1408), "gate": (2048, 1408),
+                         "down": (1408, 2048)}, (4, 16))
 BF16_TOL, F32_TOL = 2e-2, 1e-4     # rtol = atol, kernel against plain
 
 
@@ -332,12 +366,14 @@ def phase_nm_matmul(torch, dev) -> dict:
     max_err, by_path = 0.0, {}
     for path, (shapes, ms_) in NM_MATMUL_SHAPES.items():
         path_rows = []
-        for K, N in sorted(set(shapes.values())):
+        for K, N in sorted(set(shapes.values())
+                           | set(NM_MATMUL_EXTRA.get(path, {}).values())):
             w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
             vals, idx = ref.compress_24(w)
             vals = vals.to(torch.bfloat16)
             dense = ref.decompress_24(vals, idx)
-            for layout in (LAYOUT_PACKED2, LAYOUT_INT8):
+            for layout in ((LAYOUT_PACKED2,) if path in PACKED2_ONLY
+                           else (LAYOUT_PACKED2, LAYOUT_INT8)):
                 plane = _pack_idx2(idx) if layout == LAYOUT_PACKED2 else idx
                 w_bytes = vals.numel() * 2 + plane.numel()
                 copies = max(1, -(-2 * L2_BYTES // w_bytes))
@@ -385,7 +421,9 @@ def phase_nm_matmul(torch, dev) -> dict:
                           f"{b_ms * 1e3:7.2f} us ({b_by})  {b_ms / ms:6.1%}"
                           " of bound")
                 del vs, ps, ds
-        by_path[path] = {**_layer_totals(path_rows, shapes), "by_M": {}}
+        by_path[path] = {**_layer_totals(path_rows, shapes), "by_M": {},
+                         "rows": [r for r in path_rows
+                                  if path in PACKED2_ONLY]}
         for M in ms_:
             tot = by_path[path]["by_M"][M] = _layer_totals(path_rows,
                                                            shapes, M)
@@ -435,9 +473,11 @@ def phase_nm_mask24(torch, dev) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def phase_nm_matmul_expert(torch, dev) -> dict:
-    """E = 8 experts at the capacities of mixtral's main path; both banks,
-    both layouts."""
+def phase_nm_matmul_expert(torch, dev, E=EXPERTS, shapes=EXPERT_SHAPES,
+                           ms_=EXPERT_MS, layouts=None, name="mixtral"
+                           ) -> dict:
+    """E experts at the capacities of a main path (mixtral's E = 8 by
+    default: both banks, both layouts; deepseek's E = 64 packed2)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.nm_spmm import (LAYOUT_INT8, LAYOUT_PACKED2,
                                              nm_matmul_expert,
@@ -445,18 +485,18 @@ def phase_nm_matmul_expert(torch, dev) -> dict:
     from repro_torch.sparse.formats import _pack_idx2
     g = torch.Generator(device=dev)
     g.manual_seed(3)
-    E, rows, max_err = EXPERTS, [], 0.0
-    for K, N in sorted(set(EXPERT_SHAPES.values())):
+    rows, max_err = [], 0.0
+    for K, N in sorted(set(shapes.values())):
         comp = [ref.compress_24(torch.randn((K, N), generator=g, device=dev)
                                 * K ** -0.5) for _ in range(E)]
         vals = torch.stack([v for v, _ in comp]).to(torch.bfloat16)
         idx = torch.stack([i for _, i in comp])
         del comp
         dense = ref.decompress_24(vals, idx)      # masked-dense bank, bf16
-        for layout in (LAYOUT_PACKED2, LAYOUT_INT8):
+        for layout in layouts or (LAYOUT_PACKED2, LAYOUT_INT8):
             plane = _pack_idx2(idx) if layout == LAYOUT_PACKED2 else idx
             w_bytes = vals.numel() * 2 + plane.numel()
-            for M in EXPERT_MS:
+            for M in ms_:
                 x = torch.randn((E, M, K), generator=g, device=dev).to(
                     torch.bfloat16)
                 got = nm_matmul_expert(x, vals, plane, layout=layout)
@@ -500,14 +540,16 @@ def phase_nm_matmul_expert(torch, dev) -> dict:
         del vals, idx, dense, plane
         torch.cuda.empty_cache()
     by_c = {}
-    for M in EXPERT_MS:
-        tot = by_c[M] = _layer_totals(rows, EXPERT_SHAPES, M)
-        print(f"  nm_matmul_expert, one mixtral layer's banks at C={M:2d} "
-              f"(packed2): kernel {tot['ms']:.4f} ms, torch.bmm(dense) "
-              f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
+    for M in ms_:
+        tot = by_c[M] = _layer_totals(rows, shapes, M)
+        print(f"  nm_matmul_expert, one {name} layer's banks at E={E} "
+              f"C={M:2d} (packed2): kernel {tot['ms']:.4f} ms, "
+              f"torch.bmm(dense) {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms, "
               f"{tot['bound_ms'] / tot['ms']:.1%} of bound, "
               f"{tot['ms'] / tot['library_ms']:.2f}x torch.bmm")
-    return {"max_abs_err": max_err, **_layer_totals(rows, EXPERT_SHAPES),
+    return {"max_abs_err": max_err, **_layer_totals(rows, shapes, ms_[0]
+                                                    if 4 not in ms_ else 4),
             "by_C": by_c}
 
 
@@ -947,6 +989,125 @@ MAX_REROUTED_ROWS = 2      # of 36 (4 rows x (prefill + 8 decode steps))
 PATH_KERNELS = ("nm_matmul", "nm_matmul_expert")
 
 
+def path_launches(cfg) -> dict:
+    """Each 2:4 kernel's launches in one forward of ``cfg``'s compressed
+    model, {"prefill": {...}, "decode": {...}}: per layer, one
+    ``nm_matmul`` per 2-D projection (attn / local / moe kinds: wq, wk,
+    wv, wo, and up, gate, down of a dense MLP; MLA: wq, w_dkv, wo, w_uk and
+    w_uv at prefill only (the absorbed decode reads those two dense), and
+    up, gate, down of the dense or shared MLP) and one
+    ``nm_matmul_expert`` per expert bank (3 a MoE layer)."""
+    out = {f: {n: 0 for n in PATH_KERNELS} for f in ("prefill", "decode")}
+    for kind in cfg.layer_kinds:
+        mla = kind.startswith("mla")
+        moe = "moe" in kind
+        mlp = 3 if (not moe or cfg.num_shared_experts) else 0
+        for f in out:
+            attn = (5 if f == "prefill" else 3) if mla else 4
+            out[f]["nm_matmul"] += attn + mlp
+            out[f]["nm_matmul_expert"] += 3 if moe else 0
+    return out
+
+
+def weights_whole(torch, dev, cfg) -> dict:
+    """``cfg``'s weights from ``init_params`` (seed 0), 2:4 magnitude masks
+    (``baseline_masks``, one ``nm_mask24`` launch a stacked leaf) and
+    packed2 compression (``sparsify_params``): the compressed tree, the
+    masks, a maker of the masked-dense bf16 tree, the parameter count,
+    the masks made and the export's seconds."""
+    from repro_torch import tree
+    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.models import model as M
+    from repro_torch.sparse.apply import sparsify_params
+    params0 = M.init_params(cfg, 0, device=dev)
+    n_params = sum(x.numel() for x in tree.leaves(params0))
+    stats = tree.tree_map(lambda _: None, params0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = baseline_masks("magnitude", params0, stats, 0.5, mode="nm")
+    sparse = sparsify_params(params0, masks, axes=M.param_axes(cfg),
+                             idx_bits=2, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+
+    def masked():
+        return M.serving_params(tree.tree_map(
+            lambda w, m: w if m is None else (w * m).to(torch.bfloat16),
+            params0, masks))
+    return {"sparse": sparse, "masks": masks, "masked": masked,
+            "n_params": n_params, "masks_made": sum(
+                m is not None for m in tree.leaves(masks)),
+            "export_s": time.perf_counter() - t0}
+
+
+def weights_by_layer(torch, dev, cfg) -> dict:
+    """What :func:`weights_whole` gives, for a model whose f32 tree does not
+    fit the card at once (deepseek-v2-lite: 62.8 GB): each leaf drawn from
+    its ``ParamSpec`` (``model.param_specs``), a stacked prunable leaf one
+    layer slice at a time (f32 draw, ``baseline_masks`` magnitude 2:4
+    through ``nm_mask24``, ``pack_nm`` packed2 into the stacked compressed
+    leaf, the f32 slice and its mask freed before the next).  No mask tree
+    is kept; the masked-dense bf16 tree is the compressed leaves'
+    ``to_dense()``, a layer slice at a time."""
+    from repro_torch import tree
+    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.models import model as M
+    from repro_torch.sparse.formats import SparseTensor
+    from repro_torch.sparse.pack import pack_nm
+    specs = M.param_specs(cfg)
+    prunable = dict(tree.flatten_with_path(prunable_map(specs)))
+    axes = dict(tree.flatten_with_path(M.param_axes(cfg)))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    out, n_masks, export_s, n_params = {}, 0, 0.0, 0
+    for path, spec in tree.flatten_with_path(specs):
+        n_params += math.prod(spec.shape)
+        if not prunable[path]:
+            out[path] = spec.draw(g, dev)
+            continue
+        lead = spec.shape[0] if axes[path].startswith("layers|") else None
+        vals = idx = None
+        for i in range(lead or 1):
+            w = spec.draw(g, dev, index=(i,) if lead else ())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = baseline_masks("magnitude", {"kernel": w}, {"kernel": None},
+                               0.5, mode="nm")["kernel"]
+            st = pack_nm(w, m, idx_bits=2, dtype=torch.bfloat16)
+            del w, m
+            if lead is None:
+                vals, idx = st.vals, st.idx
+            else:
+                if vals is None:
+                    vals = torch.empty((lead, *st.vals.shape),
+                                       dtype=st.vals.dtype, device=dev)
+                    idx = torch.empty((lead, *st.idx.shape),
+                                      dtype=st.idx.dtype, device=dev)
+                vals[i].copy_(st.vals)
+                idx[i].copy_(st.idx)
+            del st
+            torch.cuda.synchronize()
+            export_s += time.perf_counter() - t0
+            n_masks += 1
+        out[path] = SparseTensor(vals, idx, idx_bits=2)
+    sparse = tree.map_with_path(lambda p, _: out[p], specs)
+    del out
+
+    def dense(x):
+        if not isinstance(x, SparseTensor):
+            return x
+        d = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+        for i in range(x.shape[0]):
+            d[i] = x.select(i).to_dense()
+        return d
+
+    def masked():
+        return M.serving_params(tree.tree_map(dense, sparse))
+    return {"sparse": sparse, "masks": None, "masked": masked,
+            "n_params": n_params, "masks_made": n_masks,
+            "export_s": export_s}
+
+
 def _routed_sets(ids) -> "torch.Tensor":
     """(G, T, k) expert ids -> (T, k) sorted: the set each token routes to."""
     return ids.reshape(-1, ids.shape[-1]).sort(dim=-1).values
@@ -1289,11 +1450,12 @@ LONG_CAPACITY = 8192
 LONG_KV_SHARDS = (None, 1, 4, 16)
 
 
-def long_cache_steps(torch, M, cfg, params, dev) -> dict:
+def long_cache_steps(torch, M, cfg, params, dev,
+                     paths=LONG_KV_SHARDS) -> dict:
     """The decode step of 4 slots at capacity 8192 with every slot valid:
     the caches filled from a seeded generator on the card (the positions
-    0..8191 of each slot), one step at t = 8191 per ``kv_shards`` path, each
-    on its own copy of the caches.  Each path's attention launches counted
+    0..8191 of each slot), one step at t = 8191 per ``kv_shards`` path of
+    ``paths`` (None first), each on its own copy of the caches.  Each path's attention launches counted
     over one eager step; its logits held against ``kv_shards=None`` (8 bf16
     ulps of the row's max); its step replayed from a CUDA graph == eager;
     then the paths' graphs timed in turns.  kv_shards -> numbers."""
@@ -1309,7 +1471,7 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
                 n_bytes += t.numel() * t.element_size()
     caches = {S: base if S is None else [
         {j: {n: t.clone() for n, t in c.items()} for j, c in st.items()}
-        for st in base] for S in LONG_KV_SHARDS}
+        for st in base] for S in paths}
     tok = torch.randint(0, cfg.vocab_size, (4,), generator=g, device=dev)
     t_dev = torch.full((4,), LONG_CAPACITY - 1, dtype=torch.int32,
                        device=dev)
@@ -1318,7 +1480,7 @@ def long_cache_steps(torch, M, cfg, params, dev) -> dict:
         return lambda: M.decode_step(cfg, params, tok, caches[S], t_dev,
                                      kv_shards=S)[0]
 
-    steps = {S: path(S) for S in LONG_KV_SHARDS}
+    steps = {S: path(S) for S in paths}
     L = cfg.num_layers
     rings = sorted(M.cache_lengths(cfg, LONG_CAPACITY))
     out, logits = {}, {}
@@ -1434,21 +1596,23 @@ def attn_kernels_on(cfg, kv_shards) -> bool:
     return kv_shards is not None and not cfg.attn_softcap
 
 
-def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
-                      L: int, kv_shards) -> dict:
+def graph_engine_runs(torch, eng, prompts, want: list, counts: dict,
+                      kv_shards, profiled_tokens: int = PROFILED_TOKENS
+                      ) -> dict:
     """The counted requests again, on the engine's CUDA-graph step: run 1
     captures the decode graph at its first step, run 2 is timed, run 3 is
     profiled (each replayed kernel counted by name; 2 requests of
     ``PROFILED_TOKENS``); each run's streams equal the eager run's (its
     first tokens), and neither later run captures again."""
     attn = attn_kernels_on(eng.cfg, kv_shards)
+    L = eng.cfg.num_layers
     n_tok = sum(len(w) for w in want)
     res = {}
     for run in ("capture", "timed", "profiled"):
         # the profiled run takes the first 2 requests: the profiler's cost
         # grows with the events it keeps
         n = 2 if run == "profiled" else len(prompts)
-        m = PROFILED_TOKENS if run == "profiled" else MAX_TOKENS
+        m = profiled_tokens if run == "profiled" else MAX_TOKENS
         rids = [eng.submit(p, m) for p in prompts[:n]]
         steps0, pre0 = eng.decode_steps, eng.prefill_calls
         torch.cuda.synchronize()
@@ -1471,14 +1635,16 @@ def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
               f"kv_shards={kv_shards}: captures {eng.fns.capture_counts()} "
               f"after the {run} run, want one decode graph")
     steps, pre = eng.decode_steps - steps0, eng.prefill_calls - pre0
-    nm = sum(per_layer.values()) * L * (steps + pre)
+    nm = (sum(counts["prefill"].values()) * pre
+          + sum(counts["decode"].values()) * steps)
     want_l = {"nm_spmm": nm,
               "flash_decode": L * steps if attn else 0,
               "combine_partials": L * steps if attn and kv_shards != 1
               else 0}
     check(launches == want_l, f"kv_shards={kv_shards}: the profiled graph "
           f"run launched {launches}, want {want_l} (2:4 kernels: one per "
-          "projection and bank per forward; decode attention: one per layer "
+          "compressed projection and bank per forward, path_launches; "
+          "decode attention: one per layer "
           f"per decode step); the profiler saw {warm} of its "
           f"{PROFILER_WARMUP} warm-up kernels")
     res.update(tok_s=n_tok / res["timed_s"], launches=launches,
@@ -1486,17 +1652,25 @@ def graph_engine_runs(torch, eng, prompts, want: list, per_layer: dict,
     return res
 
 
-def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
-                long_cache: bool = False, verify: bool = False) -> dict:
+def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
+                verify: bool = False, weights=weights_whole,
+                pin_routing: bool = False,
+                profiled_tokens: int = PROFILED_TOKENS) -> dict:
     """Serve ``cfg`` at its widths from random weights with 2:4 magnitude
-    masks; ``per_layer`` is each kernel's launches per layer per forward
-    (a prefill or a decode step).  ``long_cache``: also the decode step at
-    capacity 8192 (:func:`long_cache_steps`).  Then compressed against
-    masked-dense, routing included where the model has MoE layers.
-    ``verify``: then the compressed weights' verify pass against
-    sequential decode (:func:`verify_vs_sequential`)."""
+    masks, made by ``weights`` (:func:`weights_whole`, or
+    :func:`weights_by_layer` for a model whose f32 tree does not fit);
+    each kernel's launches per forward follow from the config
+    (:func:`path_launches`).  Then the same requests at each ``kv_shards``
+    of KV_SHARDS (none for MLA models: their decode has no attention
+    kernel, and the engine refuses a set ``kv_shards``).  ``long_cache``:
+    also the decode step at capacity 8192 (:func:`long_cache_steps`).
+    Then compressed against masked-dense, routing included where the
+    model has MoE layers; ``pin_routing``: the masked-dense passes take
+    the compressed passes' experts (:func:`pinned_routes`).  ``verify``:
+    then the compressed weights' verify pass against sequential decode
+    (:func:`verify_vs_sequential`)."""
     from repro_torch import tree
-    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.core.prunable import prunable_map
     from repro_torch.data.synthetic import batches_for
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.nm_prox import nm_mask24
@@ -1504,25 +1678,19 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import ServeEngine, eager
-    from repro_torch.sparse.apply import compressed_report, sparsify_params
+    from repro_torch.sparse.apply import compressed_report
     counted = {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
                "nm_mask24": nm_mask24,
                **{name: getattr(fd, name) for name in FLASH_KERNELS}}
 
     L = cfg.num_layers
-    n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds)
-    # one stacked leaf per projection or bank of each block of the stages
-    n_leaves = 7 * sum(len(pattern) for pattern, _ in M.make_stages(cfg))
+    n_moe = sum("moe" in k for k in cfg.layer_kinds)
+    counts = path_launches(cfg)
+    kv_list = () if any(k.startswith("mla") for k in cfg.layer_kinds) \
+        else KV_SHARDS
+    # one stacked leaf per compressed projection or bank of the stages
+    n_leaves = sum(tree.leaves(prunable_map(M.param_specs(cfg))))
     torch.cuda.reset_peak_memory_stats()
-    params0 = M.init_params(cfg, 0, device=dev)
-    n_params = sum(x.numel() for x in tree.leaves(params0))
-    ffn = (f"{cfg.num_experts} experts top-{cfg.top_k}, moe_d_ff "
-           f"{cfg.moe_d_ff}" if n_moe else f"d_ff {cfg.d_ff}")
-    print(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
-          f"{ffn}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, "
-          f"{'tied' if cfg.tie_embeddings else 'untied'}: {n_params} params")
-    stats = tree.tree_map(lambda _: None, params0)
     prompts = serving_prompts(cfg)
     batch = batches_for(cfg, n=1, batch=len(PROMPT_LENS), seq=128,
                         split="valid")[0]["tokens"]
@@ -1534,11 +1702,20 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    masks = baseline_masks("magnitude", params0, stats, 0.5, mode="nm")
-    sparse = sparsify_params(params0, masks, axes=M.param_axes(cfg),
-                             idx_bits=2, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    t_export = time.perf_counter() - t0
+    w = weights(torch, dev, cfg)
+    t_build = time.perf_counter() - t0
+    sparse, t_export = w.pop("sparse"), w["export_s"]
+    ffn = (f"{cfg.num_experts} experts top-{cfg.top_k} + "
+           f"{cfg.num_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}"
+           if n_moe else f"d_ff {cfg.d_ff}")
+    attn_w = (f"MLA kv_lora {cfg.kv_lora}, nope {cfg.qk_nope_dim} + rope "
+              f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}" if kv_list == ()
+              else f"window {cfg.sliding_window}")
+    print(f"  {cfg.name}: {L} layers {'+'.join(cfg.layer_kinds[:2])}..., "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+          f"x {cfg.head_dim}, {ffn}, vocab {cfg.vocab_size}, {attn_w}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'}: {w['n_params']} "
+          f"params, made, masked and packed in {t_build:.1f} s")
     eng = ServeEngine(cfg, sparse, slots=4, capacity=256, device=dev)
     routes = []
     steps_ref = record_decode(eng, routes)
@@ -1558,16 +1735,19 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
           "kv_shards=None launched a decode attention kernel")
     check(all(len(out[r]) == max_tokens for r in rids),
           f"requests finished with {[len(out[r]) for r in rids]} tokens")
-    check(launches["nm_mask24"] == n_leaves,
+    check(launches["nm_mask24"] == w["masks_made"],
           f"nm_mask24 launched {launches['nm_mask24']} times, want "
-          f"{n_leaves}")
+          f"{w['masks_made']}")
     for name in PATH_KERNELS:
-        want = per_layer[name] * L * forwards
+        want = (counts["prefill"][name] * eng.prefill_calls
+                + counts["decode"][name] * eng.decode_steps)
         check(launches[name] == want,
-              f"{name} launched {launches[name]} times, want {want}")
+              f"{name} launched {launches[name]} times, want {want} "
+              f"({counts['prefill'][name]} a prefill, "
+              f"{counts['decode'][name]} a decode step)")
     print("  " + check_path_calls(torch, calls))
     del calls
-    rep = compressed_report(sparse, masks)
+    rep = compressed_report(sparse, w["masks"])
     check(rep["fallback_leaves"] == 0
           and rep["kernel_native_packed"] == n_leaves
           and rep["ratio"] == 0.5625,
@@ -1583,13 +1763,14 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
           f"{n_tok / t_serve:.1f} tok/s")
     del sparse
     graph_runs = {None: graph_engine_runs(
-        torch, eng, prompts, [out[r] for r in rids], per_layer, L, None)}
+        torch, eng, prompts, [out[r] for r in rids], counts, None,
+        profiled_tokens)}
 
     # -- the same requests through the decode attention kernels: kv_shards
     # 1 (flash_decode) and S (flash_decode_partial over S capacity shards +
     # the combine), each a path counted on its own ----------------------
     kv_runs = {}
-    for S in KV_SHARDS:
+    for S in kv_list:
         calls = {}
         for fn in counted.values():
             fn.launches = 0
@@ -1622,7 +1803,9 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
                 else 0,
                 "combine_partials": L * e.decode_steps if attn and S != 1
                 else 0,
-                **{name: per_layer[name] * L * fw for name in PATH_KERNELS}}
+                **{name: counts["prefill"][name] * e.prefill_calls
+                   + counts["decode"][name] * e.decode_steps
+                   for name in PATH_KERNELS}}
         check(kv_launches == want, f"kv_shards={S}: launches {kv_launches}, "
               f"want {want} ({L} layers per decode step)")
         print("  " + check_path_calls(torch, calls))
@@ -1652,7 +1835,7 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
                       "differ": len(differ)}
         del e.fns.decode
         graph_runs[S] = graph_engine_runs(
-            torch, e, prompts, [kv_out[r] for r in kv_rids], per_layer, L, S)
+            torch, e, prompts, [kv_out[r] for r in kv_rids], counts, S)
         del e, steps, kv_routes
     del steps_ref, routes
 
@@ -1667,7 +1850,7 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
             torch.cuda.synchronize()
             pre.append(time.perf_counter() - t0)
         by_kv = {}
-        for S in (None,) + KV_SHARDS:
+        for S in (None,) + kv_list:
             by_kv[S] = decode_step_times(torch, M, cfg, eng.params, batch,
                                          dev, S)
         graph = paired_graph_ms(torch, {S: r.pop("step")
@@ -1679,7 +1862,9 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
     prefill_ms = statistics.median(pre) * 1e3
     peak = torch.cuda.max_memory_allocated()
     with torch.inference_mode():
-        long = (long_cache_steps(torch, M, cfg, eng.params, dev)
+        long = (long_cache_steps(torch, M, cfg, eng.params, dev,
+                                 (None,) + (LONG_KV_SHARDS[1:] if kv_list
+                                            else ()))
                 if long_cache else None)
     print(f"  [{card}] prefill 1x128 {prefill_ms:.2f} ms; eager decode "
           f"{step_ms:.2f} ms/step at 4 slots = {4e3 / step_ms:.1f} tok/s; "
@@ -1690,7 +1875,7 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
               f"(3 runs, one decode graph captured); warm run "
               f"{g['timed_s']:.3f} s = {g['tok_s']:.1f} tok/s (capture run "
               f"{g['capture_s']:.3f} s); profiler over 2 of the requests "
-              f"x {PROFILED_TOKENS} tokens ({g['profiled_s']:.1f} s with its "
+              f"x {profiled_tokens} tokens ({g['profiled_s']:.1f} s with its "
               f"processing), replays "
               f"included: {g['launches']} over {g['prefills']} eager "
               f"prefills + {g['decode_steps']} replayed decode steps")
@@ -1710,15 +1895,31 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
         check(r["replay_ok"], f"kv_shards={S}: the decode step replayed "
               "from a CUDA graph differs from the eager step")
         # one 2:4 kernel per projection and bank, split-K included
-        want = sum(per_layer.values()) * L
+        want = sum(counts["decode"].values())
         check(r["nm_kernels"] == want, f"kv_shards={S}: {r['nm_kernels']} "
               f"2:4 kernels per decode step, want {want} (one launch each)")
 
     # -- compressed vs plain masked-dense, same fed tokens ------------------
-    masked = M.serving_params(tree.tree_map(
-        lambda w, m: w if m is None else (w * m).to(torch.bfloat16),
-        params0, masks))
-    del masks, params0
+    masked = w.pop("masked")()
+    w.clear()
+    if pin_routing:
+        pinned = compare_pinned(torch, M, cfg, eng.params, masked, dev)
+        del masked
+        # 2 rows x VERIFY_TOKENS: a verify pass routes 8 tokens, where
+        # expert capacity equals the token count (a larger pass may drop
+        # assignments that one-token decode steps keep: the reference's
+        # semantics, not a rounding difference)
+        prompt = pinned.pop("prompt")[:2]
+        verified = ({**verify_by_layer(torch, M, cfg, eng.params, prompt),
+                     "end_to_end": verify_vs_sequential(
+                         torch, M, cfg, eng.params, prompt, held=False)}
+                    if verify else None)
+        return {"launches": launches, "step_ms": step_ms,
+                "verify": verified, "step_dev_ms": step_dev_ms,
+                "prefill_ms": prefill_ms, "peak_gib": peak / 2 ** 30,
+                "kv_runs": kv_runs, "steps_by_kv": by_kv, "long_cache": long,
+                "graph_runs": graph_runs, "pinned": pinned,
+                "export_s": t_export, "build_s": t_build}
     prompt = torch.from_numpy(batches_for(cfg, n=1, batch=4, seq=64,
                                           split="valid", start=1)[0]
                               ["tokens"]).to(dev)
@@ -1784,13 +1985,277 @@ def phase_serve(torch, dev, card: str, cfg, per_layer: dict,
             "step_dev_ms": step_dev_ms, "prefill_ms": prefill_ms,
             "peak_gib": peak / 2 ** 30, "kv_runs": kv_runs,
             "steps_by_kv": by_kv, "long_cache": long,
-            "graph_runs": graph_runs}
+            "graph_runs": graph_runs, "export_s": t_export,
+            "build_s": t_build}
+
+
+@contextlib.contextmanager
+def pinned_routing(flips: list, rows: int):
+    """While open, MoE routing (``models.moe.route``) follows ``pin``, the
+    dict it yields: a call in ``pin["mode"] == "lead"`` routes as usual
+    and is remembered; in ``("follow", sel)`` mode a call takes the
+    experts of ``sel(probs, ids)`` of the last lead call (the lead's
+    tokens that this call's tokens are), its gates renormalised from its
+    own probabilities.  Each token where the call's own top-k would
+    differ is appended to ``flips`` as (``pin["tag"]``, row, margin,
+    router probability difference) (``rows`` rows a call, tokens
+    row-major) and must be a near-tie: its own margin between an expert
+    only it would keep and one only the lead keeps is at most twice the
+    largest difference of the two calls' router probabilities there."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+    pin = {"mode": "lead", "last": None, "calls": 0, "tag": None}
+
+    def pinned(router, x, top_k):
+        probs, gates, idx = route(router, x, top_k)
+        if pin["mode"] == "lead":
+            pin["last"] = (probs, idx)
+            return probs, gates, idx
+        pc, ic = pin["mode"][1](*pin["last"])
+        pin["calls"] += 1
+        differ = (idx.sort(dim=-1).values != ic.sort(dim=-1).values).any(-1)
+        T = idx.shape[1]
+        for g_, t in differ.nonzero().tolist():
+            pm, own, forced = probs[g_, t], set(idx[g_, t].tolist()), set(
+                ic[g_, t].tolist())
+            margin = float(min(pm[e] for e in own - forced)
+                           - max(pm[e] for e in forced - own))
+            perr = float((pc[g_, t] - pm).abs().max())
+            check(margin <= 2 * perr, f"{pin['tag']}: token {t} would route "
+                  f"to {sorted(own)} against the pinned {sorted(forced)}, "
+                  f"margin {margin} past twice the router probability "
+                  f"difference {perr}")
+            flips.append((pin["tag"], t // (T // rows), margin, perr))
+        g = torch.gather(probs, -1, ic)
+        return probs, g / g.sum(dim=-1, keepdim=True), ic
+
+    moe_mod.route = pinned
+    try:
+        yield pin
+    finally:
+        moe_mod.route = route
+
+
+def _same(probs, ids):
+    return probs, ids
+
+
+def _rows_ulps(got, want) -> "torch.Tensor":
+    """Per row of the leading axis: the largest |got - want| in bf16 ulps
+    of the row's largest |want| (2**-8 of it)."""
+    g, w = got.float().flatten(1), want.float().flatten(1)
+    return (g - w).abs().amax(1) / (w.abs().amax(1) * 2 ** -8)
+
+
+def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
+    """Compressed (``params``) against masked-dense (``masked``), layer by
+    layer, with the routing pinned: one prompt of 4 rows x 64 tokens
+    prefilled, then 8 decode steps fed the compressed run's greedy tokens.
+    At every layer and pass the layer of each tree runs on the compressed
+    run's input, and on its own cache rows (the masked-dense layer on a
+    copy of the compressed one's): its output and the ring rows it writes
+    must agree within LOGIT_ULPS_FULL bf16 ulps of each row's largest
+    value.  Beside it the masked-dense run goes on on its own hidden
+    states, and its distance from the compressed run is printed by depth
+    and at the logits, not held: over 27 layers at these random weights
+    (the expert banks drawn at 0.88 E**-0.5 as the reference draws them)
+    each layer multiplies the two runs' rounding differences, and at the
+    logits they part by more than 8 ulps (measured: PERF.md, PR 22).
+    Every MoE call of a masked-dense layer takes the experts the
+    compressed layer chose at that call (its gates renormalised from its
+    own probabilities): over 26 layers of top-6 of 64 experts its own
+    router would part from the compressed one's at some token of nearly
+    every row.  Each routing it would change is counted and must be a
+    near-tie: its margin between an expert only it would keep and one
+    only the compressed layer keeps is at most twice the largest
+    difference of the two layers' router probabilities at that token."""
+    from repro_torch import tree
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.models import blocks as blk
+    prompt = torch.from_numpy(batches_for(cfg, n=1, batch=4, seq=64,
+                                          split="valid", start=1)[0]
+                              ["tokens"]).to(dev)
+    B, P = prompt.shape
+    flips = []
+
+    def clone(c):
+        return tree.tree_map(torch.clone, c)
+
+    layers = [(kind, s, i) for s, (pattern, repeats) in
+              enumerate(M.make_stages(cfg)) for i in range(repeats)
+              for kind in pattern]
+    L = len(layers)
+    worst = torch.zeros((), device=dev)        # teacher-forced, all layers
+    free = torch.zeros((9, L), device=dev)     # free-running, by pass, depth
+    logits_err, agree, ties = [], 0, []
+    caches = {"c": M.init_caches(cfg, B, 96, device=dev),
+              "f": M.init_caches(cfg, B, 96, device=dev)}
+    with pinned_routing(flips, B) as pin, torch.inference_mode():
+        pos = torch.arange(P, device=dev).expand(B, P)
+        tok = prompt
+        for j in range(9):                  # prefill + 8 decode steps
+            t = torch.full((B,), P + j - 1, dtype=torch.int32,
+                           device=dev)
+            xc = M._embed(cfg, params, tok if j == 0 else tok[:, None])
+            xf = M._embed(cfg, masked, tok if j == 0 else tok[:, None])
+            for d, (kind, s, i) in enumerate(layers):
+                pc_, pm_ = (M._layer(tr["stages"][s], i)["0"]
+                            for tr in (params, masked))
+                cc_, cf_ = (M._layer(caches[k][s], i)["0"]
+                            for k in ("c", "f"))
+                pin["mode"] = "lead"
+                if j == 0:
+                    ctx = blk.Ctx(positions=pos, cache_capacity=96)
+                    yc, _, rc = blk.block_apply_full(kind, cfg, pc_, xc,
+                                                     ctx)
+                    pin["mode"] = ("follow", _same)
+                    pin["tag"] = (j, "same input")
+                    yt, _, rt = blk.block_apply_full(kind, cfg, pm_, xc,
+                                                     ctx)
+                    pin["tag"] = (j, "own")
+                    yf, _, rf = blk.block_apply_full(kind, cfg, pm_, xf,
+                                                     ctx)
+                    for n in cc_:
+                        cc_[n].copy_(rc[n])
+                        cf_[n].copy_(rf[n])
+                else:
+                    rt = clone(cc_)
+                    yc, _ = blk.block_apply_decode(kind, cfg, pc_, xc,
+                                                   cc_, t)
+                    pin["mode"] = ("follow", _same)
+                    pin["tag"] = (j, "same input")
+                    yt, _ = blk.block_apply_decode(kind, cfg, pm_, xc,
+                                                   rt, t)
+                    pin["tag"] = (j, "own")
+                    yf, _ = blk.block_apply_decode(kind, cfg, pm_, xf,
+                                                   cf_, t)
+                    rc = cc_
+                worst = torch.maximum(worst, _rows_ulps(yt, yc).max())
+                for n in rc:
+                    worst = torch.maximum(worst, _rows_ulps(
+                        rt[n], rc[n]).max())
+                free[j, d] = _rows_ulps(yf, yc).max()
+                xc, xf = yc, yf
+            lc = M._unembed(cfg, params, blk._norm(
+                cfg, params["final_norm"], xc[:, -1:]))[:, 0]
+            lf = M._unembed(cfg, masked, blk._norm(
+                cfg, masked["final_norm"], xf[:, -1:]))[:, 0]
+            for r in range(B):
+                err, tol = logit_err(torch, lf[r], lc[r], LOGIT_ULPS_FULL)
+                logits_err.append(err / tol)
+                a, b = int(lc[r].argmax()), int(lf[r].argmax())
+                agree += a == b
+                if a != b:
+                    margin = float(lc[r, a] - lc[r, b])
+                    check(margin <= 2 * err, f"pass {j} row {r}: the "
+                          f"free-running masked-dense token {b} against "
+                          f"the compressed {a}, margin {margin} past "
+                          f"twice the logit difference {err}")
+                    ties.append((j, r, margin, err))
+            tok = lc.argmax(-1)
+    n_moe = sum("moe" in k for k in cfg.layer_kinds)
+    check(pin["calls"] == 2 * n_moe * 9,
+          f"pinned {pin['calls']} MoE calls, want {2 * n_moe * 9}")
+    worst = float(worst)
+    check(worst <= LOGIT_ULPS_FULL, f"compressed vs masked-dense, layer by "
+          f"layer on the same input: {worst:.2f} bf16 ulps of a row's max "
+          f"(outputs and ring rows), past {LOGIT_ULPS_FULL}")
+    by_depth = free.amax(0).tolist()
+    same = [f for f in flips if f[0][1] == "same input"]
+    rows = sorted({(tag[0], r) for tag, r, _, _ in same})
+    total = 9 * B
+    print(f"  compressed vs masked-dense layer by layer (prefill of {P} "
+          f"tokens + 8 decode steps, {B} rows, every one of the {L} layers "
+          f"on the compressed run's input, each masked-dense MoE call pinned "
+          f"to the compressed layer's experts): outputs and ring rows "
+          f"worst {worst:.3f} bf16 ulps of a row's max (bound "
+          f"{LOGIT_ULPS_FULL}); masked-dense's own router would have chosen "
+          f"otherwise at {len(same)} (call, token) routings in {len(rows)} "
+          f"of {total} (pass, row)s, each a near-tie")
+    print(f"  the masked-dense run on its own hidden states (routing pinned): "
+          f"its distance from the compressed run, in bf16 ulps of a row's "
+          f"max, by depth (worst over passes): "
+          + ", ".join(f"{v:.1f}" for v in by_depth)
+          + f"; at the logits worst {max(logits_err) * LOGIT_ULPS_FULL:.1f}"
+          f" ulps, greedy tokens {agree}/{total} agree, near-ties {ties}; "
+          f"its own router would part from the pinned experts at "
+          f"{len(flips) - len(same)} (call, token) routings, each a "
+          "near-tie")
+    return {"worst_layer_ulps": worst, "free_by_depth": by_depth,
+            "free_logits_ulps": max(logits_err) * LOGIT_ULPS_FULL,
+            "agree": agree, "rows": total, "flips": len(same),
+            "flipped_rows": len(rows), "free_flips": len(flips) - len(same),
+            "token_near_ties": len(ties),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "prompt": prompt}
 
 
 VERIFY_TOKENS = 4     # fed tokens per row of phase 10's verify check
 
 
-def verify_vs_sequential(torch, M, cfg, params, prompt) -> dict:
+def verify_by_layer(torch, M, cfg, params, prompt) -> dict:
+    """The verify pass against sequential decode layer by layer, for a
+    model whose rounding differences grow past LOGIT_ULPS_FULL over its
+    depth (deepseek's 27 layers: :func:`compare_pinned`): from the
+    prompt's prefill, each layer's ``block_apply_verify`` over the
+    ``VERIFY_TOKENS`` fed tokens against the same layer's
+    ``block_apply_decode`` one token at a time, on the same inputs (the
+    verify run's) and each on its own copy of the ring; every output and
+    every ring row within LOGIT_ULPS_FULL bf16 ulps of each row's max.
+    Each decode call's MoE routing is pinned to the verify call's experts
+    at its tokens (:func:`pinned_routing`), each change a near-tie."""
+    from repro_torch import tree
+    from repro_torch.models import blocks as blk
+    B, P = prompt.shape
+    S = VERIFY_TOKENS
+    fed = prompt[:, :S].flip(-1).contiguous()
+    t = torch.full((B,), P, dtype=torch.int32, device=prompt.device)
+    flips, worst = [], torch.zeros((), device=prompt.device)
+    with torch.inference_mode(), pinned_routing(flips, B) as pin:
+        _, c1 = M.prefill(cfg, params, {"tokens": prompt}, cache_capacity=96)
+        c2 = tree.tree_map(torch.clone, c1)
+        x = M._embed(cfg, params, fed)
+        for s_, (pattern, repeats) in enumerate(M.make_stages(cfg)):
+            for i in range(repeats):
+                lp = M._layer(params["stages"][s_], i)
+                cv, cs = M._layer(c1[s_], i), M._layer(c2[s_], i)
+                for j, kind in enumerate(pattern):
+                    pin["mode"] = "lead"
+                    yv, _ = blk.block_apply_verify(kind, cfg, lp[str(j)], x,
+                                                   cv[str(j)], t)
+                    ys = []
+                    for k in range(S):
+                        pin["mode"] = ("follow", lambda p, e, k=k: (
+                            p.reshape(p.shape[0], B, S, -1)[:, :, k],
+                            e.reshape(e.shape[0], B, S, -1)[:, :, k]))
+                        pin["tag"] = f"layer {s_}.{i} token {k}"
+                        y, _ = blk.block_apply_decode(
+                            kind, cfg, lp[str(j)], x[:, k:k + 1], cs[str(j)],
+                            t + k)
+                        ys.append(y)
+                    ys = torch.cat(ys, dim=1)
+                    worst = torch.maximum(worst, _rows_ulps(
+                        ys.reshape(B * S, -1), yv.reshape(B * S, -1)).max())
+                    for n in cv[str(j)]:
+                        worst = torch.maximum(worst, _rows_ulps(
+                            cs[str(j)][n], cv[str(j)][n]).max())
+                    x = yv
+    worst = float(worst)
+    check(worst <= LOGIT_ULPS_FULL, f"verify vs sequential decode, layer by "
+          f"layer on the same input: {worst:.2f} bf16 ulps of a row's max, "
+          f"past {LOGIT_ULPS_FULL}")
+    print(f"  verify ({S} fed tokens x {B} rows, compressed weights) vs "
+          f"sequential decode, layer by layer on the verify run's inputs: "
+          f"outputs and ring rows worst {worst:.3f} bf16 ulps of a row's "
+          f"max (bound {LOGIT_ULPS_FULL}); decode's own router would have "
+          f"chosen otherwise at {len(flips)} (call, token) routings, each "
+          "a near-tie")
+    return {"worst_layer_ulps": worst, "flips": len(flips)}
+
+
+def verify_vs_sequential(torch, M, cfg, params, prompt,
+                         held: bool = True) -> dict:
     """The verify pass (teacher-forced, ``VERIFY_TOKENS`` fed tokens per
     row in one call) against the same tokens fed one decode step at a
     time, from the prompt's prefill: each column's logits within
@@ -1799,7 +2264,11 @@ def verify_vs_sequential(torch, M, cfg, params, prompt) -> dict:
     most twice the measured difference), the written ring rows equal.  On
     the CPU the columns are bit-equal (tests/test_torch_gemma.py); on the
     card the batched and the one-row products sum in other orders
-    (ROADMAP R9), so the bit-equal rows are counted, not required."""
+    (ROADMAP R9), so the bit-equal rows are counted, not required.
+    ``held=False``: the logits are printed, not held (a model whose
+    differences grow past the bound over its depth, held layer by layer
+    by :func:`verify_by_layer`); a differing token must still be a
+    near-tie."""
     B, P = prompt.shape
     fed = prompt[:, :VERIFY_TOKENS].flip(-1).contiguous()
     t = torch.full((B,), P, dtype=torch.int32, device=prompt.device)
@@ -1817,8 +2286,8 @@ def verify_vs_sequential(torch, M, cfg, params, prompt) -> dict:
         for r in range(B):
             g, w = got[r, i], want[r]
             err, tol = logit_err(torch, g, w, LOGIT_ULPS_FULL)
-            check(err <= tol, f"verify column {i} row {r}: logits differ "
-                  f"from sequential decode by {err} over {tol}")
+            check(err <= tol or not held, f"verify column {i} row {r}: "
+                  f"logits differ from sequential decode by {err} over {tol}")
             worst = max(worst, err / tol)
             equal += int(torch.equal(g, w))
             a, b = int(w.argmax()), int(g.argmax())
@@ -3818,12 +4287,10 @@ def gemma_tiny_card_vs_cpu(torch, dev, card: str, launches: dict) -> dict:
     CPU, Gamma/V within the CPU tests' tolerance and the masks equal but
     for near-ties."""
     from repro_torch import tree
-    from repro_torch.configs.base import PruneConfig
     from repro_torch.configs.tiny import FAMILIES
     from repro_torch.convert import load_params_pickle
     from repro_torch.core import masks as masks_mod
     from repro_torch.data.synthetic import batches_for
-    from repro_torch.launch.calibrate import calibrate_to_bank
     from repro_torch.optim.losses import eval_ppl
     from repro_torch.sparse.bank import MaskBank
     cfg = FAMILIES["gemma-tiny"]
@@ -3863,48 +4330,95 @@ def gemma_tiny_card_vs_cpu(torch, dev, card: str, launches: dict) -> dict:
                       f"{r['rel']:.1e})" for k, r in rows.items())
           + f"; tolerance rtol {EVAL_RTOL}")
     # -- a short wanda 2:4 calibration, card vs CPU --------------------------
-    calib = batches_for(cfg, n=8, batch=4, seq=64, split="calib")
+    calibration = calibration_card_vs_cpu(
+        torch, dev, cfg, p_cpu, launches, "calibrate gemma-tiny wanda 2:4",
+        batches_for(cfg, n=8, batch=4, seq=64, split="calib"), 4)
+    return {"eval": rows, "calibration": calibration}
+
+
+def calibration_card_vs_cpu(torch, dev, cfg, p_cpu, launches: dict,
+                            name: str, calib: list, stats_batches: int,
+                            shared_stats: bool = False) -> dict:
+    """A GEMMA_TINY_STEPS-step wanda 2:4 ``calibrate_to_bank`` of ``cfg``
+    from the CPU params ``p_cpu``, on the card (counted under ``name``;
+    every search-kernel signature and every ``nm_mask24`` mask held
+    against its plain version) and on this host's CPU: one fused step and
+    one prox24 a prunable leaf a step, one nm_mask24 a leaf; Gamma/V
+    within the CPU tests' tolerance and the masks equal but for
+    near-ties (:func:`banks_agree`).  ``shared_stats`` (a model with MoE
+    layers whose random router has near-ties, ROADMAP R12): the card's
+    stats are held against the CPU's by each leaf's relative Frobenius
+    error (2e-2, tests/test_torch_tape.py's MoE bound), and the card's
+    search runs on the CPU's stats, as the CPU tests hold the reference's
+    MoE search."""
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig
+    from repro_torch.core import calibrate
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.launch.calibrate import calibrate_to_bank
+    from repro_torch.sparse.bank import MaskBank
     pcfg = PruneConfig(local_metric="wanda", mode="nm",
-                       steps=GEMMA_TINY_STEPS, stats_batches=4)
+                       steps=GEMMA_TINY_STEPS, stats_batches=stats_batches)
     bdir = _banks_dir()
-    on, seen, checked = {}, {}, {}
-    name = "calibrate gemma-tiny wanda 2:4"
-    for d in (dev, "cpu"):
+    on, seen, checked, stats_err = {}, {}, {}, None
+    for d in ("cpu", dev):
         key = "card" if d is dev else "cpu"
         t0 = time.perf_counter()
         ctx = ((counted(launches, name), search_calls_checked(torch, seen),
                 sparse_calls_checked(torch, checked)) if d is dev else ())
+        params = tree.to_device(p_cpu, d)
         with contextlib.ExitStack() as stack:
             for c in ctx:
                 stack.enter_context(c)
-            on[key] = calibrate_to_bank(
-                bdir / key, cfg=cfg, pcfg=pcfg, params=tree.to_device(
-                    p_cpu, d), calib=calib, arch=cfg.name, smoke=False,
-                log_every=GEMMA_TINY_STEPS)
+            if d is dev and shared_stats:
+                own = calibrate.collect_stats(cfg, params, calib, pcfg=pcfg)
+                stats_err = max(
+                    float((a.cpu() - b).norm() / b.norm())
+                    for a, b in zip(tree.leaves(own),
+                                    tree.leaves(on["cpu"].stats))
+                    if b is not None)
+                check(stats_err <= 2e-2, f"{cfg.name} stats card vs CPU: a "
+                      f"leaf {stats_err:.2e} apart (relative Frobenius), "
+                      "past 2e-2")
+                stats = tree.to_device(on["cpu"].stats, d)
+                state, _ = calibrate.run_search(
+                    cfg, pcfg, params, calib, stats,
+                    log_every=GEMMA_TINY_STEPS)
+                on[key] = MaskBank.save(bdir / key, arch=cfg.name,
+                                        smoke=False, state=state, stats=stats,
+                                        pcfg=pcfg, cfg=cfg)
+            else:
+                on[key] = calibrate_to_bank(
+                    bdir / key, cfg=cfg, pcfg=pcfg, params=params,
+                    calib=calib, arch=cfg.name, smoke=False,
+                    log_every=GEMMA_TINY_STEPS)
             if d is dev:
                 on[key].masks_at()
         on[key + "_s"] = time.perf_counter() - t0
-    n_leaves = 7 * len(cfg.pattern)
+    n_leaves = sum(tree.leaves(prunable_map(p_cpu)))
     got = launches[name]
     check(got["saliency_fused_step"] == n_leaves * GEMMA_TINY_STEPS
           and got["prox24"] == n_leaves * GEMMA_TINY_STEPS
           and got["nm_mask24"] == n_leaves,
-          f"gemma-tiny calibration launches {got}")
+          f"{cfg.name} calibration launches {got}, want {n_leaves} leaves")
     check(len(checked.get("nm_mask24", ())) == n_leaves,
-          f"gemma-tiny: {len(checked.get('nm_mask24', ()))} nm_mask24 "
+          f"{cfg.name}: {len(checked.get('nm_mask24', ()))} nm_mask24 "
           f"masks checked, want {n_leaves}")
     worst, ties, n = banks_agree(torch, on["card"], on["cpu"], pcfg)
-    print(f"  gemma-tiny {GEMMA_TINY_STEPS}-step wanda 2:4, card "
-          f"{on['card_s']:.1f} s vs CPU {on['cpu_s']:.1f} s: launches "
+    print(f"  {cfg.name} {GEMMA_TINY_STEPS}-step wanda 2:4, card "
+          f"{on['card_s']:.1f} s vs CPU {on['cpu_s']:.1f} s"
+          + ("" if stats_err is None else
+             f" (stats card vs CPU: worst leaf {stats_err:.2e} relative "
+             "Frobenius; the card's search on the CPU's stats)")
+          + f": launches "
           f"{ {k: v for k, v in got.items() if v} }; search-kernel "
           f"signatures bit for bit {sorted(k[:2] for k in seen)}, "
           f"{len(checked['nm_mask24'])} nm_mask24 masks exactly; Gamma/V "
           f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
           "differ in the masks, each a near-tie")
     shutil.rmtree(bdir, ignore_errors=True)
-    return {"eval": rows, "calibration": {
-        "card_s": on["card_s"], "cpu_s": on["cpu_s"], "worst": worst,
-        "near_ties": ties, "groups": n}}
+    return {"card_s": on["card_s"], "cpu_s": on["cpu_s"], "worst": worst,
+            "near_ties": ties, "groups": n, "stats_err": stats_err}
 
 
 def phase_gemma_yi(torch, dev, card: str) -> dict:
@@ -3920,15 +4434,118 @@ def phase_gemma_yi(torch, dev, card: str) -> dict:
         t0 = time.perf_counter()
         print(f"  -- {arch}" + (f", {layers} of {get_config(arch).num_layers}"
                                 " layers" if layers else ", whole") + " --")
-        out[arch] = phase_serve(torch, dev, card, cfg,
-                                {"nm_matmul": 7, "nm_matmul_expert": 0},
-                                long_cache=True, verify=arch == "yi-6b")
+        out[arch] = phase_serve(torch, dev, card, cfg, long_cache=True,
+                                verify=arch == "yi-6b")
         out[arch]["s"] = time.perf_counter() - t0
         print(f"  {arch} took {out[arch]['s']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     out["gemma-tiny"] = gemma_tiny_card_vs_cpu(torch, dev, card, launches)
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: deepseek-v2-lite-16b whole
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+# the profiled graph run's tokens per request: a deepseek decode step is
+# ~27 layers x ~200 kernels, so 8 steps would pass the profiler's buffers
+DEEPSEEK_PROFILED_TOKENS = 4
+SMOKE_STREAMS = ((9, 6), (17, 8), (5, 8), (12, 6))   # (prompt, new tokens)
+
+
+def _steps_to_cpu(steps: list) -> list:
+    """:func:`record_decode` steps with their tensors on the host."""
+    return [(rids, toks.cpu(), t.cpu(), lg.cpu(),
+             [(p.cpu(), i.cpu()) for p, i in routes])
+            for rids, toks, t, lg, routes in steps]
+
+
+def deepseek_smoke_card_vs_cpu(torch, dev, card: str, launches: dict
+                               ) -> dict:
+    """The smoke deepseek-v2-lite-16b (seed-0 weights) on the card and on
+    this host's CPU: greedy engine streams, the card's eager steps against
+    the CPU's row by row (:func:`compare_decode_runs`: logits within
+    LOGIT_ULPS_FULL bf16 ulps, differing tokens and experts only at
+    near-ties), the card's CUDA-graph engine == its eager one; a
+    ``kv_shards`` engine refused; then a short wanda 2:4 calibration card
+    vs CPU (:func:`calibration_card_vs_cpu`) over the MLA, shared and
+    expert leaves."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine, eager
+    cfg = get_smoke_config(DEEPSEEK)
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    toks = batches_for(cfg, n=1, batch=len(SMOKE_STREAMS), seq=32,
+                       split="valid")[0]["tokens"]
+    reqs = [(toks[i, :n], m) for i, (n, m) in enumerate(SMOKE_STREAMS)]
+    runs = {}
+    for d in (dev, "cpu"):
+        eng = ServeEngine(cfg, p_cpu, slots=2, capacity=64, device=d)
+        routes = []
+        steps = record_decode(eng, routes)
+        rids = [eng.submit(p, m) for p, m in reqs]
+        with recording_routes(routes), eager():
+            out = eng.run()
+        del eng.fns.decode
+        runs[d] = ([out[r] for r in rids], _steps_to_cpu(steps), eng)
+    n_rows, worst, ties, rerouted = compare_decode_runs(
+        torch, runs["cpu"][1], runs[dev][1], coupled=True)
+    same = sum(a == b for a, b in zip(runs[dev][0], runs["cpu"][0]))
+    check(same == len(reqs) or ties or rerouted,
+          f"smoke {DEEPSEEK}: card streams {runs[dev][0]} differ from the "
+          f"CPU's {runs['cpu'][0]} with no near-tie")
+    eng = runs[dev][2]
+    rids = [eng.submit(p, m) for p, m in reqs]
+    out = eng.run()
+    check([out[r] for r in rids] == runs[dev][0]
+          and eng.fns.capture_counts() == {"decode": 1},
+          f"smoke {DEEPSEEK}: the card's graph engine streams differ from "
+          "its eager ones")
+    try:
+        ServeEngine(cfg, p_cpu, slots=2, capacity=64, device=dev,
+                    kv_shards=1)
+        fail(f"{DEEPSEEK}: an engine with kv_shards=1 was built")
+    except ValueError as e:
+        check("MLA" in str(e), f"kv_shards refusal names no MLA: {e}")
+    print(f"  smoke {DEEPSEEK} card vs this host's CPU: {same} of "
+          f"{len(reqs)} greedy streams equal, {n_rows} decode rows "
+          f"compared, logits worst {worst:.3f} of the tolerance, token "
+          f"near-ties {ties}, routing near-ties {rerouted}; the card's "
+          "graph engine == its eager one; kv_shards=1 refused (MLA)")
+    calibration = calibration_card_vs_cpu(
+        torch, dev, cfg, p_cpu, launches, f"calibrate {DEEPSEEK} smoke "
+        "wanda 2:4", batches_for(cfg, n=2, batch=4, seq=32, split="calib"),
+        2, shared_stats=True)
+    del runs, eng
+    return {"streams_equal": same, "streams": len(reqs), "rows": n_rows,
+            "worst": worst, "near_ties": len(ties) + len(rerouted),
+            "calibration": calibration}
+
+
+def phase_deepseek(torch, dev, card: str) -> dict:
+    """Phase 12: deepseek-v2-lite-16b whole (27 layers at its published
+    widths) through phase 4's path, its weights made a layer slice at a
+    time (:func:`weights_by_layer`), compressed against masked-dense with
+    the routing pinned (:func:`compare_pinned`), verify against
+    sequential decode; then the smoke config card vs CPU."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(DEEPSEEK)
+    launches = {}
+    t0 = time.perf_counter()
+    out = phase_serve(torch, dev, card, cfg, long_cache=True, verify=True,
+                      weights=weights_by_layer, pin_routing=True,
+                      profiled_tokens=DEEPSEEK_PROFILED_TOKENS)
+    out["s"] = time.perf_counter() - t0
+    print(f"  {DEEPSEEK} whole took {out['s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke"] = deepseek_smoke_card_vs_cpu(torch, dev, card, launches)
+    out["smoke_launches"] = launches
     return out
 
 
@@ -4016,7 +4633,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/12] device")
+    print("[1/13] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -4028,7 +4645,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/12] build")
+    print("[2/13] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     ptxas = start_ptxas_report()
@@ -4043,13 +4660,19 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/12] kernels against their plain versions [{card}]")
+    print(f"[3/13] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
     mm = phase_nm_matmul(torch, dev)
     mask = phase_nm_mask24(torch, dev)
     expert = phase_nm_matmul_expert(torch, dev)
+    from repro_torch.kernels.nm_spmm import LAYOUT_PACKED2
+    E64, shapes64, ms64 = DEEPSEEK_EXPERTS
+    expert["by_path"] = {DEEPSEEK: phase_nm_matmul_expert(
+        torch, dev, E64, shapes64, ms64, (LAYOUT_PACKED2,), DEEPSEEK)}
+    expert["max_abs_err"] = max(expert["max_abs_err"],
+                                expert["by_path"][DEEPSEEK]["max_abs_err"])
     calib_paths = {"llama3.2-1b": calib_leaves(get_config("llama3.2-1b")),
                    "llama3.2-1b smoke": calib_leaves(
                        get_smoke_config("llama3.2-1b")),
@@ -4066,24 +4689,22 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/12] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/13] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
-                        {"nm_matmul": 7, "nm_matmul_expert": 0},
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/12] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/13] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
-        get_config("mixtral-8x22b"), num_layers=MIXTRAL_LAYERS),
-        {"nm_matmul": 4, "nm_matmul_expert": 3})
+        get_config("mixtral-8x22b"), num_layers=MIXTRAL_LAYERS))
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/12] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/13] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -4092,7 +4713,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/12] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/13] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -4100,7 +4721,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/12] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/13] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -4112,7 +4733,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/12] training: the launcher at full width, its resume, the "
+    print(f"[9/13] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -4121,7 +4742,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/12] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/13] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -4130,12 +4751,23 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/12] committed mask bank at smoke width, card vs CPU")
+    print("[11/13] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
-    print("[12/12] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12/13] {DEEPSEEK} whole (27 layers, MLA, 64 experts top-6 + 2 "
+          f"shared) 2:4 serving at its published widths, the smoke config "
+          f"card vs CPU [{card}]")
+    t0 = time.perf_counter()
+    deep = phase_deepseek(torch, dev, card)
+    t_deep = time.perf_counter() - t0
+    print(f"  phase took {t_deep:.1f} s")
+
+    print("[13/13] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
-              **{arch: gemma[arch] for arch, _ in GEMMA_YI}}
+              **{arch: gemma[arch] for arch, _ in GEMMA_YI},
+              DEEPSEEK: deep}
     paths = {"calibrate llama3.2-1b": calib["launches"]}
     for name, run in served.items():
         paths[name] = run["launches"]
@@ -4145,7 +4777,8 @@ def main() -> int:
         paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
     # phase 8's, 9's and 10's paths, each with the kernels it launched
     for name, launched in {**evalr["launches"], **trained["launches"],
-                           **gemma["launches"]}.items():
+                           **gemma["launches"],
+                           **deep["smoke_launches"]}.items():
         paths[name] = {k: v for k, v in launched.items() if v}
     # kernel launches the profiler saw on the CUDA-graph engine's runs of
     # phases 4-5's and 10's paths (2 requests), replays included, by
@@ -4183,13 +4816,16 @@ def main() -> int:
          **counts("nm_matmul"), **mm,
          "work": "one llama decode layer: wq, wk, wv, wo, up, gate, down "
                  "at M=4 (4 slots), packed2, bf16; by_path: one decode "
-                 "layer's projections on each path"},
+                 "layer's projections on each path (deepseek-v2-lite-16b: "
+                 "an mla_moe layer's wq, w_dkv, wo, shared up / gate / "
+                 "down, and every timed shape in its rows)"},
         {"name": "nm_matmul_expert", "route": "cuda",
          "source": "src/repro_torch/csrc/nm_spmm.cu",
          "replaces": "src/repro/kernels/nm_spmm.py:202",
          **counts("nm_matmul_expert"), **expert,
          "work": "one mixtral decode layer: up, gate, down banks, E=8, "
-                 "M=C=4 (4 slots), packed2, bf16"},
+                 "M=C=4 (4 slots), packed2, bf16; by_path: one "
+                 "deepseek-v2-lite-16b layer's banks at E=64, C 4 and 16"},
         {"name": "nm_mask24", "route": "cuda",
          "source": "src/repro_torch/csrc/nm_mask24.cu",
          "replaces": "src/repro/kernels/nm_prox.py:82",
@@ -4244,7 +4880,7 @@ def main() -> int:
     print(f"  {time.perf_counter() - t_start:.1f} s in all (the fleet phase "
           f"{t_fleet:.1f} s, the evaluation phase {t_eval:.1f} s, the "
           f"training phase {t_train:.1f} s, the gemma and yi phase "
-          f"{t_gemma:.1f} s)")
+          f"{t_gemma:.1f} s, the deepseek phase {t_deep:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -4268,6 +4904,17 @@ def main() -> int:
                   "verify": r["verify"]}
            for arch, r in ((a, gemma[a]) for a, _ in GEMMA_YI)},
         "gemma-tiny": gemma["gemma-tiny"], "ptxas": spills}}))
+    # phase 12's serving, on a line of its own
+    print(json.dumps({"deepseek": {
+        "prefill_ms": deep["prefill_ms"], "peak_gib": deep["peak_gib"],
+        "peak_gib_with_masked_dense": deep["pinned"]["peak_gib"],
+        "eager_step_ms": deep["step_ms"], "s": deep["s"],
+        "build_s": deep["build_s"], "export_s": deep["export_s"],
+        "graph_ms": deep["steps_by_kv"][None]["graph_ms"],
+        "long_graph_ms": deep["long_cache"][None]["graph_ms"],
+        "graph_tok_s": deep["graph_runs"][None]["tok_s"],
+        "pinned": deep["pinned"], "verify": deep["verify"],
+        "smoke": deep["smoke"]}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 Field-for-field copy of ``repro.configs.base`` (which imports jax): a bank
 artifact's ``pcfg`` and a config's fields mean the same in both packages.
 Config modules so far: ``llama3.2-1b``, ``mixtral-8x22b``, ``gemma3-1b``,
-``gemma2-2b`` and ``yi-6b``; the paper-table harness's tiny families are
-in ``configs/tiny.py``.
+``gemma2-2b``, ``yi-6b`` and ``deepseek-v2-lite-16b``; the paper-table
+harness's tiny families are in ``configs/tiny.py``.
 """
 from __future__ import annotations
 

@@ -29,12 +29,21 @@ from repro_torch.kernels.flash_decode import (combine_partials,
 from repro_torch.kernels.ref import NEG_INF
 
 
-def check_kv_shards(kv_shards, cache_lengths) -> None:
+def check_kv_shards(kv_shards, cache_lengths, kinds=()) -> None:
     """Raise ``ValueError`` unless ``kv_shards`` is None or an integer
     >= 1 that divides every cache length (a layer's ring: the capacity, or
-    min(capacity, window) for a sliding-window layer)."""
+    min(capacity, window) for a sliding-window layer).  Any set value
+    raises for a model with MLA layers (``kinds``: its layer kinds): the
+    reference's MLA decode is plain ``jnp`` with no decode-attention
+    kernel (``attention.py:557-622``), so ``kv_shards`` would silently
+    change nothing there."""
     if kv_shards is None:
         return
+    mla = sorted({k for k in kinds if k.startswith("mla")})
+    if mla:
+        raise ValueError(f"kv_shards={kv_shards!r}: MLA layers ({mla}) have "
+                         "no decode-attention kernel path; serve them with "
+                         "kv_shards=None")
     if isinstance(kv_shards, bool) or not isinstance(kv_shards, int) \
             or kv_shards < 1:
         raise ValueError(f"kv_shards must be None or an integer >= 1, got "

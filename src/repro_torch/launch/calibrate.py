@@ -12,7 +12,8 @@ reference's.
       --smoke --sparse-artifact /tmp/bank --device cpu
 
 ``--arch`` takes every config module of ``repro_torch.configs``:
-``llama3.2-1b``, ``mixtral-8x22b``, ``yi-6b``, ``gemma2-2b``, ``gemma3-1b``.
+``llama3.2-1b``, ``mixtral-8x22b``, ``yi-6b``, ``gemma2-2b``, ``gemma3-1b``,
+``deepseek-v2-lite-16b``.
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Stage seconds
 are host clocks around work fenced with ``torch.cuda.synchronize``.

@@ -1,7 +1,9 @@
-"""Attention: GQA + RoPE + sliding window + softcap + QK-norm.  Port of
-``repro.models.attention`` for the ``attn`` and ``local`` kinds (global and
-sliding-window causal attention, gemma's logit softcap and QK-norm; MLA
-comes with its family).
+"""Attention: GQA + RoPE + sliding window + softcap + QK-norm, and
+DeepSeek-V2's multi-head latent attention (MLA).  Port of
+``repro.models.attention``: the ``attn`` and ``local`` kinds (global and
+sliding-window causal attention, gemma's logit softcap and QK-norm) and
+the ``mla_*`` kinds' attention (:func:`mla_apply_full`, and the absorbed
+c-space decode and verify, plain torch as the reference's ``jnp``).
 
 Two execution paths (and :func:`reference_attention`, the reference's
 materialised oracle, for tests):
@@ -456,4 +458,155 @@ def attn_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
                      (pr / l).to(cache["v"].dtype).float(),
                      cache["v"].float())
     o = o.reshape(B, S, num_heads * head_dim).to(x.dtype)
+    return cm.dense(p["wo"], o), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(b: Builder, *, d_model: int, num_heads: int, kv_lora: int,
+             nope_dim: int = 128, rope_dim: int = 64, v_dim: int = 128
+             ) -> PyTree:
+    return {
+        "wq": cm.dense_init(b, d_model, num_heads * (nope_dim + rope_dim),
+                            ("embed", "qkv")),
+        "w_dkv": cm.dense_init(b, d_model, kv_lora + rope_dim,
+                               ("embed", None)),
+        "kv_norm": {"scale": b.param((kv_lora,), (None,), init="zeros")},
+        "w_uk": cm.dense_init(b, kv_lora, num_heads * nope_dim,
+                              (None, "qkv")),
+        "w_uv": cm.dense_init(b, kv_lora, num_heads * v_dim, (None, "qkv")),
+        "wo": cm.dense_init(b, num_heads * v_dim, d_model, ("qkv", "embed")),
+    }
+
+
+def make_mla_cache(batch: int, capacity: int, kv_lora: int, rope_dim: int,
+                   *, device, lead: tuple = ()) -> PyTree:
+    """The MLA ring: the normalised latent ``ckv`` and the one shared rope
+    key ``krope`` per slot, bf16."""
+    return {"ckv": torch.zeros((*lead, batch, capacity, kv_lora),
+                               dtype=torch.bfloat16, device=device),
+            "krope": torch.zeros((*lead, batch, capacity, rope_dim),
+                                 dtype=torch.bfloat16, device=device)}
+
+
+def _mla_qkr(p: PyTree, x: torch.Tensor, pos: torch.Tensor, *,
+             num_heads: int, kv_lora: int, nope_dim: int, rope_dim: int,
+             rope_theta: float):
+    """The projections every MLA path shares: (q_nope (B,S,H,nope), roped
+    q_rope (B,S,H,rope), c_kv (B,S,kv_lora), roped k_rope (B,S,rope)), all
+    in x's dtype.  pos: (B, S)."""
+    B, S, _ = x.shape
+    q = cm.dense(p["wq"], x).reshape(B, S, num_heads, nope_dim + rope_dim)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    q_rope = cm.rope(q_rope, pos, theta=rope_theta)
+    ckr = cm.dense(p["w_dkv"], x)
+    c_kv = cm.rmsnorm(p["kv_norm"], ckr[..., :kv_lora])
+    k_rope = cm.rope(ckr[..., kv_lora:][:, :, None, :], pos,
+                     theta=rope_theta)[:, :, 0]   # one head shared by all H
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
+                   num_heads: int, kv_lora: int, nope_dim: int = 128,
+                   rope_dim: int = 64, v_dim: int = 128,
+                   rope_theta: float = 1e4, cache_capacity: int = 0,
+                   ) -> tuple[torch.Tensor, PyTree | None]:
+    """Prefill path: k_nope and v up-projected from the latent, the shared
+    rope key broadcast to every head, causal attention over the concat
+    nope|rope at scale (nope + rope) ** -0.5 (qk width nope + rope, v width
+    v_dim).  Returns (y, {"ckv", "krope"} ring or None)."""
+    B, S, _ = x.shape
+    H = num_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(
+        p, x, positions, num_heads=H, kv_lora=kv_lora, nope_dim=nope_dim,
+        rope_dim=rope_dim, rope_theta=rope_theta)
+    k_nope = cm.dense(p["w_uk"], c_kv).reshape(B, S, H, nope_dim)
+    v = cm.dense(p["w_uv"], c_kv).reshape(B, S, H, v_dim)
+    qc = torch.cat([q_nope, q_rope], dim=-1)
+    kc = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope_dim)],
+                   dim=-1)
+    o = flash_attention(qc, kc, v, scale=(nope_dim + rope_dim) ** -0.5)
+    y = cm.dense(p["wo"], o.reshape(B, S, H * v_dim))
+    cache = None
+    if cache_capacity:
+        cache = {"ckv": _ring_store(c_kv, cache_capacity),
+                 "krope": _ring_store(k_rope, cache_capacity)}
+    return y, cache
+
+
+def _mla_absorbed(p: PyTree, q_nope, q_rope, cache: PyTree,
+                  pos: torch.Tensor, *, num_heads: int, kv_lora: int,
+                  nope_dim: int, rope_dim: int, v_dim: int) -> torch.Tensor:
+    """Attention in the compressed c-space over the whole ring, the
+    reference's absorbed-matmul decode with its roundings: q_c = q_nope
+    W_uk in f32 (W_uk read dense in f32, :func:`common.kernel_dense`),
+    scores from bf16 operands with f32 sums (the rope term added in f32),
+    scaled, masked to ring positions <= each query's position, an f32
+    softmax, probabilities rounded to bf16 for o_c, W_uv absorbed in f32,
+    the result rounded to bf16.  q_nope (B,S,H,nope), q_rope (B,S,H,rope),
+    pos (B,S) -> (B, S, H * v_dim) bf16."""
+    B, S, H, _ = q_nope.shape
+    C = cache["ckv"].shape[1]
+    ckv, krope = cache["ckv"].float(), cache["krope"].float()
+    w_uk = cm.kernel_dense(p["w_uk"]).float().reshape(kv_lora, H, nope_dim)
+    q_c = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+    s = torch.einsum("bshr,bcr->bshc", q_c.to(torch.bfloat16).float(), ckv)
+    s = s + torch.einsum("bshr,bcr->bshc",
+                         q_rope.to(torch.bfloat16).float(), krope)
+    s = s * (nope_dim + rope_dim) ** -0.5
+    kpos = ring_positions(pos[:, -1], C)                         # (B, C)
+    ok = kpos[:, None, :] <= pos[:, :, None]                     # (B, S, C)
+    s = torch.where(ok[:, :, None, :], s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pr = e / e.sum(dim=-1, keepdim=True)
+    o_c = torch.einsum("bshc,bcr->bshr", pr.to(torch.bfloat16).float(), ckv)
+    w_uv = cm.kernel_dense(p["w_uv"]).float().reshape(kv_lora, H, v_dim)
+    o = torch.einsum("bshr,rhd->bshd", o_c, w_uv)
+    return o.reshape(B, S, H * v_dim).to(torch.bfloat16)
+
+
+def mla_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
+                     t: torch.Tensor, *, num_heads: int, kv_lora: int,
+                     nope_dim: int = 128, rope_dim: int = 64,
+                     v_dim: int = 128, rope_theta: float = 1e4,
+                     ) -> tuple[torch.Tensor, PyTree]:
+    """Absorbed-matmul decode, one token per row.  x: (B, 1, d); t: (B,)
+    per-row positions.  Row b writes its ring slot t[b] % C of ``cache`` in
+    place, then attends at its own position (:func:`_mla_absorbed`)."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    return mla_apply_verify(p, x, cache, t, num_heads=num_heads,
+                            kv_lora=kv_lora, nope_dim=nope_dim,
+                            rope_dim=rope_dim, v_dim=v_dim,
+                            rope_theta=rope_theta)
+
+
+def mla_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
+                     t: torch.Tensor, *, num_heads: int, kv_lora: int,
+                     nope_dim: int = 128, rope_dim: int = 64,
+                     v_dim: int = 128, rope_theta: float = 1e4,
+                     ) -> tuple[torch.Tensor, PyTree]:
+    """Teacher-forced S-token absorbed-matmul decode (speculative verify).
+
+    x: (B, S, d); t: (B,) per-row start positions.  All S c-space rows are
+    written first (in place), then query i masks ring positions <= t + i,
+    as :func:`attn_apply_verify`.  The caller guarantees max(t) + S <=
+    capacity (no ring wrap)."""
+    B, S, _ = x.shape
+    C = cache["ckv"].shape[1]
+    pos = t.to(torch.int32)[:, None] + torch.arange(
+        S, dtype=torch.int32, device=x.device)                  # (B, S)
+    q_nope, q_rope, c_new, k_rope = _mla_qkr(
+        p, x, pos, num_heads=num_heads, kv_lora=kv_lora, nope_dim=nope_dim,
+        rope_dim=rope_dim, rope_theta=rope_theta)
+    rows = torch.arange(B, device=x.device)[:, None]
+    slot = ring_slot(pos, C).long()
+    cache["ckv"][rows, slot] = c_new.to(cache["ckv"].dtype)
+    cache["krope"][rows, slot] = k_rope.to(cache["krope"].dtype)
+    o = _mla_absorbed(p, q_nope, q_rope, cache, pos, num_heads=num_heads,
+                      kv_lora=kv_lora, nope_dim=nope_dim, rope_dim=rope_dim,
+                      v_dim=v_dim)
     return cm.dense(p["wo"], o), cache

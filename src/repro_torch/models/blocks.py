@@ -3,8 +3,10 @@ transformer kinds: ``attn`` (pre-norm attention + gated MLP, the llama
 block), ``local`` (the same over a sliding window), ``moe`` and
 ``moe_local`` (attention, global or windowed, + the MoE FFN), with gemma's
 sandwich norms (``post_ln1`` / ``post_ln2`` on the attention and FFN
-outputs) where the config sets ``sandwich_norm``; every other kind raises
-until its family is ported.
+outputs) where the config sets ``sandwich_norm``; and deepseek's
+``mla_dense`` and ``mla_moe`` (multi-head latent attention + the gated MLP
+or the MoE FFN with its shared experts), whose cache is the latent ring
+``{"ckv", "krope"}``.  Every other kind raises until its family is ported.
 
 Every block kind exposes:
   block_init(kind, b, cfg)                          -> params
@@ -15,7 +17,10 @@ Every block kind exposes:
 
 aux is the MoE load-balance loss (None for the MLP kinds).  Windowed kinds
 keep a KV ring of min(capacity, sliding_window) slots (:func:`cache_length`);
-``kv_shards`` picks the decode attention path (``attention.decode_attend``).
+``kv_shards`` picks the decode attention path (``attention.decode_attend``)
+of the GQA kinds.  MLA decode has one path, plain torch as the reference's
+(no decode-attention kernel): ``serve.engine`` refuses ``kv_shards`` for
+it, and a direct call with ``kv_shards`` set raises too.
 """
 from __future__ import annotations
 
@@ -32,8 +37,9 @@ from repro_torch.models.common import Builder
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 PyTree = Any
-KINDS = ("attn", "local", "moe", "moe_local")
+KINDS = ("attn", "local", "moe", "moe_local", "mla_dense", "mla_moe")
 _LOCAL = ("local", "moe_local")
+MLA_KINDS = ("mla_dense", "mla_moe")
 
 
 @dataclasses.dataclass
@@ -97,20 +103,36 @@ def _attn_kwargs(cfg: ModelConfig, *, local: bool) -> dict:
                 scale=cfg.attn_scale or None)
 
 
+def _mla_kwargs(cfg: ModelConfig) -> dict:
+    return dict(num_heads=cfg.num_heads, kv_lora=cfg.kv_lora,
+                nope_dim=cfg.qk_nope_dim, rope_dim=cfg.qk_rope_dim,
+                v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
+
+
+def _attn_block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
+    if kind in MLA_KINDS:
+        return attn.mla_init(b, d_model=cfg.d_model, num_heads=cfg.num_heads,
+                             kv_lora=cfg.kv_lora, nope_dim=cfg.qk_nope_dim,
+                             rope_dim=cfg.qk_rope_dim, v_dim=cfg.v_head_dim)
+    return attn.attn_init(b, d_model=cfg.d_model, num_heads=cfg.num_heads,
+                          num_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                          qk_norm=cfg.qk_norm)
+
+
 def block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
     _check_kind(kind)
     p = {
         "ln1": _norm_init(b, cfg),
-        "attn": attn.attn_init(b, d_model=cfg.d_model,
-                               num_heads=cfg.num_heads,
-                               num_kv=cfg.num_kv_heads,
-                               head_dim=cfg.head_dim, qk_norm=cfg.qk_norm),
+        "attn": _attn_block_init(kind, b, cfg),
         "ln2": _norm_init(b, cfg),
     }
-    if kind in ("moe", "moe_local"):
+    if kind in ("moe", "moe_local", "mla_moe"):
+        # mla_moe: the reference takes moe_d_ff as it is (no d_ff fallback)
         p["moe"] = moe_mod.moe_init(
-            b, d_model=cfg.d_model, d_ff=cfg.moe_d_ff or cfg.d_ff,
-            num_experts=cfg.num_experts,
+            b, d_model=cfg.d_model,
+            d_ff=cfg.moe_d_ff if kind == "mla_moe" else
+            cfg.moe_d_ff or cfg.d_ff,
+            num_experts=cfg.num_experts, num_shared=cfg.num_shared_experts,
             # the reference's rule; it only names the banks' axes here
             expert_sharded=cfg.num_experts % 16 == 0)
     else:
@@ -143,10 +165,16 @@ def _block_tail(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
 def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
                      x: torch.Tensor, ctx: Ctx):
     _check_kind(kind)
-    a, cache = attn.attn_apply_full(
-        p["attn"], _norm(cfg, p["ln1"], x), positions=ctx.positions,
-        cache_capacity=ctx.cache_capacity,
-        **_attn_kwargs(cfg, local=kind in _LOCAL))
+    h = _norm(cfg, p["ln1"], x)
+    if kind in MLA_KINDS:
+        a, cache = attn.mla_apply_full(
+            p["attn"], h, positions=ctx.positions,
+            cache_capacity=ctx.cache_capacity, **_mla_kwargs(cfg))
+    else:
+        a, cache = attn.attn_apply_full(
+            p["attn"], h, positions=ctx.positions,
+            cache_capacity=ctx.cache_capacity,
+            **_attn_kwargs(cfg, local=kind in _LOCAL))
     x, aux = _block_tail(cfg, p, x, a)
     return x, aux, cache
 
@@ -161,6 +189,9 @@ def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int:
 
 def block_init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
                      *, device, lead: tuple = ()) -> PyTree:
+    if kind in MLA_KINDS:
+        return attn.make_mla_cache(batch, capacity, cfg.kv_lora,
+                                   cfg.qk_rope_dim, device=device, lead=lead)
     return attn.make_kv_cache(batch, cache_length(kind, cfg, capacity),
                               cfg.num_kv_heads, cfg.head_dim, device=device,
                               lead=lead)
@@ -170,33 +201,43 @@ def block_apply_decode(kind: str, cfg: ModelConfig, p: PyTree,
                        x: torch.Tensor, cache: PyTree, t: torch.Tensor, *,
                        kv_shards: int | None = None):
     _check_kind(kind)
-    a, cache = attn.attn_apply_decode(
-        p["attn"], _norm(cfg, p["ln1"], x), cache, t, kv_shards=kv_shards,
-        **_attn_kwargs(cfg, local=kind in _LOCAL))
+    h = _norm(cfg, p["ln1"], x)
+    if kind in MLA_KINDS:
+        if kv_shards is not None:
+            raise ValueError(f"kind {kind!r}: MLA decode has no decode-"
+                             f"attention kernel path (kv_shards={kv_shards}"
+                             "); it runs plain, as the reference's")
+        a, cache = attn.mla_apply_decode(p["attn"], h, cache, t,
+                                         **_mla_kwargs(cfg))
+    else:
+        a, cache = attn.attn_apply_decode(
+            p["attn"], h, cache, t, kv_shards=kv_shards,
+            **_attn_kwargs(cfg, local=kind in _LOCAL))
     x, _ = _block_tail(cfg, p, x, a)
     return x, cache
 
 
 # kinds with a parallel verify path: full-capacity attention rings
-VERIFY_KINDS = ("attn", "moe")
+VERIFY_KINDS = ("attn", "moe", "mla_dense", "mla_moe")
 
 
 def block_apply_verify(kind: str, cfg: ModelConfig, p: PyTree,
                        x: torch.Tensor, cache: PyTree, t: torch.Tensor):
     """Teacher-forced S-token decode (speculative verify): one pass over S
     fed tokens per row, write-then-attend against the slot's ring
-    (``attention.attn_apply_verify``).  Only full-ring attention kinds
-    have it: windowed rings can wrap mid-chunk and recurrent state cannot
-    roll back."""
-    if kind in ("mla_dense", "mla_moe"):
-        raise ValueError(f"kind {kind!r}: MLA verify is not ported yet "
-                         "(ROADMAP A item 4)")
+    (``attention.attn_apply_verify``, ``attention.mla_apply_verify``).
+    Only full-ring attention kinds have it: windowed rings can wrap
+    mid-chunk and recurrent state cannot roll back."""
     if kind not in VERIFY_KINDS:
         raise ValueError(f"kind {kind!r} has no parallel verify path "
                          "(spec decode gates on SPEC_SAFE_KINDS)")
-    kw = _attn_kwargs(cfg, local=False)
-    del kw["window"]
-    a, cache = attn.attn_apply_verify(p["attn"], _norm(cfg, p["ln1"], x),
-                                      cache, t, **kw)
+    h = _norm(cfg, p["ln1"], x)
+    if kind in MLA_KINDS:
+        a, cache = attn.mla_apply_verify(p["attn"], h, cache, t,
+                                         **_mla_kwargs(cfg))
+    else:
+        kw = _attn_kwargs(cfg, local=False)
+        del kw["window"]
+        a, cache = attn.attn_apply_verify(p["attn"], h, cache, t, **kw)
     x, _ = _block_tail(cfg, p, x, a)
     return x, cache

@@ -1,17 +1,21 @@
 """Shared model-building utilities.  Port of ``repro.models.common``.
 
 Parameters live in nested dicts of tensors.  Every module defines its
-structure once through a :class:`Builder`, which runs in three modes:
+structure once through a :class:`Builder`, which runs in four modes:
 
 * ``init``  - draw parameter values from an explicit ``torch.Generator``,
 * ``axes``  - emit the matching tree of logical axis strings,
 * ``shape`` - emit the matching tree of shapes (no allocation),
+* ``spec``  - emit the matching tree of :class:`ParamSpec` (what ``init``
+  would draw, drawn later leaf by leaf or layer by layer: a model whose
+  f32 tree does not fit the device at once),
 
 so values, axis metadata and artifact templates cannot drift apart.
 Compute runs in bf16 over f32 parameters, as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -24,6 +28,33 @@ COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 
 
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One parameter as ``init`` mode draws it: its full shape (stacked
+    axes first), ``zeros`` or a truncated normal on [-2, 2] times
+    ``scale``, stored as ``dtype``."""
+    shape: tuple[int, ...]
+    init: str
+    scale: float | None
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def draw(self, generator: torch.Generator | None, device=None, *,
+             index: tuple[int, ...] = ()) -> torch.Tensor:
+        """The values (``index`` selects a slice of the leading axes, one
+        layer of a stacked leaf, drawn alone)."""
+        shape = self.shape[len(index):]
+        if self.init == "zeros":
+            return torch.zeros(shape, dtype=self.dtype, device=device)
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return (t * self.scale).to(self.dtype)
+
+
 class Builder:
     """Single-definition parameter structure builder.
 
@@ -33,7 +64,7 @@ class Builder:
 
     def __init__(self, mode: str, generator: torch.Generator | None = None,
                  device: torch.device | None = None, lead: tuple = ()):
-        if mode not in ("init", "axes", "shape"):
+        if mode not in ("init", "axes", "shape", "spec"):
             raise ValueError(mode)
         if mode == "init" and generator is None:
             raise ValueError("init mode needs a torch.Generator")
@@ -57,16 +88,14 @@ class Builder:
                             + tuple(a or "" for a in axes))
         if self.mode == "shape":
             return full
-        if init == "zeros":
-            return torch.zeros(full, dtype=dtype, device=self.device)
-        if init == "normal":
-            if scale is None:  # fan-in scaling
-                scale = (shape[0] if len(shape) > 1 else shape[-1]) ** -0.5
-            t = torch.empty(full, dtype=torch.float32, device=self.device)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=self.generator)
-            return (t * scale).to(dtype)
-        raise ValueError(init)
+        if init not in ("zeros", "normal"):
+            raise ValueError(init)
+        if init == "normal" and scale is None:  # fan-in scaling
+            scale = (shape[0] if len(shape) > 1 else shape[-1]) ** -0.5
+        spec = ParamSpec(full, init, scale, dtype)
+        if self.mode == "spec":
+            return spec
+        return spec.draw(self.generator, self.device)
 
 
 def dense_init(b: Builder, d_in: int, d_out: int,
@@ -90,6 +119,15 @@ def dense(params: PyTree, x: torch.Tensor, *,
     if t is not None:
         t.record(k, x if tape_x is None else tape_x)
     return x @ k.to(COMPUTE_DTYPE)
+
+
+def kernel_dense(params: PyTree) -> torch.Tensor:
+    """Dense view of a (possibly compressed) kernel leaf, for the call sites
+    that read weights directly (the MLA absorbed decode's ``w_uk`` and
+    ``w_uv``): a ``SparseTensor`` decompressed on its device (tensor ops
+    only, so a CUDA graph captures it), a dense kernel as it is."""
+    k = params["kernel"]
+    return k.to_dense() if isinstance(k, SparseTensor) else k
 
 
 def expert_dense(params: PyTree, buf: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,12 @@ the reference; per-layer parameters are stacked on a leading "layers" axis
 ``SparseTensor``s pair one-to-one with the reference's.  A Python loop over
 the layers slices ``[l]`` where the reference runs ``lax.scan``.
 
-Ported: the decoder families built from the ``attn``, ``local``, ``moe``
-and ``moe_local`` kinds (llama, mixtral, yi, gemma2, gemma3), tied or
-untied embeddings, gemma's scaled embeddings, attention and final logit
-softcaps, sandwich norms, QK-norm and gelu; :func:`check_supported` names
-what is missing for any other config.
+Ported: the decoder families built from the ``attn``, ``local``, ``moe``,
+``moe_local``, ``mla_dense`` and ``mla_moe`` kinds (llama, mixtral, yi,
+gemma2, gemma3, deepseek-v2-lite with its ``pattern_prefix`` stage and
+shared experts), tied or untied embeddings, gemma's scaled embeddings,
+attention and final logit softcaps, sandwich norms, QK-norm and gelu;
+:func:`check_supported` names what is missing for any other config.
 """
 from __future__ import annotations
 
@@ -36,7 +37,6 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = [name for name, on in (
         (f"layer kinds other than {', '.join(blk.KINDS)}",
          set(cfg.layer_kinds) - set(blk.KINDS)),
-        ("shared experts", cfg.num_shared_experts),
         ("norm other than rmsnorm", cfg.norm != "rmsnorm"),
         ("activation other than silu or gelu",
          cfg.act not in ("silu", "gelu")),
@@ -103,16 +103,31 @@ def param_shapes(cfg: ModelConfig) -> PyTree:
     return _build(cfg, Builder("shape"))
 
 
+def param_specs(cfg: ModelConfig) -> PyTree:
+    """Tree (same structure as params) of ``common.ParamSpec``: what
+    :func:`init_params` draws, drawn by the caller leaf by leaf, a
+    stacked leaf layer by layer (``ParamSpec.draw(index=(i,))``).
+    Drawn in the tree's insertion order from one generator, they give
+    ``init_params``' values."""
+    return _build(cfg, Builder("spec"))
+
+
+# kernels the reference reads in f32: the MoE router (f32 logits) and
+# MLA's w_uk / w_uv, which its absorbed decode reads dense in f32
+# (``attention.mla_apply_decode``)
+_F32_KERNELS = ("['router']", "['w_uk']", "['w_uv']")
+
+
 def serving_params(params: PyTree) -> PyTree:
     """The tree with its embedding table and dense kernels (expert banks
     and ``lm_head`` included) cast to the compute dtype once.  The forward
     casts them to bf16 on every call, as the reference does; casting ahead
     gives the same values without re-reading the f32 copies each step.
-    Norm scales and the MoE router stay f32: the reference computes the
-    router logits in f32."""
+    Norm scales and the kernels the reference reads in f32 (``_F32_KERNELS``)
+    stay as they are."""
     def leaf(path: str, x):
         if (isinstance(x, torch.Tensor) and x.is_floating_point()
-                and "['router']" not in path
+                and not any(k in path for k in _F32_KERNELS)
                 and (path.endswith("['kernel']")
                      or path.endswith("['table']"))):
             return x.to(cm.COMPUTE_DTYPE)
@@ -288,7 +303,8 @@ def prefill(cfg: ModelConfig, params: PyTree, batch: dict, *,
 
 
 def cache_lengths(cfg: ModelConfig, capacity: int) -> set[int]:
-    """The distinct KV ring lengths of ``cfg``'s layers at ``capacity``."""
+    """The distinct ring lengths of ``cfg``'s layers at ``capacity``: KV
+    rings and MLA's latent rings alike."""
     return {blk.cache_length(k, cfg, capacity) for k in cfg.layer_kinds}
 
 

@@ -9,9 +9,11 @@ dispatch buffer (G, E, C, d) runs through ``common.expert_dense_pair`` and
 ``common.expert_dense``: compressed SparseTensor banks through the
 hand-written ``nm_matmul_expert``, dense banks through one batched matmul.
 The combine gathers each assignment's row back (0 for a dropped one),
-weights it by its renormalised gate and sums over the k choices.  While a
+weights it by its renormalised gate and sums over the k choices; shared
+experts (deepseek), one gated MLP over every token, add to it.  While a
 stats tape records, the expert banks' inputs go to it with each expert's
-routed-row count (the reference's hook).
+routed-row count (the reference's hook), and the shared MLP's through
+``common.dense``, as every dense projection's.
 """
 from __future__ import annotations
 
@@ -22,17 +24,19 @@ import torch
 from repro_torch.core import tape as _tape
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
+from repro_torch.models.mlp import mlp_apply, mlp_init
 
 PyTree = Any
 
 
 def moe_init(b: Builder, *, d_model: int, d_ff: int, num_experts: int,
-             expert_sharded: bool = False) -> PyTree:
-    """Router (d_model, E) and the up, gate and down expert banks.  Shared
-    experts are not ported (``model.check_supported`` refuses them)."""
+             num_shared: int = 0, expert_sharded: bool = False) -> PyTree:
+    """Router (d_model, E) and the up, gate and down expert banks; with
+    ``num_shared`` > 0 also ``shared``, one gated MLP of width
+    num_shared * d_ff that every token takes (deepseek's shared experts)."""
     e_ax = "experts" if expert_sharded else None
     f_ax = None if expert_sharded else "mlp"
-    return {
+    p = {
         "router": {"kernel": b.param((d_model, num_experts), ("embed", None),
                                      scale=d_model ** -0.5)},
         "up": {"kernel": b.param((num_experts, d_model, d_ff),
@@ -42,6 +46,9 @@ def moe_init(b: Builder, *, d_model: int, d_ff: int, num_experts: int,
         "down": {"kernel": b.param((num_experts, d_ff, d_model),
                                    (e_ax, f_ax, "embed"))},
     }
+    if num_shared:
+        p["shared"] = mlp_init(b, d_model, num_shared * d_ff)
+    return p
 
 
 def capacity(tokens: int, top_k: int, num_experts: int,
@@ -137,6 +144,8 @@ def moe_apply(p: PyTree, x: torch.Tensor, *, top_k: int,
     y_tk = torch.where(keep[..., None], y_tk, 0)            # dropped -> 0
     y_tk = y_tk * gate_vals.reshape(G, -1)[..., None].to(y_tk.dtype)
     y = y_tk.reshape(G, Tl, top_k, d).sum(dim=2).reshape(orig_shape)
+    if "shared" in p:       # every token, through the plain dense path
+        y = y + mlp_apply(p["shared"], x, act=act)
 
     # Switch-style load-balance aux loss: E * sum_e f_e * P_e
     oh = _one_hot(flat_e, E).float()

@@ -16,13 +16,15 @@ Weights may be dense or 2:4-compressed (``sparse.apply.sparsify_params``):
 both, every compressed projection through the ``nm_matmul`` kernel and
 every compressed MoE expert bank through ``nm_matmul_expert`` on the card.
 Caches are per layer kind: a sliding-window layer keeps a ring of
-min(capacity, window) slots.  ``kv_shards`` picks the decode attention
-path (``models.attention.decode_attend``): None, the reference's replicated
+min(capacity, window) slots, an MLA layer (deepseek) a ring of its latent
+``ckv`` and shared rope key ``krope``.  ``kv_shards`` picks the decode
+attention path (``models.attention.decode_attend``): None, the reference's replicated
 plain-torch attention; 1, the ``flash_decode`` kernel; S >= 2, what the
 reference computes on a mesh whose ``model`` axis (``mesh.shape["model"] ==
 S``) shards the cache capacity: ``flash_decode_partial`` over S capacity
 shards plus the combine kernel, on one card.  S must divide every cache
-length, or construction raises.  ``ServeEngine.from_artifact`` builds the
+length, or construction raises; so does any set ``kv_shards`` on a model
+with MLA layers, whose decode has no decode-attention kernel.  ``ServeEngine.from_artifact`` builds the
 sparse engine straight from a saved mask bank.  Request validation happens
 at ``submit()``: an empty prompt, a prompt at or over cache capacity, or
 ``max_tokens <= 0`` never claims a slot.
@@ -157,7 +159,8 @@ class EngineFns:
         if decode_mode not in ("fused", "vmap"):
             raise ValueError(f"decode_mode {decode_mode!r}: 'fused' or "
                              "'vmap'")
-        check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity))
+        check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity),
+                        cfg.layer_kinds)
         self.cfg = cfg
         self.capacity = capacity
         self.device = device

@@ -207,3 +207,53 @@ def tiny_bank(name: str):
          / "bench_banks" / f"{name}-unstructured")
     return (JaxMaskBank.load(d, cfg=JaxModelConfig(**TINY[name])),
             MaskBank.load(d, cfg=ModelConfig(**TINY[name]), device="cpu"))
+
+
+def _jax_leaf(a):
+    """One port leaf -> the reference's (bf16 by its bits; a SparseTensor
+    as the reference's, values and index plane carried across)."""
+    import jax.numpy as jnp
+    if a is None:
+        return None
+    if isinstance(a, SparseTensor):
+        return JaxSparseTensor(_jax_leaf(a.vals), _jax_leaf(a.idx),
+                               a.idx_bits)
+    if a.dtype == torch.bfloat16:
+        return jnp.asarray(a.view(torch.int16).numpy()).view(jnp.bfloat16)
+    return jnp.asarray(a.numpy())
+
+
+def to_jax(t):
+    """A port tree of CPU tensors (None and SparseTensor leaves included)
+    -> the same tree for the reference."""
+    return tree.tree_map(_jax_leaf, t)
+
+
+def smoke_deepseek(prompt_lens=(9, 14, 9)):
+    """The smoke deepseek-v2-lite-16b for serving tests: cfgs, params drawn
+    by the port's ``init_params`` (seed 0; the reference's own init
+    compiles one program a leaf shape), 2:4 magnitude masks and the port's
+    packed2 compression, each as (reference tree, port tree), the
+    masked-dense bf16 tree (the compressed leaves' values: MLA's absorbed
+    ``w_uk`` / ``w_uv`` are read as stored), and numpy prompts."""
+    from repro.configs.base import get_smoke_config as jax_smoke_config
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core import calibrate as tcal
+    from repro_torch.models import model as TM
+    from repro_torch.sparse import apply as tapply
+    arch = "deepseek-v2-lite-16b"
+    cfg = get_smoke_config(arch)
+    tp = TM.init_params(cfg, 0, device="cpu")
+    tm = tcal.baseline_masks("magnitude", tp, tree.tree_map(
+        lambda _: None, tp), 0.5, mode="nm")
+    tsp = tapply.sparsify_params(tp, tm, axes=TM.param_axes(cfg),
+                                 idx_bits=2, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    return {
+        "cfg": (jax_smoke_config(arch), cfg), "dense": (to_jax(tp), tp),
+        "nm24": (to_jax(tsp), tsp),
+        "masked": tree.tree_map(lambda w, m: w if m is None else
+                                (w * m).to(torch.bfloat16), tp, tm),
+        "prompts": [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                    for n in prompt_lens]}
+

@@ -51,7 +51,12 @@ def cuda_device():
 
 _KERNEL_CASES = [(layout, mkn)
                  for mkn in [(1, 64, 64), (5, 132, 66), (16, 256, 130),
-                             (37, 1024, 512), (200, 512, 256), (3, 8192, 64)]
+                             (37, 1024, 512), (200, 512, 256), (3, 8192, 64),
+                             # deepseek-v2-lite: the dense layer's down (K
+                             # 10944 = 85.5 x 128, a partial last mma.sp
+                             # stage), w_dkv (N 576), w_uk / w_uv (K 512)
+                             (4, 10944, 2048), (37, 10944, 128),
+                             (4, 2048, 576), (31, 512, 2048)]
                  for layout in (LAYOUT_INT8, LAYOUT_PACKED2)
                  if layout == LAYOUT_INT8 or mkn[1] % 8 == 0]
 
@@ -91,7 +96,10 @@ def test_nm_matmul_kernel_matches_plain(cuda_device, layout, mkn):
 _EXPERT_CASES = [(layout, emkn)
                  for emkn in [(8, 4, 256, 130), (8, 1, 512, 64),
                               (8, 40, 256, 192), (4, 40, 132, 66),
-                              (2, 4, 8192, 64)]
+                              (2, 4, 8192, 64),
+                              # deepseek-v2-lite's 64 experts: up / gate at
+                              # decode (C 4), down at a prefill's C 16
+                              (64, 4, 2048, 1408), (64, 16, 1408, 2048)]
                  for layout in (LAYOUT_INT8, LAYOUT_PACKED2)
                  if layout == LAYOUT_INT8 or emkn[2] % 8 == 0]
 
@@ -643,6 +651,54 @@ def test_gemma_and_yi_graph_engines_equal_eager(cuda_device, arch,
         assert launched == cfg.num_layers * eng.decode_steps
     _, got = _serve(cfg, params, cuda_device, prompts, kv_shards=kv_shards)
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["dense", "2:4"])
+def test_deepseek_graph_engine_equals_eager(cuda_device, weights):
+    """The smoke deepseek-v2-lite (MLA, shared experts) engine: its decode
+    replayed from the CUDA graph (the absorbed decode decompresses the
+    2:4 ``w_uk`` / ``w_uv`` inside it) == eager, with the 2:4 kernels
+    launched per layer as the path takes them; a verify pass replayed ==
+    eager; and ``kv_shards`` refused."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    from repro_torch.sparse.apply import sparsify_params
+    from repro_torch import tree
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    params = M.init_params(cfg, 0, device=cuda_device)
+    if weights == "2:4":
+        masks = baseline_masks("magnitude", params, tree.tree_map(
+            lambda _: None, params), 0.5, mode="nm")
+        params = sparsify_params(params, masks, axes=M.param_axes(cfg),
+                                 idx_bits=2, dtype=torch.bfloat16)
+    params = M.serving_params(params)
+    prompts = _engine_prompts(cfg)
+    nm0, ex0 = nm_matmul.launches, nm_matmul_expert.launches
+    with E.eager():
+        eng, want = _serve(cfg, params, cuda_device, prompts)
+    if weights == "2:4":
+        # a layer's 2-D projections: 8 at prefill, 6 at decode (the
+        # absorbed decode reads w_uk / w_uv dense); 3 banks a MoE layer
+        L = cfg.num_layers
+        assert nm_matmul.launches - nm0 == L * (8 * eng.prefill_calls
+                                                + 6 * eng.decode_steps)
+        assert nm_matmul_expert.launches - ex0 == 3 * (L - 1) * (
+            eng.prefill_calls + eng.decode_steps)
+    eng, got = _serve(cfg, params, cuda_device, prompts)
+    assert got == want
+    assert eng.fns.capture_counts() == {"decode": 1}
+    toks = np.asarray([p[:3] for p in prompts[:2]])
+    pos = np.asarray([len(p) for p in prompts[:2]], np.int32)
+    with E.eager():
+        want_v, _ = eng.fns.verify(3)(eng.params, toks, eng.caches, pos)
+    got_v, _ = eng.fns.verify(3)(eng.params, toks, eng.caches, pos)
+    np.testing.assert_array_equal(got_v, want_v)
+    with pytest.raises(ValueError, match="MLA"):
+        E.ServeEngine(cfg, params, slots=2, capacity=48, device=cuda_device,
+                      kv_shards=1)
 
 
 @pytest.mark.cuda

@@ -108,8 +108,15 @@ def test_configs_are_the_references():
     (dict(vit_dim=64), "vision input")])
 def test_check_supported_still_refuses_the_rest(change, missing):
     cfg = dataclasses.replace(get_smoke_config("gemma3-1b"), **change)
+    if missing in PORTED_SINCE:     # accepted now (deepseek's slice)
+        TM.check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match=missing):
         TM.check_supported(cfg)
+
+
+# features the cases above name that a later slice ported
+PORTED_SINCE = {"shared experts"}
 
 
 def test_tiny_families_are_the_benchmarks():

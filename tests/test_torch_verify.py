@@ -2,7 +2,9 @@
 pass of speculative decoding) against the JAX reference's jitted
 ``verify_step``, on the smoke llama3.2-1b and on the smoke mixtral with
 its pattern replaced by the global-attention ``moe`` kind (``moe_local``
-has no verify path), each with the reference's own params.
+has no verify path), each with the reference's own params; and the
+deepseek MLA blocks' verify against their sequential decode (the model's
+verify against the reference's: tests/test_torch_deepseek.py).
 
 Start caches come from the reference's prefill, carried across, so both
 sides verify from identical state; rows start at different positions.
@@ -118,11 +120,47 @@ def test_verify_columns_equal_sequential_decode(setup, S):
         assert torch.equal(a, b), path
 
 
-@pytest.mark.parametrize("kind", ["mla_dense", "mla_moe", "local",
-                                  "moe_local"])
+@pytest.mark.parametrize("kind", ["local", "moe_local"])
 def test_verify_refuses_kinds_without_a_verify_path(kind):
     cfg = get_smoke_config("llama3.2-1b")
-    match = "ROADMAP A item 4" if kind.startswith("mla") else "verify path"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="verify path"):
         tblk.block_apply_verify(kind, cfg, {}, torch.zeros(1, 2, 8), {},
                                 torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.fixture(scope="module")
+def deepseek():
+    """The smoke deepseek-v2-lite-16b's params (the port's init, seed 0)
+    and each MLA kind's first layer."""
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    params = TM.serving_params(TM.init_params(cfg, 0, device="cpu"))
+    return cfg, {kind: TM._layer(params["stages"][s], 0)["0"]
+                 for s, ((kind,), _) in enumerate(TM.make_stages(cfg))}
+
+
+@pytest.mark.parametrize("S", [3, 4])
+@pytest.mark.parametrize("kind", ["mla_dense", "mla_moe"])
+def test_mla_verify_equals_sequential_decode(deepseek, kind, S):
+    """An MLA block's verify pass over S fed tokens per row against the
+    same tokens through S one-token decode steps, from one prefilled
+    latent ring: every output column and every ring row bit for bit (2
+    rows: the mla_moe block routes 2 x S <= 8 tokens, where capacity
+    equals the token count, as in the module docstring)."""
+    cfg, layers = deepseek
+    p, rows, P = layers[kind], 2, 9
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.standard_normal(
+        (rows, P + S, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    pos = torch.arange(P).expand(rows, P)
+    _, _, ring = tblk.block_apply_full(
+        kind, cfg, p, x[:, :P], tblk.Ctx(positions=pos, cache_capacity=C))
+    t0 = torch.tensor([P, P - 2], dtype=torch.int32)
+    vc = tree.tree_map(torch.clone, ring)
+    got, _ = tblk.block_apply_verify(kind, cfg, p, x[:, P:], vc, t0)
+    dc = tree.tree_map(torch.clone, ring)
+    for i in range(S):
+        want, _ = tblk.block_apply_decode(kind, cfg, p, x[:, P + i:P + i + 1],
+                                          dc, t0 + i)
+        assert torch.equal(got[:, i:i + 1], want), i
+    for name in ("ckv", "krope"):
+        assert torch.equal(vc[name], dc[name]), name
