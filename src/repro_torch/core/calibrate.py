@@ -8,7 +8,8 @@ collect_stats    - activation stats over the calibration set (Algorithm 1,
 stats_parity     - the aggregate criterion between the two.
 run_search       - N mirror-descent steps (lines 3-12), one
                    ``mirror.search_step`` per step with the state updated in
-                   place.
+                   place, grouped into the reference's chunks for the
+                   flight recorder's per-chunk trace.
 unipruning_prune - stats -> search -> Gamma -> masks(W0) at any requested
                    sparsity levels (one search, many budgets).
 baseline_masks   - one-shot local-metric baselines sharing the same stats
@@ -18,8 +19,12 @@ Process-level entry point: ``repro_torch.launch.calibrate`` runs stats ->
 search once and writes a ``sparse.bank.MaskBank`` artifact.  The reference
 runs the search as jitted ``lax.scan`` chunks of ``pcfg.scan_chunk`` steps;
 eager torch has no such dispatch, and the chunking does not change the
-result (the reference's own test holds scanned against eager), so
-``scan_chunk`` is kept in the config only for the bank's ``pcfg``.
+result (the reference's own test holds scanned against eager).  The port
+steps eagerly in the same chunks, so its flight-recorder events are the
+reference's: a ``calibrate.search_chunk`` span and log (the chunk's loss,
+align, mask_churn, gamma_entropy and sparsity series) per chunk, or a
+``calibrate.search_step`` span per step with ``scan_chunk <= 1``, and the
+recompile sentinel's ``search_chunk`` / ``search_step`` notes.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from typing import Any, Callable, Iterable
 
 import torch
 
-from repro_torch import tree
+from repro_torch import obs, tree
+from repro_torch.analysis import recompile
 from repro_torch.configs.base import ModelConfig, PruneConfig
 from repro_torch.core import masks as masks_mod
 from repro_torch.core import metrics as metrics_mod
@@ -107,25 +113,72 @@ def stats_parity(tape_stats: PyTree, jit_stats: PyTree, prunable: PyTree,
     return worst, bool(worst <= tol) and checked > 0, checked
 
 
+# series the flight recorder traces per chunk (convergence is the paper's
+# whole argument for global feedback: the trajectory must be observable
+# without re-running the search)
+_TRACE = ("loss", "align", "mask_churn", "gamma_entropy")
+
+
+def _trace_chunk(ms: list[dict], start: int) -> list[dict]:
+    """One chunk's per-step metrics read to the host in one copy, logged as
+    the reference logs a chunk (``calibrate.search_chunk``), with the
+    steps counter and the three gauges; returns the steps' host metrics."""
+    keys = list(ms[0])
+    host = torch.stack([torch.stack([m[k].detach().double() for k in keys])
+                        for m in ms]).cpu().tolist()
+    rows = [dict(zip(keys, r)) for r in host]
+    sparsity = [1.0 - r["gamma_nonzero_frac"] for r in rows]
+    obs.log("calibrate.search_chunk", start=start, steps=len(ms),
+            sparsity=sparsity,
+            **{k: [r[k] for r in rows] for k in _TRACE if k in keys})
+    obs.inc("calibrate.search_steps", len(ms))
+    obs.set_gauge("calibrate.gamma_entropy", rows[-1]["gamma_entropy"])
+    obs.set_gauge("calibrate.mask_churn", rows[-1]["mask_churn"])
+    obs.set_gauge("calibrate.sparsity", sparsity[-1])
+    return rows
+
+
 def run_search(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
                batches: list[dict], stats: PyTree, *,
                log_every: int = 0, loss_fn: Callable | None = None,
                seed: int = SEARCH_SEED):
     """Returns (final state, history): ``pcfg.steps`` steps over the
-    batches in turn; history holds every ``log_every``-th step's metrics,
-    read from the device once, after the last step."""
+    batches in turn; history holds every ``log_every``-th step's metrics.
+
+    The steps run in the reference's chunks of ``pcfg.scan_chunk`` (<= 1:
+    one step a chunk, traced as ``calibrate.search_step`` spans).  With the flight recorder on, each
+    chunk's metrics are read to the host once, after the chunk, for its
+    trace and its history rows; with it off nothing is read until the
+    last step, when the logged steps' metrics are."""
     prunable = prunable_map(params0)
     loss_fn = loss_fn or partial(lm_loss, cfg)
     state = mirror.init_search(params0, seed)
     dev = tree.device_of(params0)
     batches = [_device_batch(b, dev) for b in batches]
-    logged = []
-    for n in range(pcfg.steps):
-        state, m = mirror.search_step(pcfg, loss_fn, state,
-                                      batches[n % len(batches)], stats,
-                                      prunable)
-        if log_every and n % log_every == 0:
-            logged.append(m)
+    chunk = max(int(pcfg.scan_chunk), 0)
+    logged = []     # the logged steps' metrics: host rows or device values
+    n = 0
+    while n < pcfg.steps:
+        c = 1 if chunk <= 1 else min(chunk, pcfg.steps - n)
+        chunk_batches = [batches[(n + j) % len(batches)] for j in range(c)]
+        if chunk <= 1:
+            recompile.note("search_step", (state, chunk_batches[0]))
+            sp = obs.span("calibrate.search_step", step=n)
+        else:
+            recompile.note("search_chunk", (state, chunk_batches))
+            sp = obs.span("calibrate.search_chunk", start=n, steps=c)
+        ms = []
+        with sp:
+            for b in chunk_batches:
+                state, m = mirror.search_step(pcfg, loss_fn, state, b, stats,
+                                              prunable)
+                ms.append(m)
+            sp.fence(ms)
+        rows = _trace_chunk(ms, n) if obs.enabled() else ms
+        if log_every:
+            logged += [r for j, r in enumerate(rows)
+                       if (n + j) % log_every == 0]
+        n += c
     history = [{k: float(v) for k, v in m.items()} for m in logged]
     return state, history
 

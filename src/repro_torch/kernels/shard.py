@@ -16,17 +16,86 @@ whose capacity ``m`` does not divide, the port raises
 (:func:`check_kv_shards`): ``kv_shards`` asks for this path, and it never
 falls back quietly to the replicated one.
 
+Collective accounting follows the reference's: each capacity-sharded
+attention counts ``dist.psum`` 2 (the combine's max and sum over the
+shards: the reference's exact-mimic branch, 1 pmax + psums, counts 2) and
+``dist.psum_bytes`` its per-device payload at ``site="attn_kv"``.  The
+reference counts at trace time, once per scanned call site of a compiled
+trace; the port counts once per traced call of an engine surface (a CUDA
+graph capture, or an eager call whose signature the surface has not seen:
+:func:`surface_call`), at each (stage, pattern position) of the layer
+stack (:func:`trace_sites`).  A call outside any engine surface is the
+reference's eager call: it counts every time and observes
+``dist.collective_ms``.
+
 The K-sharded projection wrappers and the multi-card form (ranks, NCCL)
 wait for the tensor-parallel slice (ROADMAP A13), which reuses these
 kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
+
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.flash_decode import (combine_partials,
                                               flash_decode_partial)
 from repro_torch.kernels.ref import NEG_INF
+
+_tls = threading.local()
+
+
+class _Trace:
+    """One traced call of an engine surface: the call sites whose
+    collectives it has counted, and the site the layer loop is at."""
+
+    __slots__ = ("seen", "at")
+
+    def __init__(self):
+        self.seen: set = set()
+        self.at = None
+
+
+_QUIET = object()    # a surface call that is not its surface's trace
+
+
+@contextlib.contextmanager
+def surface_call(traced: bool):
+    """Around one call of an engine surface (``EngineFns._call``):
+    ``traced`` says it is the surface's trace, the call whose collectives
+    the reference's trace-time counters count; any other call counts
+    nothing and times nothing."""
+    prev = getattr(_tls, "trace", None)
+    _tls.trace = _Trace() if traced else _QUIET
+    try:
+        yield
+    finally:
+        _tls.trace = prev
+
+
+def trace_sites():
+    """The active trace, for the layer loop to mark its call site
+    (``trace.at = (stage, pattern position)``), or None."""
+    tr = getattr(_tls, "trace", None)
+    return tr if isinstance(tr, _Trace) else None
+
+
+def _count(site: str, payload_bytes: int, n_psum: int = 1) -> bool:
+    """Collective accounting (``shard.py:90-95`` of the reference); returns
+    whether the call is eager (outside any engine surface)."""
+    tr = getattr(_tls, "trace", None)
+    if tr is _QUIET:
+        return False
+    if tr is not None:
+        if tr.at in tr.seen:
+            return False
+        tr.seen.add(tr.at)
+    obs.inc("dist.psum", n_psum, site=site)
+    obs.inc("dist.psum_bytes", payload_bytes, site=site)
+    return tr is None
 
 
 def check_kv_shards(kv_shards, cache_lengths, kinds=()) -> None:
@@ -68,7 +137,19 @@ def decode_attend_sharded(qg: torch.Tensor, cache_k: torch.Tensor,
     :func:`combine_partials` takes the max over shards, rescales, sums in
     shard order and normalises: (B,K,G,Dv) in qg's dtype.
     """
+    B, Kh, G, _ = qg.shape
+    eager = _count("attn_kv", B * Kh * G * (1 + cache_v.shape[-1]) * 4,
+                   n_psum=2)
+    # no clock and no metric inside a CUDA graph capture
+    timed = eager and obs.enabled() and not (
+        qg.is_cuda and torch.cuda.is_current_stream_capturing())
+    t0 = time.perf_counter() if timed else None
     bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
     acc, m, l = flash_decode_partial(qg, cache_k, cache_v, bias,
                                      scale=scale, shards=shards)
-    return combine_partials(acc, m, l, qg.dtype)
+    out = combine_partials(acc, m, l, qg.dtype)
+    if timed:
+        obs.core.block_until_ready(out)
+        obs.observe("dist.collective_ms", (time.perf_counter() - t0) * 1e3,
+                    site="attn_kv")
+    return out

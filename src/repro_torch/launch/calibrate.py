@@ -16,31 +16,76 @@ reference's.
 ``deepseek-v2-lite-16b``.
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Stage seconds
-are host clocks around work fenced with ``torch.cuda.synchronize``.
-``--stats-impl tape`` takes the stats from the eager ``StatsTape`` oracle
-instead of the production pass (recorded as the bank's ``stats_impl``).
-The reference's ``--mesh``, ``--trace-dir`` and ``--xprof-dir`` come with
-the multi-card and observability slices.
+come from ``obs.timer``s (``calibrate.stats``, ``calibrate.search``,
+``calibrate.save_bank``): host clocks around work fenced on the stage's
+outputs, recorded in the bank's meta whether or not the flight recorder
+is on.  ``--stats-impl tape`` takes the stats from the eager ``StatsTape``
+oracle instead of the production pass (recorded as the bank's
+``stats_impl``).  ``--trace-dir D`` turns the flight recorder on and
+writes ``D/events.jsonl`` (the stage timers, the per-chunk search series,
+``calibrate.done``) and ``D/metrics.prom``; ``--xprof-dir X`` writes a
+``torch.profiler`` Chrome trace (CPU and, on the card, CUDA activities)
+into X, each stage under a ``record_function`` of its name.  The
+reference's ``--mesh`` comes with the multi-card slice.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
-import time
 from typing import Any
 
 import torch
 
-from repro_torch import tree
+from repro_torch import obs, tree
 from repro_torch.configs.base import PruneConfig, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 
 PyTree = Any
 
 
-def _sync(device: torch.device) -> None:
+def stage_annotation(name: str, annotate: bool):
+    """``torch.profiler.record_function(name)`` while ``--xprof-dir``
+    profiles (the reference's ``StepTraceAnnotation``), else nothing."""
+    if not annotate:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def profiling(xprof_dir, device: torch.device):
+    """``torch.profiler`` over the block when ``xprof_dir`` is set (CPU
+    activities, and CUDA on the card), its Chrome trace written into
+    ``xprof_dir`` when the block ends, the profiler stopped either way."""
+    if not xprof_dir:
+        yield
+        return
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        acts.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(xprof_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out / "trace.json"))
+        print(f"wrote profiler trace -> {out / 'trace.json'}")
+
+
+def write_metrics(trace_dir) -> None:
+    """``metrics.prom`` (``obs.expose()``) beside the flushed
+    ``events.jsonl`` in ``trace_dir``."""
+    import pathlib
+    prom = pathlib.Path(trace_dir) / "metrics.prom"
+    prom.write_text(obs.expose())
+    obs.flush()
+    print(f"wrote trace -> {obs.trace_path()} and {prom}")
 
 
 def params_fingerprint(params: PyTree) -> str:
@@ -52,34 +97,42 @@ def params_fingerprint(params: PyTree) -> str:
 def calibrate_to_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
                       calib: list[dict], arch: str, smoke: bool,
                       stats_impl: str = "jit", log_every: int = 0,
-                      loss_fn=None, extra: dict | None = None):
+                      loss_fn=None, extra: dict | None = None,
+                      xprof: bool = False):
     """Run the full calibration once and write the MaskBank artifact.
 
     Returns the in-memory :class:`~repro_torch.sparse.bank.MaskBank`
     backed by the artifact just written to ``out_dir``; its meta records
-    the stage seconds and the search history."""
+    the stage seconds (``obs.timer``s, fenced on each stage's outputs)
+    and the search history.  ``xprof``: each stage under a
+    ``record_function`` of its name, for an active profiler."""
     from repro_torch.core import calibrate
     from repro_torch.sparse.bank import MaskBank
-    device = tree.device_of(params)
-    _sync(device)
-    t0 = time.perf_counter()
-    stats = calibrate.collect_stats(cfg, params, calib, pcfg=pcfg,
-                                    impl=stats_impl)
-    _sync(device)
-    t_stats = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state, history = calibrate.run_search(cfg, pcfg, params, calib, stats,
-                                          log_every=log_every,
-                                          loss_fn=loss_fn)
-    _sync(device)
-    t_search = time.perf_counter() - t0
+    with stage_annotation("calibrate.stats", xprof), \
+            obs.timer("calibrate.stats", arch=arch,
+                      stats_impl=stats_impl) as t_stats:
+        stats = calibrate.collect_stats(cfg, params, calib, pcfg=pcfg,
+                                        impl=stats_impl)
+        t_stats.fence(stats)
+    with stage_annotation("calibrate.search", xprof), \
+            obs.timer("calibrate.search", arch=arch,
+                      steps=pcfg.steps) as t_search:
+        state, history = calibrate.run_search(cfg, pcfg, params, calib,
+                                              stats, log_every=log_every,
+                                              loss_fn=loss_fn)
+        t_search.fence(state)
     meta = {"params_fingerprint": params_fingerprint(params),
             "stats_impl": stats_impl,
-            "stats_seconds": t_stats,
-            "search_seconds": t_search,
+            "stats_seconds": t_stats.seconds,
+            "search_seconds": t_search.seconds,
             "history": history, **(extra or {})}
-    return MaskBank.save(out_dir, arch=arch, smoke=smoke, state=state,
-                         stats=stats, pcfg=pcfg, cfg=cfg, extra=meta)
+    with obs.timer("calibrate.save_bank", arch=arch) as t_save:
+        bank = MaskBank.save(out_dir, arch=arch, smoke=smoke, state=state,
+                             stats=stats, pcfg=pcfg, cfg=cfg, extra=meta)
+    obs.log("calibrate.done", arch=arch, out_dir=str(out_dir),
+            stats_seconds=t_stats.seconds, search_seconds=t_search.seconds,
+            save_seconds=t_save.seconds)
+    return bank
 
 
 def ensure_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
@@ -111,8 +164,9 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--stats-batches", type=int, default=4)
     ap.add_argument("--scan-chunk", type=int, default=8,
-                    help="kept in the bank's PruneConfig (the reference's "
-                         "steps per jitted dispatch); no effect here")
+                    help="search steps per chunk of the flight recorder's "
+                         "trace (the reference's steps per jitted dispatch; "
+                         "<= 1: a span per step); the result is the same")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per search step (gradient "
                          "accumulation over batch-dim slices)")
@@ -126,11 +180,20 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain CPU path)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="enable the flight recorder and write the JSONL "
+                         "event trace (spans, per-chunk search series) + "
+                         "a metrics.prom snapshot here")
+    ap.add_argument("--xprof-dir", default=None,
+                    help="write a torch.profiler Chrome trace here, with a "
+                         "record_function mark per pipeline stage")
     args = ap.parse_args(argv)
 
     from repro_torch.data.synthetic import batches_for
     from repro_torch.models import model as M
     device = resolve_device(args.device)
+    if args.trace_dir:
+        obs.configure(trace_dir=args.trace_dir)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = M.init_params(cfg, 0, device=device)
     calib = batches_for(cfg, n=args.calib_n, batch=args.batch, seq=args.seq,
@@ -139,10 +202,13 @@ def main(argv=None) -> None:
                        steps=args.steps, stats_batches=args.stats_batches,
                        scan_chunk=args.scan_chunk,
                        grad_accum=args.grad_accum)
-    bank = calibrate_to_bank(args.out, cfg=cfg, pcfg=pcfg, params=params,
-                             calib=calib, arch=args.arch, smoke=args.smoke,
-                             stats_impl=args.stats_impl,
-                             log_every=args.log_every)
+    with profiling(args.xprof_dir, device):
+        bank = calibrate_to_bank(args.out, cfg=cfg, pcfg=pcfg, params=params,
+                                 calib=calib, arch=args.arch,
+                                 smoke=args.smoke,
+                                 stats_impl=args.stats_impl,
+                                 log_every=args.log_every,
+                                 xprof=bool(args.xprof_dir))
     n_pr = sum(g.numel() for g in tree.leaves(bank.Gamma) if g is not None)
     print(f"device {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
@@ -155,6 +221,8 @@ def main(argv=None) -> None:
           f"{pcfg.steps / max(bank.meta['search_seconds'], 1e-9):.2f} "
           f"steps/s)")
     print(f"saved mask bank -> {args.out}")
+    if args.trace_dir:
+        write_metrics(args.trace_dir)
 
 
 if __name__ == "__main__":

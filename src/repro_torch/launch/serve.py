@@ -1,7 +1,6 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens.
 
-Port of ``repro.launch.serve`` (the trace flags ``--trace-dir`` and
-``--xprof-dir`` come with the observability slice):
+Port of ``repro.launch.serve``:
 
 * dense: random weights from ``torch.Generator`` seed 0;
 * ``--sparse [--save-artifact DIR]``: calibrate 2:4 (wanda, 30 steps)
@@ -19,7 +18,15 @@ Port of ``repro.launch.serve`` (the trace flags ``--trace-dir`` and
   A/B weighted or self-speculative, and its report;
 * ``--temperature T``: decode step i samples ``categorical(key(100 + i),
   logits / T)`` (``core.prng``, jax's stream) instead of the argmax; the
-  prefill's token stays the argmax, as the reference's.
+  prefill's token stays the argmax, as the reference's;
+* ``--trace-dir D``: the flight recorder on, ``D/events.jsonl`` (the
+  ``launch.prefill`` / ``launch.decode`` timers, a ``serve.decode_step``
+  span a step; the engines' and fleet's series with ``--fleet``) and
+  ``D/metrics.prom`` written at exit; ``--xprof-dir X``: a
+  ``torch.profiler`` Chrome trace (CPU and, on the card, CUDA
+  activities) in X, the prefill under ``record_function("prefill")`` and
+  each decode step under ``record_function("decode")`` with its step
+  number.
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Any ported
 arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window),
@@ -45,20 +52,27 @@ experts top-6 and 2 shared, a dense first layer).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data.synthetic import batches_for
 from repro_torch.device import resolve_device
+from repro_torch.launch.calibrate import profiling, write_metrics
 from repro_torch.models import model as M
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _step_annotation(name: str, step: int, annotate: bool):
+    """``record_function(name)`` with the step number while
+    ``--xprof-dir`` profiles (the reference's ``StepTraceAnnotation``),
+    else nothing."""
+    if not annotate:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name, str(step))
 
 
 def _calibrate_sparse(cfg, args, params):
@@ -109,28 +123,39 @@ def _next_tokens(logits: torch.Tensor, temperature: float, i: int
 
 
 def generate(cfg, params, toks: torch.Tensor, gen: int, *,
-             temperature: float = 0.0):
+             temperature: float = 0.0, xprof: bool = False):
     """Prefill (B, P) prompt tokens, then decode ``gen - 1`` steps at a
     capacity of P + gen: (tokens (B, gen) on the host, prefill seconds,
     decode seconds).  The prefill's token is the argmax; each decode step's
-    is :func:`_next_tokens`'s."""
+    is :func:`_next_tokens`'s.  The stages are ``obs.timer``s
+    (``launch.prefill``, ``launch.decode``) fenced on their outputs, each
+    decode step a ``serve.decode_step`` span and a ``serve.decode_step_ms``
+    observation; ``xprof``: each under a ``record_function``."""
     device = params["embed"]["table"].device
-    P = toks.shape[1]
+    B, P = toks.shape
     with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        logits, caches = M.prefill(cfg, params, {"tokens": toks.to(device)},
-                                   cache_capacity=P + gen)
-        tok = logits.argmax(dim=-1)
+        # work still queued for the weights is not the prefill's
+        obs.core.block_until_ready(params)
+        with _step_annotation("prefill", 0, xprof), \
+                obs.timer("launch.prefill", batch=B, prompt_len=P) as tp:
+            logits, caches = M.prefill(cfg, params,
+                                       {"tokens": toks.to(device)},
+                                       cache_capacity=P + gen)
+            tok = logits.argmax(dim=-1)
+            tp.fence((tok, caches))
         out = [tok.cpu()]
-        t_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for i in range(gen - 1):
-            logits, caches = M.decode_step(cfg, params, tok, caches, P + i)
-            tok = _next_tokens(logits, temperature, i)
-            out.append(tok.cpu())   # host copy: the step's sync point
-        t_decode = time.perf_counter() - t0
-    return torch.stack(out, dim=1), t_prefill, t_decode
+        with obs.timer("launch.decode", steps=gen - 1) as td:
+            for i in range(gen - 1):
+                sp = obs.span("serve.decode_step")
+                with sp, _step_annotation("decode", i + 1, xprof):
+                    logits, caches = M.decode_step(cfg, params, tok, caches,
+                                                   P + i)
+                    tok = _next_tokens(logits, temperature, i)
+                    out.append(tok.cpu())   # host copy: the step's sync
+                if sp.seconds is not None:
+                    obs.observe("serve.decode_step_ms", sp.seconds * 1e3)
+            td.fence(tok)
+    return torch.stack(out, dim=1), tp.seconds, td.seconds
 
 
 def _load_sparse(args, params, device):
@@ -201,6 +226,7 @@ def _serve_fleet(args, params, device) -> None:
           f"(reference: {rep['reference']})")
     for name, r in rep["budgets"].items():
         agree = r["token_agreement_vs_reference"]
+        p50, p95 = r["decode_ms_p50"], r["decode_ms_p95"]
         print(f"  {name:>6}: slots {r['slots']}, {r['requests']} reqs, "
               f"{(r['tok_s'] or 0):8.1f} tok/s, "
               f"byte ratio {r['weight_bytes_ratio']:.4f} "
@@ -208,7 +234,9 @@ def _serve_fleet(args, params, device) -> None:
               f"{r['fallback_leaves']} masked-dense), "
               f"shared dense leaves {r['shared_dense_leaves']}"
               + (f", agreement vs ref {agree:.3f}" if agree is not None
-                 else ""))
+                 else "")
+              + (f", decode p50/p95 {p50:.2f}/{p95:.2f} ms"
+                 if p50 is not None else ""))
     spec = rep["spec"]
     if spec is not None:
         print(f"  spec: {spec['draft']} drafts -> {spec['verify']} "
@@ -267,9 +295,26 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain CPU path)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="enable the flight recorder and write the JSONL "
+                         "event trace + a metrics.prom snapshot here")
+    ap.add_argument("--xprof-dir", default=None,
+                    help="write a torch.profiler Chrome trace here, with "
+                         "record_function marks per prefill/decode step")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.trace_dir:
+        obs.configure(trace_dir=args.trace_dir)
+    try:
+        with profiling(args.xprof_dir, device):
+            _serve(args, device)
+    finally:
+        if args.trace_dir:
+            write_metrics(args.trace_dir)
+
+
+def _serve(args, device) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = M.init_params(cfg, 0, device=device)
     if args.spec and not args.fleet:
@@ -291,7 +336,8 @@ def main(argv=None) -> None:
     toks = torch.from_numpy(batches_for(cfg, n=1, batch=B, seq=P,
                                         split="valid")[0]["tokens"])
     gen, t_prefill, t_decode = generate(cfg, params, toks, args.gen,
-                                        temperature=args.temperature)
+                                        temperature=args.temperature,
+                                        xprof=bool(args.xprof_dir))
     print(f"device {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import shard as ksh
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
 from repro_torch.models.blocks import Ctx
@@ -322,12 +323,16 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     if t.dim() == 0:
         t = t.expand(B)
-    for (pattern, repeats), sp, cache in zip(make_stages(cfg),
-                                             params["stages"], caches,
-                                             strict=True):
+    # an engine surface's trace counts each (stage, pattern position) once,
+    # as the reference's scanned layer body is traced once
+    trace = ksh.trace_sites()
+    for si, ((pattern, repeats), sp, cache) in enumerate(zip(
+            make_stages(cfg), params["stages"], caches, strict=True)):
         for i in range(repeats):
             lp, lc = _layer(sp, i), _layer(cache, i)
             for j, kind in enumerate(pattern):
+                if trace is not None:
+                    trace.at = (si, j)
                 x, _ = blk.block_apply_decode(kind, cfg, lp[str(j)], x,
                                               lc[str(j)], t,
                                               kv_shards=kv_shards)

@@ -42,21 +42,38 @@ too), so a graph captured before an admission sees it.  Prefill stays
 eager.  :func:`eager` runs every step eagerly on the card as well, the
 graphs' oracle (the analogue of ``jax.disable_jit``); on the CPU
 everything is eager.
+
+The flight recorder (``repro_torch.obs``) sees what the reference's sees:
+``serve.requests_submitted`` / ``_retired``, ``serve.queue_depth``, a
+``serve.prefill`` span and ``serve.prefill_ms`` per admission,
+``serve.prefill_bucket_hits``, ``serve.decode_step_ms``,
+``serve.slot_util`` and ``serve.tokens_decoded`` per decode step, all
+labelled with the engine's ``labels``; ``serve.jit_entries`` at the first
+use of each (surface, bucket) and ``serve.jit_cache_size`` per surface
+after each ``run()``.  A surface's cache size is the number of distinct
+call signatures it has seen (:meth:`EngineFns.jit_cache_sizes`), what the
+reference's jit cache holds; the graphs captured are
+:meth:`EngineFns.capture_counts`.  No recorder call sits inside a captured
+body: the decode step's clock is read around the replay, whose read of
+the greedy tokens is the step's synchronisation.  The recompile sentinel
+(``analysis.recompile``) notes prefill, the slot write and decode.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import obs, tree
+from repro_torch.analysis import recompile
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.shard import check_kv_shards
+from repro_torch.kernels.shard import check_kv_shards, surface_call
 from repro_torch.models import model as M
 
 # layer kinds whose prompt padding is invisible: position-masked attention
@@ -101,7 +118,8 @@ class _Graph:
     graph reads and writes."""
 
     def __init__(self, body: Callable, params, caches: list,
-                 inp: np.ndarray, pos: np.ndarray, device, pool):
+                 inp: np.ndarray, pos: np.ndarray, device, pool,
+                 traced: bool = False):
         self.params, self.caches = params, caches
         self.inp = torch.empty(inp.shape, dtype=torch.int64, device=device)
         self.pos = torch.empty(pos.shape, dtype=torch.int32, device=device)
@@ -116,11 +134,12 @@ class _Graph:
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), surface_call(False):
             body(params, self.inp, caches, self.pos)
         cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
+        # the capture is the surface's trace when its signature is new
+        with torch.cuda.graph(self.graph, pool=pool), surface_call(traced):
             self.out = body(params, self.inp, caches, self.pos)
         self.out_host = torch.empty(self.out.shape, dtype=self.out.dtype,
                                     pin_memory=True)
@@ -168,6 +187,12 @@ class EngineFns:
         self.decode_mode = decode_mode
         self.verify_fns: dict[int, Callable] = {}   # k -> verify pass
         self.draft_fns: dict[int, Callable] = {}    # k -> draft loop
+        self.prefill_buckets: set[int] = set()      # buckets used
+        # surface -> the distinct call signatures it has seen
+        self._sigs: dict[str, set] = {"decode": set(), "write_slot": set()}
+        # (surface, ids and shapes of a call) already signed; holds the
+        # call's params and caches so their ids stay theirs
+        self._signed: dict[tuple, tuple] = {}
         self._graphs: dict[tuple, _Graph] = {}
         self._pool = None
         self._blank_row = None
@@ -190,14 +215,39 @@ class EngineFns:
         return M.decode_step(self.cfg, params, toks, caches, t,
                              kv_shards=self.kv_shards)
 
+    def _new_signature(self, surface: str, args: tuple,
+                       ids: tuple | None = None) -> bool:
+        """Record a call of ``surface``; True when its signature
+        (``recompile.signature``) is new to the surface: the call the
+        reference's jit would trace.  ``ids``: a cheap key of the call
+        (object ids and shapes) under which its signature is computed
+        once."""
+        if ids is not None:
+            key = (surface, *ids)
+            if key in self._signed:
+                return False
+            self._signed[key] = args
+        sigs = self._sigs.setdefault(surface, set())
+        sig = recompile.signature(args)
+        if sig in sigs:
+            return False
+        sigs.add(sig)
+        return True
+
     def prefill(self, params, toks: torch.Tensor) -> list:
         """Cache rows for one padded prompt (1, bucket)."""
+        bucket = toks.shape[1]
+        if bucket not in self.prefill_buckets:
+            self.prefill_buckets.add(bucket)
+            obs.inc("serve.jit_entries", surface="prefill", bucket=bucket)
+        self._new_signature(f"prefill_{bucket}", (params, toks),
+                            (id(params), bucket))
         return M.prefill(self.cfg, params, {"tokens": toks},
                          cache_capacity=self.capacity)[1]
 
-    @staticmethod
-    def write_slot(full: list, row: list, s: int) -> list:
+    def write_slot(self, full: list, row: list, s: int) -> list:
         """Replace slot s's cache rows with a 1-slot row, in place."""
+        self._new_signature("write_slot", (full, row, np.int32(s)))
         tree.tree_map(lambda f, n: f[:, s].copy_(n[:, 0]), full, row)
         return full
 
@@ -226,6 +276,8 @@ class EngineFns:
         engine's own sequential decode would."""
         fn = self.draft_fns.get(k)
         if fn is None:
+            obs.inc("serve.jit_entries", surface="draft", bucket=k)
+
             def body(p, seed, c, t):
                 tok, out = seed, []
                 for i in range(k):
@@ -249,6 +301,8 @@ class EngineFns:
         stream overwrites them, so rollback is host-side bookkeeping."""
         fn = self.verify_fns.get(k)
         if fn is None:
+            obs.inc("serve.jit_entries", surface="verify", bucket=k)
+
             def body(p, toks, c, t):
                 logits, _ = M.verify_step(self.cfg, p, toks, c, t)
                 return logits.argmax(-1).to(torch.int32)
@@ -264,29 +318,52 @@ class EngineFns:
               ) -> np.ndarray:
         """``body(params, inp, caches, positions)`` -> greedy tokens on the
         host: eagerly on the CPU, in vmap decode and under :func:`eager`;
-        else through the surface's CUDA graph for these caches."""
+        else through the surface's CUDA graph for these caches.  The
+        call whose signature is new to the surface (on the graph path: its
+        capture) is the surface's trace (``kernels.shard.surface_call``)."""
         inp = np.asarray(inp)
         pos = np.asarray(pos, np.int32)
+        args = (params, inp, caches, pos)
         if self.device.type != "cuda" or _eager_depth or not graph:
-            out = body(params, torch.from_numpy(inp).to(self.device).long(),
-                       caches, torch.from_numpy(pos.copy()).to(self.device))
+            traced = self._new_signature(
+                surface, args, (id(params), id(caches), inp.shape,
+                                pos.shape))
+            with surface_call(traced):
+                out = body(params,
+                           torch.from_numpy(inp).to(self.device).long(),
+                           caches,
+                           torch.from_numpy(pos.copy()).to(self.device))
             return out.cpu().numpy()
         key = (surface, id(params), id(caches))
         g = self._graphs.get(key)
         if g is None:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            g = self._graphs[key] = _Graph(body, params, caches, inp, pos,
-                                           self.device, self._pool)
+            g = self._graphs[key] = _Graph(
+                body, params, caches, inp, pos, self.device, self._pool,
+                traced=self._new_signature(surface, args))
         return g.run(inp, pos)
 
     def capture_counts(self) -> dict[str, int]:
         """CUDA graphs captured per surface (``decode``, ``draft_k``,
-        ``verify_k``), over every engine on this instance: the analogue of
-        the reference's ``jit_cache_sizes``; it grows only with a new
-        engine or a new k."""
+        ``verify_k``), over every engine on this instance; it grows only
+        with a new engine or a new k."""
         return dict(sorted(collections.Counter(
             surface for surface, *_ in self._graphs).items()))
+
+    def jit_cache_sizes(self) -> dict[str, int]:
+        """Distinct call signatures per surface (``decode``,
+        ``write_slot``, ``prefill_<bucket>``, ``verify_<k>``,
+        ``draft_<k>``), over every engine on this instance: what the
+        reference's jit caches hold, one entry per params structure and
+        shapes, so fleet members that share both count once (on the card
+        each engine still captures its own graph: :meth:`capture_counts`).
+        """
+        names = ["decode", "write_slot",
+                 *(f"prefill_{b}" for b in self.prefill_buckets),
+                 *(f"verify_{k}" for k in self.verify_fns),
+                 *(f"draft_{k}" for k in self.draft_fns)]
+        return {n: len(self._sigs.get(n, ())) for n in names}
 
 
 class ServeEngine:
@@ -301,7 +378,8 @@ class ServeEngine:
     cache length raises ``ValueError``.  ``fns``: a shared
     :class:`EngineFns`, which must have been built for this engine's cfg,
     capacity, decode mode, device and ``kv_shards`` (else ``ValueError``).
-    ``labels``: metric labels, stored (``obs`` is not ported yet).
+    ``labels``: metric labels stamped on every span, counter and
+    histogram this engine records (a fleet labels its members by budget).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -388,6 +466,10 @@ class ServeEngine:
             self._done_unslotted.append(req)
         else:
             self.queue.append(req)
+        if obs.enabled():
+            obs.inc("serve.requests_submitted", **self.obs_labels)
+            obs.set_gauge("serve.queue_depth", len(self.queue),
+                          **self.obs_labels)
         return rid
 
     @property
@@ -406,6 +488,11 @@ class ServeEngine:
             self._admit()
             for r in self._step():
                 results[r.rid] = r.out
+        if obs.enabled():
+            # compiled-entry counts per shared surface: a growing gauge
+            # across runs means a new params structure or shape
+            for surface, size in self.fns.jit_cache_sizes().items():
+                obs.set_gauge("serve.jit_cache_size", size, surface=surface)
         return results
 
     # -- internals -----------------------------------------------------------
@@ -441,25 +528,55 @@ class ServeEngine:
         before it could become visible.
         """
         n = len(req.prompt) - 1  # submit() guarantees 0 <= n < capacity
-        if n == 0:
-            row = self.fns.blank_row()
-        else:
-            bucket = self._prefill_bucket(n)
-            toks = np.zeros((1, bucket), np.int32)
-            toks[0, :n] = req.prompt[:-1]
-            row = self.fns.prefill(self.params,
-                                   torch.from_numpy(toks).to(self.device))
-            self.prefill_calls += 1
-        self.fns.write_slot(self.caches, row, s)
+        sp = obs.span("serve.prefill", slot=s, prompt_len=len(req.prompt),
+                      **self.obs_labels)
+        with sp:
+            if n == 0:
+                row = self.fns.blank_row()
+                sp.set(bucket="blank")
+            else:
+                bucket = self._prefill_bucket(n)
+                toks = np.zeros((1, bucket), np.int32)
+                toks[0, :n] = req.prompt[:-1]
+                if recompile.enabled():
+                    recompile.note(f"prefill_{bucket}", (self.params, toks))
+                row = self.fns.prefill(self.params,
+                                       torch.from_numpy(toks).to(self.device))
+                self.prefill_calls += 1
+                sp.set(bucket=bucket)
+                obs.inc("serve.prefill_bucket_hits", bucket=bucket,
+                        **self.obs_labels)
+            if recompile.enabled():
+                recompile.note("write_slot", (self.caches, row, np.int32(s)))
+            self.fns.write_slot(self.caches, row, s)
+            sp.fence(row)
+        if sp.seconds is not None:
+            obs.observe("serve.prefill_ms", sp.seconds * 1e3,
+                        **self.obs_labels)
         self.pos[s] = n
         req.pending_token = int(req.prompt[-1])
 
     def _step(self) -> list[Request]:
         toks = np.zeros((self.slots,), np.int32)
+        n_active = 0
         for s, req in enumerate(self.active):
             if req is not None:
                 toks[s] = req.pending_token
+                n_active += 1
+        # the decode step is the hot path: a histogram observation, no
+        # span.  fns.step returns the greedy tokens on the host, the step's
+        # own synchronisation, so the clock needs no fence of its own.
+        if recompile.enabled():
+            recompile.note("decode", (self.params, toks, self.caches,
+                                      self.pos))
+        t0 = time.perf_counter() if obs.enabled() else None
         nxt = self.fns.step(self.params, toks, self.caches, self.pos)
+        if t0 is not None:
+            obs.observe("serve.decode_step_ms",
+                        (time.perf_counter() - t0) * 1e3, **self.obs_labels)
+            obs.set_gauge("serve.slot_util", n_active / max(self.slots, 1),
+                          **self.obs_labels)
+            obs.inc("serve.tokens_decoded", n_active, **self.obs_labels)
         self.decode_steps += 1
         finished = []
         for s, req in enumerate(self.active):
@@ -474,4 +591,7 @@ class ServeEngine:
                 req.done = True
                 finished.append(req)
                 self.free_slot(s)       # freed: _admit reuses it next step
+        if finished and obs.enabled():
+            obs.inc("serve.requests_retired", len(finished),
+                    **self.obs_labels)
         return finished

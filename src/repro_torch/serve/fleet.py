@@ -31,6 +31,14 @@ every member for the full NxN comparison.
 The slot pool is partitioned across members at construction: ``slots``
 total decode slots spread over the members (every member gets at least
 one).
+
+With the flight recorder on (``repro_torch.obs``) the fleet records the
+reference's series: ``fleet.requests`` and ``fleet.queue_depth`` by
+budget (``spec:<draft>><verify>`` for spec traffic),
+``fleet.mirrored_picks``, the ``fleet.mirror_agreement`` histogram, a
+``fleet.run_member`` / ``fleet.run_spec`` span per drain, and each
+member's own ``serve.*`` series under its ``budget`` label, from which
+``report()`` takes its decode-latency percentiles.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from typing import Any, Iterable, Mapping
 
 import numpy as np
 
-from repro_torch import tree
+from repro_torch import obs, tree
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve.engine import EngineFns, ServeEngine
@@ -140,6 +148,10 @@ class SparsityFleet:
             raise ValueError(
                 f"{slots} slots cannot cover {len(budgets)} budgets "
                 "(every member needs at least one)")
+        # agreement is a fraction: default ms-scale histogram edges would
+        # lump everything under the first bucket
+        obs.declare_hist("fleet.mirror_agreement",
+                         tuple(i / 10 for i in range(1, 11)))
         # one device copy of params0 in the compute dtype, before any budget
         # is materialized: the members share its untouched leaves
         self.params0 = M.serving_params(tree.to_device(params0, device))
@@ -233,6 +245,9 @@ class SparsityFleet:
             frid = self._next_rid
             self._next_rid += 1
             self._spec_routes[frid] = sd.submit(prompt, max_tokens)
+            if obs.enabled():
+                d, v = self._spec_names
+                obs.inc("fleet.requests", budget=f"spec:{d}>{v}")
             return frid
         if budget is not None:
             name = parse_budget(budget).name
@@ -246,12 +261,17 @@ class SparsityFleet:
         erid = self.engines[name].submit(prompt, max_tokens)
         self._routes[frid] = (name, erid)
         self._stats[name]["requests"] += 1
+        if obs.enabled():
+            obs.inc("fleet.requests", budget=name)
+            obs.set_gauge("fleet.queue_depth",
+                          len(self.engines[name].queue), budget=name)
         if ab is not None and name != self.reference:
             # shadow for live agreement: the same prompt through the
             # densest member, consumed by the stats only
             self._shadows[frid] = self.engines[self.reference].submit(
                 prompt, max_tokens)
             self._stats[name]["mirrored_picks"] += 1
+            obs.inc("fleet.mirrored_picks", budget=name)
         return frid
 
     def _pick_ab(self, ab) -> str:
@@ -324,9 +344,11 @@ class SparsityFleet:
         merged: dict[int, list[int]] = {}
         if self._spec is not None and self._spec.pending:
             dname, vname = self._spec_names
-            t0 = time.perf_counter()
-            spec_res, spec_foreign = self._spec.run()
-            self._spec.stats["seconds"] += time.perf_counter() - t0
+            with obs.span("fleet.run_spec", draft=dname, verify=vname):
+                t0 = time.perf_counter()
+                spec_res, spec_foreign = self._spec.run()
+                dt = time.perf_counter() - t0
+            self._spec.stats["seconds"] += dt
             for kind, nm in (("draft", dname), ("verify", vname)):
                 fin = spec_foreign[kind]
                 if fin:
@@ -341,9 +363,10 @@ class SparsityFleet:
         for name, eng in self.engines.items():
             if not eng.pending:
                 continue
-            t0 = time.perf_counter()
-            res = eng.run()
-            dt = time.perf_counter() - t0
+            with obs.span("fleet.run_member", budget=name):
+                t0 = time.perf_counter()
+                res = eng.run()
+                dt = time.perf_counter() - t0
             per_engine.setdefault(name, {}).update(res)
             st = self._stats[name]
             total = sum(len(v) for v in res.values())
@@ -360,6 +383,9 @@ class SparsityFleet:
                 st["shadow"]["seconds"] += sh_dt
                 st["shadow"]["requests"] += sum(
                     1 for rid in res if rid in shadow_rids)
+            if obs.enabled():
+                obs.set_gauge("fleet.queue_depth", len(eng.queue),
+                              budget=name)
         for frid, (name, erid) in list(self._routes.items()):
             res = per_engine.get(name, {})
             if erid not in res:
@@ -369,9 +395,11 @@ class SparsityFleet:
             shadow = self._shadows.pop(frid, None)
             if shadow is not None:
                 st = self._stats[name]
-                st["agree_sum"] += token_agreement(
-                    merged[frid], per_engine[self.reference][shadow])
+                agree = token_agreement(merged[frid],
+                                        per_engine[self.reference][shadow])
+                st["agree_sum"] += agree
                 st["agree_n"] += 1
+                obs.observe("fleet.mirror_agreement", agree, budget=name)
         return merged
 
     # -- live quality/latency ------------------------------------------------
@@ -382,8 +410,10 @@ class SparsityFleet:
         reference's keys.  Every number is lifetime-scoped: ``cumulative``
         holds the monotonic counters and the top-level ``tok_s`` and
         agreement are averages over exactly those.  ``decode_ms_p50`` /
-        ``decode_ms_p95`` are None, as in the reference with its flight
-        recorder off (``obs`` is not ported yet)."""
+        ``decode_ms_p95``: with the flight recorder on, bucket-estimated
+        percentiles over every decode step the member served
+        (``serve.decode_step_ms`` under its budget label); None with it
+        off."""
         budgets = {}
         for name in self._order:
             st = self._stats[name]
@@ -404,8 +434,10 @@ class SparsityFleet:
                     "spec_phase_tokens": st["spec_phase_tokens"],
                 },
                 "shadow": dict(st["shadow"]),
-                "decode_ms_p50": None,
-                "decode_ms_p95": None,
+                "decode_ms_p50": obs.percentile("serve.decode_step_ms", 50,
+                                                budget=name),
+                "decode_ms_p95": obs.percentile("serve.decode_step_ms", 95,
+                                                budget=name),
                 **self.reports[name],
             }
         return {"reference": self.reference, "budgets": budgets,

@@ -35,6 +35,14 @@ Mixed traffic: engine slots not owned by a spec route ("foreign": pinned
 or A/B fleet requests on the draft or verify member) still advance exactly
 one token per round, read from column 0 of the same batched dispatch,
 which is the plain fused decode of that slot.
+
+The flight recorder sees the reference's series: ``spec.draft`` /
+``spec.verify`` spans and their ``_ms`` histograms per dispatch,
+``spec.accept_rate`` and ``spec.accepted_tokens_per_step`` per driven
+route, ``spec.rollbacks``, ``spec.tokens_committed``,
+``spec.requests_submitted`` / ``_retired``, the ``spec.accept_ema`` and
+``spec.k`` gauges, and ``serve.tokens_decoded`` for the foreign slots;
+the recompile sentinel notes ``draft_<k>`` and ``verify_<k>``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch import obs
+from repro_torch.analysis import recompile
 from repro_torch.serve.engine import ServeEngine
 
 __all__ = ["SPEC_SAFE_KINDS", "SpecConfig", "SpecDecoder", "accept_commit",
@@ -182,6 +192,12 @@ class SpecDecoder:
                       "pair_rounds": 0, "tokens": 0, "draft_positions": 0,
                       "accepted_draft_tokens": 0, "rollbacks": 0,
                       "seconds": 0.0}
+        # fraction- and count-scale histograms: the default ms-scale edges
+        # would lump every sample under the first bucket
+        obs.declare_hist("spec.accept_rate",
+                         tuple(i / 10 for i in range(1, 11)))
+        obs.declare_hist("spec.accepted_tokens_per_step",
+                         tuple(float(i) for i in range(1, self.k_max + 1)))
 
     # -- client API ----------------------------------------------------------
 
@@ -201,6 +217,8 @@ class SpecDecoder:
             self._pop_unslotted(self.draft_eng, drid)
         else:
             self._routes[srid] = (drid, vrid)
+        if obs.enabled():
+            obs.inc("spec.requests_submitted", **self.obs_labels)
         return srid
 
     @property
@@ -276,6 +294,23 @@ class SpecDecoder:
                     maxpos = max(maxpos, int(eng.pos[s]))
         return max(1, min(self.k, self.verify_eng.capacity - maxpos))
 
+    def _dispatch(self, phase: str, eng: ServeEngine, fn, inp: np.ndarray,
+                  k_eff: int) -> np.ndarray:
+        """One spec dispatch (draft or verify) with the sentinel's note and
+        the span's clock; returns the host-side (slots, k) token matrix.
+        The surface returns its tokens on the host, the dispatch's own
+        synchronisation, so the span needs no fence."""
+        if recompile.enabled():
+            recompile.note(f"{phase}_{k_eff}",
+                           (eng.params, inp, eng.caches, eng.pos))
+        sp = obs.span(f"spec.{phase}", k=k_eff, **self.obs_labels)
+        with sp:
+            out, _ = fn(eng.params, inp, eng.caches, eng.pos)
+        if sp.seconds is not None:
+            obs.observe(f"spec.{phase}_ms", sp.seconds * 1e3,
+                        **self.obs_labels)
+        return out
+
     def _round(self, results: dict, foreign: dict) -> int:
         """One speculative round over both engines; returns tokens
         committed (0 only when nothing could progress)."""
@@ -301,8 +336,8 @@ class SpecDecoder:
         for s, r in enumerate(d_eng.active):
             if r is not None:
                 seed[s] = r.pending_token
-        drafts, _ = d_eng.fns.draft(k_eff)(d_eng.params, seed, d_eng.caches,
-                                           d_eng.pos)
+        drafts = self._dispatch("draft", d_eng, d_eng.fns.draft(k_eff), seed,
+                                k_eff)
 
         # verify phase: the verifier teacher-forces the same fed prefix,
         # the pending token then the first k_eff - 1 draft proposals
@@ -313,8 +348,8 @@ class SpecDecoder:
         for _, sd, sv in pairs:
             if k_eff > 1:
                 vt[sv, 1:] = drafts[sd, :k_eff - 1]
-        verified, _ = v_eng.fns.verify(k_eff)(v_eng.params, vt, v_eng.caches,
-                                              v_eng.pos)
+        verified = self._dispatch("verify", v_eng, v_eng.fns.verify(k_eff),
+                                  vt, k_eff)
 
         committed = 0
         accept_sum = 0.0
@@ -345,6 +380,14 @@ class SpecDecoder:
             st["accepted_draft_tokens"] += min(a, m)
             if a < k_eff:
                 st["rollbacks"] += 1
+            if obs.enabled():
+                obs.observe("spec.accept_rate", a / k_eff,
+                            **self.obs_labels)
+                obs.observe("spec.accepted_tokens_per_step", m,
+                            **self.obs_labels)
+                if a < k_eff:
+                    obs.inc("spec.rollbacks", **self.obs_labels)
+                obs.inc("spec.tokens_committed", m, **self.obs_labels)
             if hit_eos or len(req_v.out) >= req_v.max_tokens:
                 req_d.done = req_v.done = True
                 results[srid] = req_v.out
@@ -352,12 +395,15 @@ class SpecDecoder:
                 v_eng.free_slot(sv)
                 del self._routes[srid]
                 st["requests_retired"] += 1
+                if obs.enabled():
+                    obs.inc("spec.requests_retired", **self.obs_labels)
 
         # foreign slots (pinned or A/B member traffic): column 0 of the same
         # dispatch is that slot's plain fused decode; advance one token
         for kind, eng, mat, rids in (("draft", d_eng, drafts, d_spec_rids),
                                      ("verify", v_eng, verified,
                                       v_spec_rids)):
+            n_foreign = 0
             for s, req in enumerate(eng.active):
                 if req is None or req.rid in rids:
                     continue
@@ -366,11 +412,14 @@ class SpecDecoder:
                 req.pending_token = tok
                 eng.pos[s] += 1
                 committed += 1
+                n_foreign += 1
                 if ((eng.eos_id is not None and tok == eng.eos_id)
                         or len(req.out) >= req.max_tokens):
                     req.done = True
                     foreign[kind][req.rid] = req.out
                     eng.free_slot(s)
+            if n_foreign and obs.enabled():
+                obs.inc("serve.tokens_decoded", n_foreign, **eng.obs_labels)
 
         st["rounds"] += 1
         if pairs:
@@ -383,4 +432,8 @@ class SpecDecoder:
                     self.k += 1
                 elif self.accept_ema < self.ema_lo and self.k > self.k_min:
                     self.k -= 1
+            if obs.enabled():
+                obs.set_gauge("spec.accept_ema", self.accept_ema,
+                              **self.obs_labels)
+                obs.set_gauge("spec.k", self.k, **self.obs_labels)
         return committed

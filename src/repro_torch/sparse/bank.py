@@ -5,12 +5,15 @@ Gamma, the dual V, the activation stats - in the model's params structure,
 with a crc32 checksum over every leaf, the ``PruneConfig`` and the steps
 run; the schema is the reference's, so a bank either package writes loads
 in the other.  ``masks_at`` re-thresholds it via
-``core.mirror.export_masks`` in one shot.
+``core.mirror.export_masks`` in one shot: a ``bank.threshold`` span
+(fenced on the masks), ``bank.threshold_passes`` and the
+``analysis.mask_cache_entries`` gauge in the flight recorder.  A legacy
+format_version=1 bank loads with a stdlib warning through ``obs.log``
+(``bank.legacy_format``).
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
 import zlib
 from collections import OrderedDict
 from typing import Any
@@ -18,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import obs, tree
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import (PruneConfig, get_config,
                                       get_smoke_config)
@@ -105,11 +108,17 @@ class MaskBank:
                 f"this build reads <= {FORMAT_VERSION}: refusing a stale "
                 "reader on a newer artifact")
         if version < 2:
-            warnings.warn(
-                f"mask bank at {directory} is a LEGACY format_version=1 "
-                "artifact with no integrity checksum: a truncated or "
-                "bit-rotted leaf would silently re-threshold to wrong masks.",
-                stacklevel=2)
+            # obs.log keeps the stdlib UserWarning (filters, pytest.warns)
+            # and lands the structured record in the recorder's stream
+            obs.log("bank.legacy_format", level="warning",
+                    directory=str(directory), format_version=version,
+                    warn=(
+                        f"mask bank at {directory} is a LEGACY "
+                        "format_version=1 artifact with no integrity "
+                        "checksum: a truncated or bit-rotted leaf would "
+                        "silently re-threshold to wrong masks.  Re-save it "
+                        "(launch.calibrate / MaskBank.save) to get "
+                        "checksummed format_version=2."))
         if cfg is None:
             cfg = _cfg_for(meta["arch"], meta["smoke"])
         tpl = M.param_shapes(cfg)
@@ -151,11 +160,17 @@ class MaskBank:
         if masks is not None:
             self._mask_cache.move_to_end(key)
             return masks
-        masks = mirror.export_masks(
-            pcfg, self.Gamma, 0.5 if sparsity is None else sparsity, V=self.V)
+        sp = obs.span("bank.threshold", budget=str(key))
+        with sp:
+            masks = mirror.export_masks(
+                pcfg, self.Gamma, 0.5 if sparsity is None else sparsity,
+                V=self.V)
+            sp.fence(masks)
+        obs.inc("bank.threshold_passes")
         self._mask_cache[key] = masks
         while len(self._mask_cache) > MASK_CACHE_ENTRIES:
             self._mask_cache.popitem(last=False)
+        obs.set_gauge("analysis.mask_cache_entries", len(self._mask_cache))
         return masks
 
     def masks_grid(self, sparsities) -> dict[float, PyTree]:

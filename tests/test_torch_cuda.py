@@ -1102,3 +1102,105 @@ def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
     assert torch.equal(rp["w"].cpu(), want[0])
     assert torch.equal(rp["b"][0].cpu(), want[1])
     assert not rs.mu["w"].any()
+
+
+# ---------------------------------------------------------------------------
+# The flight recorder on the card: fences, and CUDA graph captures
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def recorder():
+    from repro_torch import obs
+    obs.reset()
+    obs.configure()
+    yield obs
+    obs.reset()
+
+
+@pytest.mark.cuda
+def test_obs_fence_waits_for_the_card(cuda_device, recorder):
+    """``sp.fence(x)`` synchronises the device that holds x before the
+    span's clock stops: the queued work has finished when the span ends,
+    and the span's time covers it."""
+    x = torch.randn((4096, 4096), device=cuda_device)
+    torch.cuda.synchronize()
+    with recorder.span("matmul") as sp:
+        for _ in range(8):
+            y = x @ x
+        sp.fence({"out": [y]})
+    assert torch.cuda.current_stream().query()
+    with recorder.span("queued") as bare:
+        for _ in range(8):
+            y = x @ x
+    torch.cuda.synchronize()
+    assert sp.seconds > bare.seconds
+    with recorder.timer("t", fence=(y,)) as t:
+        y = x @ x
+    assert torch.cuda.current_stream().query() and t.seconds > 0
+
+
+@pytest.mark.cuda
+def test_obs_fence_inside_a_capture_does_not_raise(cuda_device, recorder):
+    """A fence reached while a stream captures a CUDA graph waits for
+    nothing (a synchronisation would end the capture); the graph replays
+    what was captured."""
+    x = torch.ones((64, 64), device=cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x @ x
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        with recorder.span("captured") as sp:
+            y = x @ x
+            sp.fence(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(y[0, 0]) == 64.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_shards", [None, 4])
+def test_obs_recorder_on_graph_engines(cuda_device, recorder, monkeypatch,
+                                       kv_shards):
+    """With the recorder on, the graph engine and spec's draft and verify
+    graphs capture as they do with it off: no event is emitted while a
+    stream captures, the streams equal the recorder-off run's, one
+    ``serve.decode_step_ms`` observation a decode step, and
+    ``dist.psum{site=attn_kv}`` counted at the decode graph's capture
+    only (2 at ``kv_shards=4``: llama's one scanned call site)."""
+    from repro_torch.obs import core
+    from repro_torch.serve.spec import SpecDecoder
+    cfg, params, sparse = _smoke_members(cuda_device)
+    prompts = _engine_prompts(cfg)
+    recorder.disable()
+    _, want = _serve(cfg, params, cuda_device, prompts, kv_shards=kv_shards)
+    recorder.configure()
+    captured = []
+    emit = core.emit
+    monkeypatch.setattr(core, "emit", lambda e: captured.append(
+        torch.cuda.is_current_stream_capturing()) or emit(e))
+    eng, got = _serve(cfg, params, cuda_device, prompts,
+                      kv_shards=kv_shards, labels={"budget": "0.0"})
+    assert got == want
+    assert eng.fns.capture_counts() == {"decode": 1}
+    h = recorder.summary()["histograms"]['serve.decode_step_ms{budget="0.0"}']
+    assert h["count"] == eng.decode_steps
+    psum = recorder.counter_value("dist.psum", site="attn_kv")
+    assert psum == (2 if kv_shards else 0)
+    for p, (_, m) in zip(prompts, _ENGINE_REQS):     # replays: no count
+        eng.submit(p, m)
+    eng.run()
+    assert recorder.counter_value("dist.psum", site="attn_kv") == psum
+    if kv_shards is None:
+        from repro_torch.serve.engine import ServeEngine
+        d, v = (ServeEngine(cfg, p, slots=2, capacity=48, device=cuda_device)
+                for p in (sparse, params))
+        sd = SpecDecoder(d, v, k=2, adaptive=False)
+        rids = [sd.submit(p, m) for p, (_, m) in zip(prompts, _ENGINE_REQS)]
+        res, _ = sd.run()
+        assert [res[r] for r in rids] == want
+        assert d.fns.capture_counts() == {"draft_2": 1}
+        assert v.fns.capture_counts() == {"verify_2": 1}
+    assert captured and not any(captured)
