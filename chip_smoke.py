@@ -9,9 +9,11 @@ result line):
 1. device   - the card's name and power limit; TF32 and reduced-precision
               bf16 reductions off for the plain reference paths.
 2. build    - the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-              source, all started together, sm_90a), and beside them
-              ptxas's registers and spills of the decode attention
-              kernel's D 256 and G 8 instantiations.
+              library, all started together, sm_90a; the decode
+              attention's f32 and bf16 instantiations two libraries of one
+              source), and from their ptxas reports the registers and
+              spills of the decode attention kernel's D 112 and G 1
+              instantiations.
 3. kernels  - each kernel against its plain PyTorch version on the card at
               each main path's shapes, with its device time (CUDA graph of
               back-to-back launches over enough weight bytes to defeat the
@@ -24,9 +26,10 @@ result line):
               prunable leaf of full-width and smoke llama3.2-1b, bit for
               bit; the decode attention kernels (flash_decode,
               flash_decode_partial, the combine) at llama's serving shapes,
-              its long cache, mixtral's window, a ragged capacity and
+              its long cache, mixtral's window, a ragged capacity,
               phase 10's gemma3-1b (G 4, D 256) and yi-6b (G 8, D 128)
-              heads at serving and long caches (these also in f32), rows
+              heads and phase 14's zamba2-7b shared attention (G 1,
+              D 112) at serving and long caches (these also in f32), rows
               at different positions and all-masked shards, against their
               plain versions and ``F.scaled_dot_product_attention``'s time
               (with the planner's capacity splits P per case); prox24's
@@ -132,9 +135,10 @@ result line):
               the committed weights'; the held-out batches' hash and
               numpy version, and the committed weights' ppl on the card
               and on this host's CPU in one process, within 2e-3.
-10. gemma   - phase 4's path at the published widths of gemma3-1b (whole:
-              26 layers, 5:1 local:global, window 512, QK-norm, scaled
-              embeddings, gelu; decode attention at G 4, D 256), yi-6b
+10. gemma   - phase 4's path at the published widths of gemma3-1b (6
+              of its 26 layers, one 5:1 local:global pattern, window 512,
+              QK-norm, scaled embeddings, gelu; decode attention at G 4,
+              D 256), yi-6b
               (G 8, D 128; cut in depth) and gemma2-2b (softcaps and
               sandwich norms; cut in depth; its decode attention stays on
               the plain path at every ``kv_shards``, as the reference's),
@@ -147,10 +151,11 @@ result line):
 11. bank    - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-12. deepseek - deepseek-v2-lite-16b whole (27 layers: MLA with kv_lora
-              512, a dense first layer, then 64 routed experts top-6 and
-              2 shared) at its published widths through phase 4's path,
-              its 15.7 B weights made, 2:4-masked and packed a layer
+12. deepseek - deepseek-v2-lite-16b at its published widths, cut to 8 of
+              its 27 layers by the script's time (MLA with kv_lora 512, a
+              dense first layer, then 64 routed experts top-6 and 2
+              shared) through phase 4's path, its weights (15.7 B whole)
+              made, 2:4-masked and packed a layer
               slice at a time (the f32 tree would take 62.8 GB): every
               2-D projection through ``nm_matmul`` (8 a layer at prefill,
               6 at decode, where the absorbed attention reads w_uk / w_uv
@@ -168,7 +173,7 @@ result line):
 13. obs     - the flight recorder (``repro_torch.obs``) at llama3.2-1b's
               full width, 2:4 from phase 6's bank, 4 slots, capacity 256,
               phase 4's 6 requests on the CUDA-graph engine: recorder off
-              and on in turns (10 pairs after a warm-up), the median paired
+              and on in turns (20 pairs after a warm-up), the median paired
               on/off decode tok/s ratio held to <= 3% overhead (the serving
               ratio and the prefill fences' wait printed); the profiler's
               kernel launches and the graph captures identical off and on;
@@ -185,7 +190,26 @@ result line):
               ``--trace-dir`` on the card and on this host's CPU, the chunk
               series within tests/test_torch_calibrate.py's history
               tolerance.  Phase 6's bank is removed after it.
-14. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+14. recurrent - the recurrent families through phase 4's path at their
+              published widths: zamba2-7b whole (81 layers: 13 x (5
+              ``mamba`` + 1 ``mamba_shared``) + 3 ``mamba``; d 3584,
+              d_inner 7168, 112 ssm heads x 64, state 64, the one shared
+              attention block of 32 x 112 with each invocation's LoRA
+              deltas, d_ff 14336; 6.6 B weights made, masked and packed a
+              layer slice at a time), every projection through
+              ``nm_matmul`` (2 a mamba layer, 9 a mamba_shared one), decode
+              attention at ``kv_shards`` 1 and 4 through ``flash_decode``
+              / ``flash_decode_partial`` + the combine at G 1, D 112, the
+              capacity-8192 step at None and 1; xlstm-125m whole (12
+              layers of mLSTM / sLSTM, d 768, 4 heads; no attention, so no
+              ``kv_shards``), every projection through ``nm_matmul``; both
+              compressed against masked-dense layer by layer on one input;
+              then each smoke config card vs this host's CPU (greedy
+              streams on reused slots, a one-token prompt from the blank
+              state, the graph engine, xlstm's ``kv_shards`` refusal) and a
+              short wanda calibration (zamba2 2:4; xlstm unstructured: its
+              smoke ff_down is 85 deep).
+15. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -270,28 +294,37 @@ def device_ms(torch, fn, n_calls: int) -> float:
     return statistics.median(times)
 
 
-def start_ptxas_report():
-    """``nvcc -cubin -Xptxas -v`` of ``csrc/flash_decode.cu``, started in
-    the background beside the build (its own cubin under build/, not the
-    library the wrappers load, which the same flags without ``-v``
-    build)."""
+def ptxas_text() -> str:
+    """ptxas's report (``-Xptxas -v``) of the decode attention libraries
+    (``kernels/_build.py``: f32 and bf16, each its own nvcc): what this
+    process's build printed, or, for a library built before it, an
+    ``nvcc -cubin -Xptxas -v`` of the same source and flags under
+    build/."""
     from repro_torch.kernels import _build
-    out = ROOT / "build" / "flash_decode_ptxas.cubin"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
-           "-o", str(out), str(_build.CSRC / "flash_decode.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    text = ""
+    for name in _build.VARIANTS:
+        if name in _build.LOGS:
+            text += _build.LOGS[name]
+            continue
+        out = ROOT / "build" / f"{name}_ptxas.cubin"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        flags = [f for f in _build._flags(name) if f not in
+                 ("-shared", "-Xcompiler", "-fPIC")]
+        proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-o",
+                               str(out), str(_build._source(name))],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n"
+              f"{(proc.stdout + proc.stderr)[-2000:]}")
+        text += proc.stdout + proc.stderr
+    return text
 
 
-def ptxas_report(proc) -> dict:
+def ptxas_report(text: str) -> dict:
     """Registers and spill bytes of each ``flash_decode_kernel``
-    instantiation at D 256 or G 8 (the shapes this slice added), from
-    ptxas's report: "dtype D G partial" -> (registers, spill stores,
-    spill loads)."""
+    instantiation at D 112 or G 1 (zamba2's shared attention: the
+    latest shapes added), from ptxas's report: "dtype D G partial" ->
+    (registers, spill stores, spill loads)."""
     import re
-    text, _ = proc.communicate(timeout=600)
-    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text[-2000:]}")
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"flash_decode_kernelI(13__nv_bfloat16|f)Li(\d+)ELi"
@@ -301,7 +334,7 @@ def ptxas_report(proc) -> dict:
             if m:
                 dt = "bf16" if m.group(1) != "f" else "f32"
                 D, G = int(m.group(2)), int(m.group(3))
-                if D == 256 or G == 8:
+                if D == 112 or G == 1:
                     cur = f"{dt} D{D} G{G} {'partial' if m.group(4) == '1' else 'out'}"
                     out[cur] = [0, 0, 0]
         elif cur and "spill stores" in line:
@@ -310,8 +343,8 @@ def ptxas_report(proc) -> dict:
         elif cur and "Used" in line and "registers" in line:
             out[cur][0] = int(re.search(r"Used (\d+) registers",
                                         line).group(1))
-    check(len(out) == 28, f"ptxas report: {len(out)} D 256 / G 8 "
-          "instantiations, want 28")
+    check(len(out) == 36, f"ptxas report: {len(out)} D 112 / G 1 "
+          "instantiations, want 36")
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -346,11 +379,23 @@ NM_MATMUL_SHAPES = {
                               "wo": (2048, 2048), "shared up": (2048, 2816),
                               "shared gate": (2048, 2816),
                               "shared down": (2816, 2048)}, (4, 127)),
+    # phase 14: a zamba2-7b mamba layer (the shared block's 7 projections
+    # in NM_MATMUL_EXTRA), and an xlstm-125m mLSTM + sLSTM layer pair;
+    # prefills run at the exact prompt length (recurrent kinds)
+    "zamba2-7b": ({"in_proj": (3584, 14576), "out_proj": (7168, 3584)},
+                  (4, 127)),
+    "xlstm-125m": ({"up": (768, 3072), "wq": (1536, 1536),
+                    "wk": (1536, 1536), "wv": (1536, 1536),
+                    "w_if": (1536, 8), "down": (1536, 768),
+                    "w_in": (768, 3072), "ff_up": (768, 2048),
+                    "ff_down": (1024, 768)}, (4, 127)),
 }
 NM_MATMUL_EXTRA = {"deepseek-v2-lite-16b": {
     "w_uk": (512, 2048), "w_uv": (512, 2048), "dense up": (2048, 10944),
-    "dense gate": (2048, 10944), "dense down": (10944, 2048)}}
-PACKED2_ONLY = ("deepseek-v2-lite-16b",)
+    "dense gate": (2048, 10944), "dense down": (10944, 2048)},
+    "zamba2-7b": {"shared wq": (3584, 3584), "shared up": (3584, 14336),
+                  "shared down": (14336, 3584)}}
+PACKED2_ONLY = ("deepseek-v2-lite-16b", "zamba2-7b", "xlstm-125m")
 # mixtral-8x22b's expert banks, (K, N) per expert, its expert count, and
 # the capacities C (rows per expert) its kernel calls see: 4 at decode
 # (4 slots), 16-40 for prefills of 31-127 tokens
@@ -589,11 +634,15 @@ FLASH_CASES = (("llama serving", 4, 8, 4, 64, 256, (1, 4)),
                ("gemma3 window", 4, 1, 4, 256, 512, (1, 4)),
                ("gemma3 long cache", 4, 1, 4, 256, 8192, (1, 4)),
                ("yi serving", 4, 4, 8, 128, 256, (1, 4)),
-               ("yi long cache", 4, 4, 8, 128, 8192, (1, 4)))
+               ("yi long cache", 4, 4, 8, 128, 8192, (1, 4)),
+               # phase 14's zamba2-7b shared attention: 32 kv heads of one
+               # query head of 112 at serving and long caches
+               ("zamba2 serving", 4, 32, 1, 112, 256, (1, 4)),
+               ("zamba2 long cache", 4, 32, 1, 112, 8192, (1, 4)))
 # the cases also held against their plain versions in f32 (checked, not
 # timed): f32 at D 256 takes the kernel's one-stage ring
 FLASH_F32 = ("gemma3 window", "gemma3 long cache", "yi serving",
-             "yi long cache")
+             "yi long cache", "zamba2 serving")
 FLASH_KERNELS = ("flash_decode", "flash_decode_partial", "combine_partials")
 
 
@@ -1009,16 +1058,29 @@ MAX_REROUTED_ROWS = 2      # of 36 (4 rows x (prefill + 8 decode steps))
 PATH_KERNELS = ("nm_matmul", "nm_matmul_expert")
 
 
+# 2:4 projections of a recurrent layer kind (each a forward, prefill or
+# decode): mamba's in_proj and out_proj, mamba_shared's and the shared
+# block's wq, wk, wv, wo, up, gate, down; mLSTM's up, wq, wk, wv, w_if,
+# down; sLSTM's w_in, ff_up, ff_down
+RECURRENT_PROJECTIONS = {"mamba": 2, "mamba_shared": 9, "mlstm": 6,
+                         "slstm": 3}
+
+
 def path_launches(cfg) -> dict:
     """Each 2:4 kernel's launches in one forward of ``cfg``'s compressed
     model, {"prefill": {...}, "decode": {...}}: per layer, one
     ``nm_matmul`` per 2-D projection (attn / local / moe kinds: wq, wk,
     wv, wo, and up, gate, down of a dense MLP; MLA: wq, w_dkv, wo, w_uk and
     w_uv at prefill only (the absorbed decode reads those two dense), and
-    up, gate, down of the dense or shared MLP) and one
-    ``nm_matmul_expert`` per expert bank (3 a MoE layer)."""
+    up, gate, down of the dense or shared MLP; the recurrent kinds:
+    RECURRENT_PROJECTIONS) and one ``nm_matmul_expert`` per expert bank (3
+    a MoE layer)."""
     out = {f: {n: 0 for n in PATH_KERNELS} for f in ("prefill", "decode")}
     for kind in cfg.layer_kinds:
+        if kind in RECURRENT_PROJECTIONS:
+            for f in out:
+                out[f]["nm_matmul"] += RECURRENT_PROJECTIONS[kind]
+            continue
         mla = kind.startswith("mla")
         moe = "moe" in kind
         mlp = 3 if (not moe or cfg.num_shared_experts) else 0
@@ -1116,6 +1178,8 @@ def weights_by_layer(torch, dev, cfg) -> dict:
     def dense(x):
         if not isinstance(x, SparseTensor):
             return x
+        if x.ndim == 2:         # an unstacked leaf (zamba2's shared block)
+            return x.to_dense().to(torch.bfloat16)
         d = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
         for i in range(x.shape[0]):
             d[i] = x.select(i).to_dense()
@@ -1299,7 +1363,8 @@ def record_decode(eng, routes: list) -> list:
     return steps
 
 
-def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool):
+def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool,
+                        hold: bool = True):
     """Two engine runs of the same requests, row by row, for every decode
     row whose request has the same history in both (the same fed tokens,
     and the same experts wherever it routed):
@@ -1316,8 +1381,10 @@ def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool):
       further.
 
     ``coupled`` (MoE: the rows of a step share expert capacity): nothing
-    after the first step with a near-tie.  Returns (rows compared, worst
-    logit error over its tolerance, token near-ties, routing near-ties)."""
+    after the first step with a near-tie.  ``hold`` off: the logits and
+    tokens are measured and held to nothing (a model held layer by layer
+    instead).  Returns (rows compared, worst logit error over its
+    tolerance, token near-ties, routing near-ties)."""
     def rows(steps):
         return {(rid, int(t[s])): (i, s, int(toks[s]), lg[s], routes)
                 for i, (rids, toks, t, lg, routes) in enumerate(steps)
@@ -1350,8 +1417,9 @@ def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool):
             rerouted.append((key[0], key[1], flip, margin, perr))
         else:
             err, tol = logit_err(torch, lb, la, LOGIT_ULPS_FULL)
-            check(err <= tol, f"request {key[0]} at position {key[1]}: "
-                  f"logits differ by {err} over {tol} ({LOGIT_ULPS_FULL} "
+            check(err <= tol or not hold, f"request {key[0]} at position "
+                  f"{key[1]}: logits differ by {err} over {tol} "
+                  f"({LOGIT_ULPS_FULL} "
                   "bf16 ulps of the row's max)")
             n += 1
             worst = max(worst, err / tol)
@@ -1359,9 +1427,9 @@ def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool):
             if a == b:
                 continue
             margin = float(la[a] - la[b])
-            check(margin <= 2 * err, f"request {key[0]} at position "
-                  f"{key[1]}: tokens {a} vs {b} with margin {margin} past "
-                  f"twice the logit difference {err}")
+            check(margin <= 2 * err or not hold, f"request {key[0]} at "
+                  f"position {key[1]}: tokens {a} vs {b} with margin "
+                  f"{margin} past twice the logit difference {err}")
             ties.append((key[0], key[1], a, b, margin, err))
         diverged.add(key[0])
         if coupled and stop is None:
@@ -1369,15 +1437,25 @@ def compare_decode_runs(torch, ref_steps, got_steps, coupled: bool):
     return n, worst, ties, rerouted
 
 
-def replay_matches_eager(torch, fn) -> bool:
+def replay_matches_eager(torch, fn, state=()) -> bool:
     """``fn()`` (a decode step: the same inputs write the same cache slot)
     captured in a CUDA graph and replayed returns what it returns
-    eagerly."""
+    eagerly.  ``state``: the recurrent-state tensors the step advances
+    (``model.state_leaves``), restored before each call after the first,
+    so that every call starts from the same state."""
+    saved = [t.clone() for t in state]
+
+    def reset():
+        for t, was in zip(state, saved, strict=True):
+            t.copy_(was)
+
     want = fn().clone()
+    reset()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
+        reset()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1426,15 +1504,18 @@ def paired_graph_ms(torch, steps: dict, rounds: int = 10,
             for key, t in times.items()}
 
 
-def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
+def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards,
+                      want_nm: int) -> dict:
     """One path's decode step at 4 slots: the eager wall time (median of
-    steps 4-23), the step replayed from a CUDA graph against the eager
-    step, a profiler's kernels over 3 eager steps, and the step itself
-    (``step``, with its own caches) for :func:`paired_graph_ms`."""
+    steps 4-11), the step replayed from a CUDA graph against the eager
+    step, a profiler's kernels over one eager step, and the step itself
+    (``step``, with its own caches) for :func:`paired_graph_ms`.  A
+    profiler window is taken again (up to PROFILE_TRIES) while its 2:4
+    kernels are not ``want_nm`` a step: a window that lost records."""
     caches = M.init_caches(cfg, 4, 256, device=dev)
     tok = torch.from_numpy(batch[:4, 0]).to(dev)
     steps = []
-    for i in range(24):
+    for i in range(12):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = M.decode_step(cfg, params, tok, caches, i,
@@ -1448,24 +1529,24 @@ def decode_step_times(torch, M, cfg, params, batch, dev, kv_shards) -> dict:
         return M.decode_step(cfg, params, tok, caches, t_dev,
                              kv_shards=kv_shards)[0]
 
-    replay_ok = replay_matches_eager(torch, step)
+    replay_ok = replay_matches_eager(torch, step,
+                                     M.state_leaves(cfg, caches))
     for tries in range(1, PROFILE_TRIES + 1):
         with profiler_window(torch) as prof:
-            for _ in range(3):
-                step()
+            step()
         # the kernels themselves (an operator's row would count them twice)
         evs = [e for e in device_events(prof)
                if e.self_device_time_total > 0]
         nm = sum(e.count for e in evs if "nm_mma_kernel" in e.key
                  or "nm_simt_kernel" in e.key)
-        if nm % 3 == 0:     # every step launches the same 2:4 kernels
+        if nm == want_nm:       # a window that lost records: again
             break
     return {"step_ms": statistics.median(steps[4:]) * 1e3,
             "step": step, "replay_ok": replay_ok,
-            "kernels": sum(e.count for e in evs) / 3, "windows": tries,
-            "nm_kernels": nm / 3,
-            "device_ms": sum(e.self_device_time_total for e in evs) / 3e3,
-            "top": [(e.self_device_time_total / 3, e.count / 3, e.key)
+            "kernels": sum(e.count for e in evs), "windows": tries,
+            "nm_kernels": nm,
+            "device_ms": sum(e.self_device_time_total for e in evs) / 1e3,
+            "top": [(e.self_device_time_total, e.count, e.key)
                     for e in sorted(evs, key=lambda e:
                                     -e.self_device_time_total)[:8]]}
 
@@ -1475,27 +1556,33 @@ LONG_KV_SHARDS = (None, 1, 4, 16)
 
 
 def long_cache_steps(torch, M, cfg, params, dev,
-                     paths=LONG_KV_SHARDS) -> dict:
+                     paths=LONG_KV_SHARDS, by_layer: bool = False) -> dict:
     """The decode step of 4 slots at capacity 8192 with every slot valid:
     the caches filled from a seeded generator on the card (the positions
     0..8191 of each slot), one step at t = 8191 per ``kv_shards`` path of
     ``paths`` (None first), each on its own copy of the caches.  Each path's attention launches counted
     over one eager step; its logits held against ``kv_shards=None`` (8 bf16
     ulps of the row's max); its step replayed from a CUDA graph == eager;
-    then the paths' graphs timed in turns.  kv_shards -> numbers."""
+    then the paths' graphs timed in turns.  ``by_layer``: each path is
+    held against None layer by layer on the same input instead
+    (:func:`step_by_layer`), its logits' distance printed.  kv_shards ->
+    numbers."""
+    from repro_torch import tree
     from repro_torch.kernels import flash_decode as fd
     g = torch.Generator(device=dev)
     g.manual_seed(17)
     base = M.init_caches(cfg, 4, LONG_CAPACITY, device=dev)
     n_bytes = 0
-    for stage in base:
-        for c in stage.values():
-            for t in c.values():
-                t.normal_(generator=g)
-                n_bytes += t.numel() * t.element_size()
-    caches = {S: base if S is None else [
-        {j: {n: t.clone() for n, t in c.items()} for j, c in st.items()}
-        for st in base] for S in paths}
+    # every cache leaf drawn (a recurrent state too); the K/V bytes counted
+    for path, t in tree.flatten_with_path(base):
+        t.normal_(generator=g)
+        if path.endswith(("['k']", "['v']")):
+            n_bytes += t.numel() * t.element_size()
+    # each path on its own copy, cloned before any step (a step advances
+    # the recurrent states in place): every path's first step starts from
+    # the drawn state
+    caches = {S: base if S is None else tree.tree_map(torch.clone, base)
+              for S in paths}
     tok = torch.randint(0, cfg.vocab_size, (4,), generator=g, device=dev)
     t_dev = torch.full((4,), LONG_CAPACITY - 1, dtype=torch.int32,
                        device=dev)
@@ -1505,9 +1592,11 @@ def long_cache_steps(torch, M, cfg, params, dev,
                                      kv_shards=S)[0]
 
     steps = {S: path(S) for S in paths}
-    L = cfg.num_layers
+    L = attn_layers(cfg)
     rings = sorted(M.cache_lengths(cfg, LONG_CAPACITY))
     out, logits = {}, {}
+    layer_ulps = {S: step_by_layer(torch, M, cfg, params, tok, base, t_dev,
+                                   S) for S in paths[1:]} if by_layer else {}
     for S, step in steps.items():
         for name in FLASH_KERNELS:
             getattr(fd, name).launches = 0
@@ -1526,15 +1615,19 @@ def long_cache_steps(torch, M, cfg, params, dev,
         for r in range(4):
             err, tol = logit_err(torch, logits[S][r], logits[None][r],
                                  LOGIT_ULPS_FULL)
-            check(err <= tol, f"capacity {LONG_CAPACITY}, kv_shards={S} vs "
+            check(err <= tol or by_layer, f"capacity {LONG_CAPACITY}, "
+                  f"kv_shards={S} vs "
                   f"None, row {r}: logits differ by {err} over {tol} "
                   f"({LOGIT_ULPS_FULL} bf16 ulps of the row's max)")
             worst = max(worst, err / tol)
-        replay_ok = replay_matches_eager(torch, step)
+        replay_ok = replay_matches_eager(torch, step,
+                                         M.state_leaves(cfg, caches[S]))
         check(replay_ok, f"capacity {LONG_CAPACITY}, kv_shards={S}: the "
               "step replayed from a CUDA graph differs from the eager step")
         out[S] = {"launches": launches, "worst": worst,
                   "replay_ok": replay_ok}
+        if S in layer_ulps:
+            out[S]["worst_layer_ulps"] = layer_ulps[S]
     graph = paired_graph_ms(torch, steps)
     for S, (med, lo, hi) in graph.items():
         out[S].update(graph_ms=med, graph_min_ms=lo, graph_max_ms=hi)
@@ -1544,9 +1637,52 @@ def long_cache_steps(torch, M, cfg, params, dev,
               f"replayed {med:.3f} ms "
               f"per decode step (median of 10 rounds in turns, {lo:.3f}-"
               f"{hi:.3f}); logits vs None worst {out[S]['worst']:.3f} of the "
-              f"tolerance; launches {out[S]['launches']}; replay == eager")
+              f"tolerance" + (" (printed, not held)" if by_layer else "")
+              + (f", layer by layer worst {out[S]['worst_layer_ulps']:.3f} "
+                 f"bf16 ulps (bound {LOGIT_ULPS_FULL})"
+                 if "worst_layer_ulps" in out[S] else "")
+              + f"; launches {out[S]['launches']}; replay == eager")
     del caches, base
     return out
+
+
+def step_by_layer(torch, M, cfg, params, tok, caches, t, kv_shards) -> float:
+    """One decode step at ``kv_shards`` against the replicated path layer
+    by layer: every block runs on the replicated run's input twice, on two
+    copies of its cache slice (``caches`` is left as it is), at None and
+    at ``kv_shards``; outputs, rings and states held within LOGIT_ULPS_FULL
+    bf16 ulps of each row's largest value.  Returns the worst."""
+    from repro_torch import tree
+    from repro_torch.models import blocks as blk
+    shared = params.get("shared")
+    worst = torch.zeros((), device=t.device)
+    with torch.inference_mode():
+        x = M._embed(cfg, params, tok[:, None])
+        for s, (pattern, repeats) in enumerate(M.make_stages(cfg)):
+            for i in range(repeats):
+                lp, lc = M._layer(params["stages"][s], i), M._layer(
+                    caches[s], i)
+                for q, kind in enumerate(pattern):
+                    c0, c1 = (tree.tree_map(torch.clone, lc[str(q)])
+                              for _ in range(2))
+                    y0, _ = blk.block_apply_decode(kind, cfg, lp[str(q)], x,
+                                                   c0, t, shared=shared)
+                    y1, _ = blk.block_apply_decode(
+                        kind, cfg, lp[str(q)], x, c1, t, shared=shared,
+                        kv_shards=kv_shards)
+                    worst = torch.maximum(worst, _rows_ulps(y1, y0).max())
+                    for a, b in zip(tree.leaves(c1), tree.leaves(c0),
+                                    strict=True):
+                        worst = torch.maximum(worst, _rows_ulps(a, b).max())
+                    x = y0
+                    del c0, c1
+                x = x.to(torch.bfloat16)
+    worst = float(worst)
+    check(worst <= LOGIT_ULPS_FULL, f"capacity {LONG_CAPACITY}, "
+          f"kv_shards={kv_shards} vs None, layer by layer on the same "
+          f"input: {worst:.2f} bf16 ulps of a row's max, past "
+          f"{LOGIT_ULPS_FULL}")
+    return worst
 
 
 PROMPT_LENS = (32, 128, 48, 96, 64, 80)
@@ -1621,6 +1757,16 @@ def profiled_launches(torch, fn) -> dict:
                for name, keys in PROFILED.items()}}
 
 
+def attn_layers(cfg) -> int:
+    """Layers that attend over a KV ring at decode (each launches one
+    decode-attention kernel a step on a ``kv_shards`` path): all but the
+    ringless recurrent ones (zamba2's 13 ``mamba_shared`` of 81; none of
+    xlstm's)."""
+    from repro_torch.models import blocks as blk
+    return sum(blk.cache_length(k, cfg, 256) is not None
+               for k in cfg.layer_kinds)
+
+
 def attn_kernels_on(cfg, kv_shards) -> bool:
     """Whether decode attention at ``kv_shards`` runs the kernels: a
     softcapped model (gemma2) takes the plain replicated path at every
@@ -1634,10 +1780,13 @@ def graph_engine_runs(torch, eng, prompts, want: list, counts: dict,
     """The counted requests again, on the engine's CUDA-graph step: run 1
     captures the decode graph at its first step, run 2 is timed, run 3 is
     profiled (each replayed kernel counted by name; 2 requests of
-    ``PROFILED_TOKENS``); each run's streams equal the eager run's (its
+    ``PROFILED_TOKENS``, admitted and so prefilled before the profiler's
+    window opens: it holds the replayed decode steps, whose kernels the
+    eager counted run cannot see; the prefills' launches are the eager
+    run's, counted there); each run's streams equal the eager run's (its
     first tokens), and neither later run captures again."""
     attn = attn_kernels_on(eng.cfg, kv_shards)
-    L = eng.cfg.num_layers
+    L = attn_layers(eng.cfg)
     n_tok = sum(len(w) for w in want)
     res = {}
     for run in ("capture", "timed", "profiled"):
@@ -1646,6 +1795,8 @@ def graph_engine_runs(torch, eng, prompts, want: list, counts: dict,
         n = 2 if run == "profiled" else len(prompts)
         m = profiled_tokens if run == "profiled" else MAX_TOKENS
         rids = [eng.submit(p, m) for p in prompts[:n]]
+        if run == "profiled":
+            eng._admit()
         steps0, pre0 = eng.decode_steps, eng.prefill_calls
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1661,6 +1812,7 @@ def graph_engine_runs(torch, eng, prompts, want: list, counts: dict,
                 if warm or tries == PROFILE_TRIES:
                     break
                 rids = [eng.submit(p, m) for p in prompts[:n]]
+                eng._admit()
                 steps0, pre0 = eng.decode_steps, eng.prefill_calls
         else:
             out = eng.run()
@@ -1693,21 +1845,30 @@ def graph_engine_runs(torch, eng, prompts, want: list, counts: dict,
 
 def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
                 verify: bool = False, weights=weights_whole,
-                pin_routing: bool = False,
-                profiled_tokens: int = PROFILED_TOKENS) -> dict:
+                by_layer: bool = False,
+                profiled_tokens: int = PROFILED_TOKENS,
+                long_paths=LONG_KV_SHARDS, kv_by_layer: bool = False) -> dict:
     """Serve ``cfg`` at its widths from random weights with 2:4 magnitude
     masks, made by ``weights`` (:func:`weights_whole`, or
     :func:`weights_by_layer` for a model whose f32 tree does not fit);
     each kernel's launches per forward follow from the config
     (:func:`path_launches`).  Then the same requests at each ``kv_shards``
     of KV_SHARDS (none for MLA models: their decode has no attention
-    kernel, and the engine refuses a set ``kv_shards``).  ``long_cache``:
-    also the decode step at capacity 8192 (:func:`long_cache_steps`).
-    Then compressed against masked-dense, routing included where the
-    model has MoE layers; ``pin_routing``: the masked-dense passes take
-    the compressed passes' experts (:func:`pinned_routes`).  ``verify``:
-    then the compressed weights' verify pass against sequential decode
-    (:func:`verify_vs_sequential`)."""
+    kernel, and the engine refuses a set ``kv_shards``; none for a model
+    with no attention, xlstm).  ``long_cache``: also the decode step at
+    capacity 8192 (:func:`long_cache_steps`) on ``long_paths`` (those
+    the model has).  Then compressed against masked-dense, routing
+    included where the model has MoE layers; ``by_layer``: layer by layer
+    on the same input, the masked-dense MoE calls taking the compressed
+    calls' experts (:func:`compare_pinned`), where each attention layer's
+    ``kv_shards`` paths are held against its replicated one too.
+    ``kv_by_layer``: the end-to-end comparisons of the ``kv_shards``
+    paths against None (logits of rows with the same history, and the
+    capacity-8192 step) are printed, and each path is held layer by layer
+    on the same input instead (:func:`compare_pinned`,
+    :func:`step_by_layer`).
+    ``verify``: then the compressed weights' verify pass against
+    sequential decode (:func:`verify_vs_sequential`)."""
     from repro_torch import tree
     from repro_torch.core.prunable import prunable_map
     from repro_torch.data.synthetic import batches_for
@@ -1723,10 +1884,11 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
                **{name: getattr(fd, name) for name in FLASH_KERNELS}}
 
     L = cfg.num_layers
+    n_attn = attn_layers(cfg)
     n_moe = sum("moe" in k for k in cfg.layer_kinds)
     counts = path_launches(cfg)
     kv_list = () if any(k.startswith("mla") for k in cfg.layer_kinds) \
-        else KV_SHARDS
+        or not n_attn else KV_SHARDS
     # one stacked leaf per compressed projection or bank of the stages
     n_leaves = sum(tree.leaves(prunable_map(M.param_specs(cfg))))
     torch.cuda.reset_peak_memory_stats()
@@ -1747,9 +1909,20 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
     ffn = (f"{cfg.num_experts} experts top-{cfg.top_k} + "
            f"{cfg.num_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}"
            if n_moe else f"d_ff {cfg.d_ff}")
-    attn_w = (f"MLA kv_lora {cfg.kv_lora}, nope {cfg.qk_nope_dim} + rope "
-              f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}" if kv_list == ()
-              else f"window {cfg.sliding_window}")
+    if any(k.startswith("mla") for k in cfg.layer_kinds):
+        attn_w = (f"MLA kv_lora {cfg.kv_lora}, nope {cfg.qk_nope_dim} + "
+                  f"rope {cfg.qk_rope_dim}, v {cfg.v_head_dim}")
+    elif "mamba" in cfg.layer_kinds:
+        attn_w = (f"Mamba2 d_inner {cfg.d_inner}, "
+                  f"{cfg.d_inner // cfg.ssm_head_dim} ssm heads x "
+                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                  f"{cfg.ssm_chunk}; {n_attn} shared-attention layers, LoRA "
+                  f"rank {cfg.lora_rank}")
+    elif not n_attn:
+        attn_w = (f"xLSTM {cfg.lstm_heads} heads, mLSTM proj "
+                  f"{cfg.lstm_proj_factor}, no attention")
+    else:
+        attn_w = f"window {cfg.sliding_window}"
     print(f"  {cfg.name}: {L} layers {'+'.join(cfg.layer_kinds[:2])}..., "
           f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
           f"x {cfg.head_dim}, {ffn}, vocab {cfg.vocab_size}, {attn_w}, "
@@ -1837,31 +2010,34 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
               f"{[len(kv_out[r]) for r in kv_rids]} tokens")
         attn = attn_kernels_on(cfg, S)
         want = {"nm_mask24": 0,
-                "flash_decode": L * e.decode_steps if attn and S == 1 else 0,
-                "flash_decode_partial": L * e.decode_steps if attn and S != 1
+                "flash_decode": n_attn * e.decode_steps if attn and S == 1
                 else 0,
-                "combine_partials": L * e.decode_steps if attn and S != 1
-                else 0,
+                "flash_decode_partial": n_attn * e.decode_steps
+                if attn and S != 1 else 0,
+                "combine_partials": n_attn * e.decode_steps
+                if attn and S != 1 else 0,
                 **{name: counts["prefill"][name] * e.prefill_calls
                    + counts["decode"][name] * e.decode_steps
                    for name in PATH_KERNELS}}
         check(kv_launches == want, f"kv_shards={S}: launches {kv_launches}, "
-              f"want {want} ({L} layers per decode step)")
+              f"want {want} ({n_attn} attention layers per decode step)")
         print("  " + check_path_calls(torch, calls))
         del calls
         n_rows, worst, ties, rerouted = compare_decode_runs(
-            torch, steps_ref, steps, coupled=n_moe > 0)
+            torch, steps_ref, steps, coupled=n_moe > 0, hold=not kv_by_layer)
         differ = [r for r in rids if kv_out[r] != out[r]]
         explained = len(ties) + len(rerouted)
         # every differing stream starts at a counted near-tie; with MoE,
         # streams are compared only up to the first one
-        check(len(differ) == len(ties) if not n_moe else
-              (not differ or explained > 0),
+        check(kv_by_layer or (len(differ) == len(ties) if not n_moe
+                              else (not differ or explained > 0)),
               f"kv_shards={S}: streams of requests {differ} differ, "
               f"{len(ties)} token and {len(rerouted)} routing near-ties")
         print(f"  kv_shards={S} vs None: {n_rows} decode rows with the same "
               f"history, logits worst {worst:.3f} of the tolerance "
-              f"({LOGIT_ULPS_FULL} bf16 ulps of the row's max); greedy "
+              f"({LOGIT_ULPS_FULL} bf16 ulps of the row's max"
+              + ("; printed, not held: held layer by layer below"
+                 if kv_by_layer else "") + "); greedy "
               f"streams identical for {len(rids) - len(differ)} of "
               f"{len(rids)} requests; token near-ties (request, position, "
               f"None's token, this run's, margin, logit difference): {ties}"
@@ -1874,7 +2050,8 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
                       "differ": len(differ)}
         del e.fns.decode
         graph_runs[S] = graph_engine_runs(
-            torch, e, prompts, [kv_out[r] for r in kv_rids], counts, S)
+            torch, e, prompts, [kv_out[r] for r in kv_rids], counts, S,
+            profiled_tokens)
         del e, steps, kv_routes
     del steps_ref, routes
 
@@ -1891,7 +2068,8 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
         by_kv = {}
         for S in (None,) + kv_list:
             by_kv[S] = decode_step_times(torch, M, cfg, eng.params, batch,
-                                         dev, S)
+                                         dev, S,
+                                         sum(counts["decode"].values()))
         graph = paired_graph_ms(torch, {S: r.pop("step")
                                         for S, r in by_kv.items()})
         for S, r in by_kv.items():
@@ -1902,8 +2080,8 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
     peak = torch.cuda.max_memory_allocated()
     with torch.inference_mode():
         long = (long_cache_steps(torch, M, cfg, eng.params, dev,
-                                 (None,) + (LONG_KV_SHARDS[1:] if kv_list
-                                            else ()))
+                                 (None,) + (tuple(long_paths[1:]) if kv_list
+                                            else ()), kv_by_layer)
                 if long_cache else None)
     print(f"  [{card}] prefill 1x128 {prefill_ms:.2f} ms; eager decode "
           f"{step_ms:.2f} ms/step at 4 slots = {4e3 / step_ms:.1f} tok/s; "
@@ -1914,9 +2092,9 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
               f"(3 runs, one decode graph captured); warm run "
               f"{g['timed_s']:.3f} s = {g['tok_s']:.1f} tok/s (capture run "
               f"{g['capture_s']:.3f} s); profiler over 2 of the requests "
-              f"x {profiled_tokens} tokens ({g['profiled_s']:.1f} s with its "
-              f"processing), replays "
-              f"included: {g['launches']} over {g['prefills']} eager "
+              f"x {profiled_tokens} tokens, prefilled before its window "
+              f"({g['profiled_s']:.1f} s with its processing): "
+              f"{g['launches']} over {g['prefills']} eager "
               f"prefills + {g['decode_steps']} replayed decode steps")
     for S, r in by_kv.items():
         print(f"  kv_shards={S}: eager decode step {r['step_ms']:.2f} ms; "
@@ -1925,7 +2103,7 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
               f"{r['graph_min_ms']:.3f}-{r['graph_max_ms']:.3f}; = "
               f"{r['graph_ms'] / r['step_ms']:.1%} of the eager step, the "
               f"rest host time between launches); replay == eager: "
-              f"{r['replay_ok']}; profiler, 3 eager steps (window "
+              f"{r['replay_ok']}; profiler, one eager step (window "
               f"{r['windows']} of at most {PROFILE_TRIES}): "
               f"{r['kernels']:.0f} kernels and {r['device_ms']:.3f} ms of "
               "device time per step; top kernels (us per step, launches "
@@ -1942,8 +2120,9 @@ def phase_serve(torch, dev, card: str, cfg, long_cache: bool = False,
     # -- compressed vs plain masked-dense, same fed tokens ------------------
     masked = w.pop("masked")()
     w.clear()
-    if pin_routing:
-        pinned = compare_pinned(torch, M, cfg, eng.params, masked, dev)
+    if by_layer:
+        pinned = compare_pinned(torch, M, cfg, eng.params, masked, dev,
+                                kv_list)
         del masked
         # 2 rows x VERIFY_TOKENS: a verify pass routes 8 tokens, where
         # expert capacity equals the token count (a larger pass may drop
@@ -2088,7 +2267,8 @@ def _rows_ulps(got, want) -> "torch.Tensor":
     return (g - w).abs().amax(1) / (w.abs().amax(1) * 2 ** -8)
 
 
-def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
+def compare_pinned(torch, M, cfg, params, masked, dev,
+                   kv_paths=()) -> dict:
     """Compressed (``params``) against masked-dense (``masked``), layer by
     layer, with the routing pinned: one prompt of 4 rows x 64 tokens
     prefilled, then 8 decode steps fed the compressed run's greedy tokens.
@@ -2109,7 +2289,15 @@ def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
     every row.  Each routing it would change is counted and must be a
     near-tie: its margin between an expert only it would keep and one
     only the compressed layer keeps is at most twice the largest
-    difference of the two layers' router probabilities at that token."""
+    difference of the two layers' router probabilities at that token.
+    A layer of several blocks (a pattern of kinds in one stage: zamba2's
+    five ``mamba`` and one ``mamba_shared``) is compared block by block,
+    each tree's shared block beside its ``mamba_shared`` blocks, and its
+    recurrent states as its rings.  ``kv_paths``: at each decode pass,
+    every attention layer of the compressed tree also runs at each of
+    these ``kv_shards`` on the same input and a copy of its cache rows,
+    held to the same bound against its replicated run (outputs and ring
+    rows)."""
     from repro_torch import tree
     from repro_torch.data.synthetic import batches_for
     from repro_torch.models import blocks as blk
@@ -2122,9 +2310,14 @@ def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
     def clone(c):
         return tree.tree_map(torch.clone, c)
 
-    layers = [(kind, s, i) for s, (pattern, repeats) in
-              enumerate(M.make_stages(cfg)) for i in range(repeats)
-              for kind in pattern]
+    # (kind, stage, layer, position in the pattern, the layer's last block)
+    layers = [(kind, s, i, str(q), q == len(pattern) - 1)
+              for s, (pattern, repeats) in enumerate(M.make_stages(cfg))
+              for i in range(repeats) for q, kind in enumerate(pattern)]
+    sh_c, sh_m = params.get("shared"), masked.get("shared")
+    attends = {k for k in cfg.layer_kinds if k not in blk.MLA_KINDS
+               and blk.cache_length(k, cfg, 96) is not None}
+    worst_kv = torch.zeros((), device=dev)
     L = len(layers)
     worst = torch.zeros((), device=dev)        # teacher-forced, all layers
     free = torch.zeros((9, L), device=dev)     # free-running, by pass, depth
@@ -2139,44 +2332,57 @@ def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
                            device=dev)
             xc = M._embed(cfg, params, tok if j == 0 else tok[:, None])
             xf = M._embed(cfg, masked, tok if j == 0 else tok[:, None])
-            for d, (kind, s, i) in enumerate(layers):
-                pc_, pm_ = (M._layer(tr["stages"][s], i)["0"]
+            for d, (kind, s, i, q, last) in enumerate(layers):
+                pc_, pm_ = (M._layer(tr["stages"][s], i)[q]
                             for tr in (params, masked))
-                cc_, cf_ = (M._layer(caches[k][s], i)["0"]
+                cc_, cf_ = (M._layer(caches[k][s], i)[q]
                             for k in ("c", "f"))
                 pin["mode"] = "lead"
                 if j == 0:
                     ctx = blk.Ctx(positions=pos, cache_capacity=96)
                     yc, _, rc = blk.block_apply_full(kind, cfg, pc_, xc,
-                                                     ctx)
+                                                     ctx, sh_c)
                     pin["mode"] = ("follow", _same)
                     pin["tag"] = (j, "same input")
                     yt, _, rt = blk.block_apply_full(kind, cfg, pm_, xc,
-                                                     ctx)
+                                                     ctx, sh_m)
                     pin["tag"] = (j, "own")
                     yf, _, rf = blk.block_apply_full(kind, cfg, pm_, xf,
-                                                     ctx)
-                    for n in cc_:
-                        cc_[n].copy_(rc[n])
-                        cf_[n].copy_(rf[n])
+                                                     ctx, sh_m)
+                    tree.tree_map(lambda a, b: a.copy_(b), cc_, rc)
+                    tree.tree_map(lambda a, b: a.copy_(b), cf_, rf)
                 else:
                     rt = clone(cc_)
+                    by_kv = {S: clone(cc_) for S in kv_paths
+                             if kind in attends}
                     yc, _ = blk.block_apply_decode(kind, cfg, pc_, xc,
-                                                   cc_, t)
+                                                   cc_, t, shared=sh_c)
+                    for S, rk in by_kv.items():
+                        yk, _ = blk.block_apply_decode(
+                            kind, cfg, pc_, xc, rk, t, shared=sh_c,
+                            kv_shards=S)
+                        worst_kv = torch.maximum(
+                            worst_kv, _rows_ulps(yk, yc).max())
+                        for a, b in zip(tree.leaves(rk), tree.leaves(cc_),
+                                        strict=True):
+                            worst_kv = torch.maximum(worst_kv,
+                                                     _rows_ulps(a, b).max())
                     pin["mode"] = ("follow", _same)
                     pin["tag"] = (j, "same input")
                     yt, _ = blk.block_apply_decode(kind, cfg, pm_, xc,
-                                                   rt, t)
+                                                   rt, t, shared=sh_m)
                     pin["tag"] = (j, "own")
                     yf, _ = blk.block_apply_decode(kind, cfg, pm_, xf,
-                                                   cf_, t)
+                                                   cf_, t, shared=sh_m)
                     rc = cc_
                 worst = torch.maximum(worst, _rows_ulps(yt, yc).max())
-                for n in rc:
-                    worst = torch.maximum(worst, _rows_ulps(
-                        rt[n], rc[n]).max())
+                for a, b in zip(tree.leaves(rt), tree.leaves(rc),
+                                strict=True):
+                    worst = torch.maximum(worst, _rows_ulps(a, b).max())
                 free[j, d] = _rows_ulps(yf, yc).max()
                 xc, xf = yc, yf
+                if last:        # the layer's end: the stream in bf16
+                    xc, xf = xc.to(torch.bfloat16), xf.to(torch.bfloat16)
             lc = M._unembed(cfg, params, blk._norm(
                 cfg, params["final_norm"], xc[:, -1:]))[:, 0]
             lf = M._unembed(cfg, masked, blk._norm(
@@ -2197,18 +2403,29 @@ def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
     n_moe = sum("moe" in k for k in cfg.layer_kinds)
     check(pin["calls"] == 2 * n_moe * 9,
           f"pinned {pin['calls']} MoE calls, want {2 * n_moe * 9}")
-    worst = float(worst)
+    worst, worst_kv = float(worst), float(worst_kv)
     check(worst <= LOGIT_ULPS_FULL, f"compressed vs masked-dense, layer by "
           f"layer on the same input: {worst:.2f} bf16 ulps of a row's max "
           f"(outputs and ring rows), past {LOGIT_ULPS_FULL}")
+    check(worst_kv <= LOGIT_ULPS_FULL, f"kv_shards {kv_paths} vs None, "
+          f"layer by layer on the same input: {worst_kv:.2f} bf16 ulps of "
+          f"a row's max (outputs and ring rows), past {LOGIT_ULPS_FULL}")
+    if kv_paths:
+        print(f"  kv_shards {kv_paths} vs None, every attention layer of "
+              f"the compressed tree on the same input and a copy of its "
+              f"cache rows, 8 decode passes: outputs and ring rows worst "
+              f"{worst_kv:.3f} bf16 ulps of a row's max (bound "
+              f"{LOGIT_ULPS_FULL})")
     by_depth = free.amax(0).tolist()
     same = [f for f in flips if f[0][1] == "same input"]
     rows = sorted({(tag[0], r) for tag, r, _, _ in same})
     total = 9 * B
     print(f"  compressed vs masked-dense layer by layer (prefill of {P} "
-          f"tokens + 8 decode steps, {B} rows, every one of the {L} layers "
-          f"on the compressed run's input, each masked-dense MoE call pinned "
-          f"to the compressed layer's experts): outputs and ring rows "
+          f"tokens + 8 decode steps, {B} rows, every one of the {L} blocks "
+          f"on the compressed run's input"
+          + (", each masked-dense MoE call pinned to the compressed layer's "
+             "experts" if n_moe else "")
+          + f"): outputs and ring rows "
           f"worst {worst:.3f} bf16 ulps of a row's max (bound "
           f"{LOGIT_ULPS_FULL}); masked-dense's own router would have chosen "
           f"otherwise at {len(same)} (call, token) routings in {len(rows)} "
@@ -2222,7 +2439,8 @@ def compare_pinned(torch, M, cfg, params, masked, dev) -> dict:
           f"its own router would part from the pinned experts at "
           f"{len(flips) - len(same)} (call, token) routings, each a "
           "near-tie")
-    return {"worst_layer_ulps": worst, "free_by_depth": by_depth,
+    return {"worst_layer_ulps": worst, "worst_kv_layer_ulps": worst_kv,
+            "free_by_depth": by_depth,
             "free_logits_ulps": max(logits_err) * LOGIT_ULPS_FULL,
             "agree": agree, "rows": total, "flips": len(same),
             "flipped_rows": len(rows), "free_flips": len(flips) - len(same),
@@ -3167,12 +3385,16 @@ def phase_calibrate_card_vs_cpu(torch, dev) -> None:
 
 
 def banks_agree(torch, card, cpu, pcfg) -> tuple:
-    """A 2:4 calibration on the card against the same one on the CPU:
-    Gamma/V within the CPU tests' tolerance, and the masks equal but for
-    near-ties of the CPU run's own scores.  Returns (worst share of the
-    tolerance, groups that differ, groups)."""
+    """A calibration on the card against the same one on the CPU: Gamma/V
+    within the CPU tests' tolerance, and the masks equal but for near-ties
+    of the CPU run's own scores.  Returns (worst share of the tolerance,
+    groups that differ, groups): 2:4 groups of 4, or for an unstructured
+    bank single weights of the masks at sparsity 0.5, each that differs
+    within twice its tolerance of the CPU's global threshold."""
     import numpy as np
     from repro_torch import tree
+    if pcfg.mode != "nm":
+        return _unstructured_banks_agree(torch, card, cpu, pcfg)
     worst, ties, n = 0.0, 0, 0
     masks_card, masks_cpu = card.masks_at(), cpu.masks_at()
     for (path, vc), (_, vg) in zip(tree.flatten_with_path(cpu.V),
@@ -3206,6 +3428,51 @@ def banks_agree(torch, card, cpu, pcfg) -> tuple:
                   f"{margin} is no near-tie")
             ties += 1
         n += mk.size // 4
+    return worst, ties, n
+
+
+def _unstructured_banks_agree(torch, card, cpu, pcfg) -> tuple:
+    """:func:`banks_agree` for an unstructured bank: Gamma / V as there;
+    the masks at sparsity 0.5 (one global threshold of the export's
+    scores |Gamma| + eps |V|) equal but for weights whose CPU score is
+    within twice its tolerance of the CPU's threshold."""
+    from repro_torch import tree
+    worst = 0.0
+    masks_card, masks_cpu = card.masks_at(0.5), cpu.masks_at(0.5)
+    G = dict(tree.flatten_with_path(cpu.Gamma))
+    Vs = dict(tree.flatten_with_path(cpu.V))
+    leaves = [p for p, v in Vs.items() if v is not None]
+    gmax = max(float(G[p].abs().max()) for p in leaves)
+    vmax = max(float(Vs[p].abs().max()) for p in leaves)
+    eps = 1e-6 * max(gmax, 1e-30) / max(vmax, 1e-30) if gmax > 0 \
+        else 1.0 / max(vmax, 1e-30)
+    scores, tols = {}, {}
+    for path, vg in tree.flatten_with_path(card.V):
+        if vg is None:
+            continue
+        vc = Vs[path]
+        tol = BF16_ULP * (vc.abs() + pcfg.lam) + 1e-4 * vc.abs().max()
+        gg = dict(tree.flatten_with_path(card.Gamma))[path].cpu()
+        for got, want in ((vg.cpu(), vc), (gg, G[path])):
+            ratio = float(((got - want).abs() / tol).max())
+            check(ratio <= 1, f"card vs CPU calibration at {path}: "
+                  f"{ratio:.3f} of the tolerance")
+            worst = max(worst, ratio)
+        scores[path] = G[path].abs() + eps * vc.abs()
+        tols[path] = tol
+    mk = dict(tree.flatten_with_path(masks_cpu))
+    mg = dict(tree.flatten_with_path(masks_card))
+    thr = min(float(scores[p][mk[p].bool()].min()) for p in leaves)
+    ties, n = 0, 0
+    for p in leaves:
+        diff = mk[p].bool() != mg[p].cpu().bool()
+        off = (scores[p][diff] - thr).abs()
+        check(bool((off <= 2 * tols[p][diff] + 1e-30).all()),
+              f"card vs CPU unstructured masks at {p}: a weight "
+              f"{float(off.max()) if diff.any() else 0.0} from the "
+              "threshold differs, no near-tie")
+        ties += int(diff.sum())
+        n += mk[p].numel()
     return worst, ties, n
 
 
@@ -4302,10 +4569,12 @@ def phase_train(torch, dev, card: str) -> dict:
 # Phase 10: the gemma and yi families
 # ---------------------------------------------------------------------------
 
-# (arch, layers served or None for the published depth): gemma3-1b whole;
-# yi-6b and gemma2-2b at their published widths, cut in depth only (the
-# script's time limit; see PERF.md section 4)
-GEMMA_YI = (("gemma3-1b", None), ("yi-6b", 8), ("gemma2-2b", 6))
+# (arch, layers served): each at its published widths, cut in depth only
+# (the script's time limit, PERF.md section 4): since phase 14 came in,
+# gemma3-1b serves one of its 5:1 local:global patterns (6 of 26 layers;
+# whole before), yi-6b 2 of 32 (8 before), gemma2-2b one local:global
+# pair (2 of 26; 6 before)
+GEMMA_YI = (("gemma3-1b", 6), ("yi-6b", 2), ("gemma2-2b", 2))
 GEMMA_TINY_STEPS = 5
 EVAL_RTOL = 2e-3            # the CPU tests' eval tolerance (ROADMAP R10)
 
@@ -4385,8 +4654,11 @@ def gemma_tiny_card_vs_cpu(torch, dev, card: str, launches: dict) -> dict:
 
 def calibration_card_vs_cpu(torch, dev, cfg, p_cpu, launches: dict,
                             name: str, calib: list, stats_batches: int,
-                            shared_stats: bool = False) -> dict:
-    """A GEMMA_TINY_STEPS-step wanda 2:4 ``calibrate_to_bank`` of ``cfg``
+                            shared_stats: bool = False,
+                            mode: str = "nm") -> dict:
+    """A GEMMA_TINY_STEPS-step wanda ``calibrate_to_bank`` of ``cfg`` (2:4,
+    or unstructured where ``mode`` says so: a config whose projections
+    are no multiple of 4 deep, smoke xlstm's ff_down of 85)
     from the CPU params ``p_cpu``, on the card (counted under ``name``;
     every search-kernel signature and every ``nm_mask24`` mask held
     against its plain version) and on this host's CPU: one fused step and
@@ -4404,8 +4676,9 @@ def calibration_card_vs_cpu(torch, dev, cfg, p_cpu, launches: dict,
     from repro_torch.core.prunable import prunable_map
     from repro_torch.launch.calibrate import calibrate_to_bank
     from repro_torch.sparse.bank import MaskBank
-    pcfg = PruneConfig(local_metric="wanda", mode="nm",
+    pcfg = PruneConfig(local_metric="wanda", mode=mode,
                        steps=GEMMA_TINY_STEPS, stats_batches=stats_batches)
+    nm = mode == "nm"
     bdir = _banks_dir()
     on, seen, checked, stats_err = {}, {}, {}, None
     for d in ("cpu", dev):
@@ -4439,20 +4712,21 @@ def calibration_card_vs_cpu(torch, dev, cfg, p_cpu, launches: dict,
                     bdir / key, cfg=cfg, pcfg=pcfg, params=params,
                     calib=calib, arch=cfg.name, smoke=False,
                     log_every=GEMMA_TINY_STEPS)
-            if d is dev:
+            if d is dev and nm:
                 on[key].masks_at()
         on[key + "_s"] = time.perf_counter() - t0
     n_leaves = sum(tree.leaves(prunable_map(p_cpu)))
     got = launches[name]
     check(got["saliency_fused_step"] == n_leaves * GEMMA_TINY_STEPS
-          and got["prox24"] == n_leaves * GEMMA_TINY_STEPS
-          and got["nm_mask24"] == n_leaves,
+          and got["prox24"] == n_leaves * GEMMA_TINY_STEPS * nm
+          and got["nm_mask24"] == n_leaves * nm,
           f"{cfg.name} calibration launches {got}, want {n_leaves} leaves")
-    check(len(checked.get("nm_mask24", ())) == n_leaves,
+    check(len(checked.get("nm_mask24", ())) == n_leaves * nm,
           f"{cfg.name}: {len(checked.get('nm_mask24', ()))} nm_mask24 "
-          f"masks checked, want {n_leaves}")
+          f"masks checked, want {n_leaves * nm}")
     worst, ties, n = banks_agree(torch, on["card"], on["cpu"], pcfg)
-    print(f"  {cfg.name} {GEMMA_TINY_STEPS}-step wanda 2:4, card "
+    print(f"  {cfg.name} {GEMMA_TINY_STEPS}-step wanda "
+          f"{'2:4' if nm else 'unstructured (masks at 0.5)'}, card "
           f"{on['card_s']:.1f} s vs CPU {on['cpu_s']:.1f} s"
           + ("" if stats_err is None else
              f" (stats card vs CPU: worst leaf {stats_err:.2e} relative "
@@ -4460,9 +4734,10 @@ def calibration_card_vs_cpu(torch, dev, cfg, p_cpu, launches: dict,
           + f": launches "
           f"{ {k: v for k, v in got.items() if v} }; search-kernel "
           f"signatures bit for bit {sorted(k[:2] for k in seen)}, "
-          f"{len(checked['nm_mask24'])} nm_mask24 masks exactly; Gamma/V "
-          f"worst {worst:.3f} of the tolerance; {ties} of {n} groups of 4 "
-          "differ in the masks, each a near-tie")
+          f"{len(checked.get('nm_mask24', ()))} nm_mask24 masks exactly; "
+          f"Gamma/V worst {worst:.3f} of the tolerance; {ties} of {n} "
+          f"{'groups of 4' if nm else 'weights'} differ in the masks, each "
+          "a near-tie")
     shutil.rmtree(bdir, ignore_errors=True)
     return {"card_s": on["card_s"], "cpu_s": on["cpu_s"], "worst": worst,
             "near_ties": ties, "groups": n, "stats_err": stats_err}
@@ -4497,6 +4772,10 @@ def phase_gemma_yi(torch, dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DEEPSEEK = "deepseek-v2-lite-16b"
+# layers served: the published depth is 27 (one mla_dense + 26 mla_moe);
+# cut to the dense layer + 7 MoE ones by the script's time since phase 14
+# came in (PERF.md section 4)
+DEEPSEEK_LAYERS = 8
 # the profiled graph run's tokens per request: a deepseek decode step is
 # ~27 layers x ~200 kernels, so 8 steps would pass the profiler's buffers
 DEEPSEEK_PROFILED_TOKENS = 4
@@ -4575,20 +4854,23 @@ def deepseek_smoke_card_vs_cpu(torch, dev, card: str, launches: dict
 
 
 def phase_deepseek(torch, dev, card: str) -> dict:
-    """Phase 12: deepseek-v2-lite-16b whole (27 layers at its published
-    widths) through phase 4's path, its weights made a layer slice at a
-    time (:func:`weights_by_layer`), compressed against masked-dense with
-    the routing pinned (:func:`compare_pinned`), verify against
-    sequential decode; then the smoke config card vs CPU."""
+    """Phase 12: deepseek-v2-lite-16b at its published widths, cut to
+    DEEPSEEK_LAYERS of its 27 layers, through phase 4's path, its weights
+    made a layer slice at a time (:func:`weights_by_layer`), compressed
+    against masked-dense with the routing pinned (:func:`compare_pinned`),
+    verify against sequential decode; then the smoke config card vs
+    CPU."""
     from repro_torch.configs.base import get_config
-    cfg = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(get_config(DEEPSEEK),
+                              num_layers=DEEPSEEK_LAYERS)
     launches = {}
     t0 = time.perf_counter()
     out = phase_serve(torch, dev, card, cfg, long_cache=True, verify=True,
-                      weights=weights_by_layer, pin_routing=True,
+                      weights=weights_by_layer, by_layer=True,
                       profiled_tokens=DEEPSEEK_PROFILED_TOKENS)
     out["s"] = time.perf_counter() - t0
-    print(f"  {DEEPSEEK} whole took {out['s']:.1f} s")
+    print(f"  {DEEPSEEK} ({DEEPSEEK_LAYERS} of 27 layers) took "
+          f"{out['s']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     out["smoke"] = deepseek_smoke_card_vs_cpu(torch, dev, card, launches)
@@ -4673,8 +4955,10 @@ def phase_bank(torch, dev) -> None:
 OBS_DIR = ROOT / "build" / "chip_smoke_obs"
 # recorder off / on runs, in turns: a run's decode steps vary by +-8% and
 # its eager prefills by a third between runs on the card's shared host
-# (H100 runs of this phase), so 10 pairs for the median
-OBS_PAIRS = 10
+# (H100 runs of this phase), so the bound is held on a median of pairs:
+# 20 (10 until a run whose ratios spread 0.89-1.04 put the median of 10
+# at 3.88%: PERF.md section 6)
+OBS_PAIRS = 20
 OBS_OVERHEAD = 0.03       # benchmarks/bench_obs.py's claim: <= 3% decode
 OBS_KV = (1, 4)
 OBS_SERVE_ARGS = ["--arch", "llama3.2-1b", "--gen", "8"]
@@ -5041,6 +5325,129 @@ def phase_obs(torch, dev, card: str) -> dict:
             "calibrate_worst": cal["worst"]}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the recurrent families, zamba2-7b and xlstm-125m
+# ---------------------------------------------------------------------------
+
+ZAMBA, XLSTM = "zamba2-7b", "xlstm-125m"
+# a zamba2 decode step is ~7200 kernels (81 layers of the Mamba2 mixer's
+# small ops) and its eager prefill more: 2 profiled tokens a request keep
+# the window inside the profiler's buffers and its processing near 20 s a
+# path (4 tokens: ~30 s)
+RECURRENT_PROFILED_TOKENS = 2
+# the capacity-8192 step: the replicated path and flash_decode
+RECURRENT_LONG_PATHS = (None, 1)
+# zamba2's kv_shards paths against None are held layer by layer on the
+# same input (phase_serve kv_by_layer): its 13 attention layers keep f32
+# probabilities in the kernels where the replicated path rounds them to
+# bf16 (the reference's rounding), and 81 layers of recurrent states carry
+# each difference to every later position, so end to end the runs part by
+# more than 8 ulps at the logits (up to 34 on the H100: PERF.md section
+# 6); those figures are printed
+# smoke streams (prompt tokens, new tokens): a one-token prompt admits
+# through the blank row (a reused slot's state reset)
+RECURRENT_SMOKE_STREAMS = ((9, 6), (17, 8), (1, 8), (12, 6), (5, 6))
+
+
+def recurrent_smoke_card_vs_cpu(torch, dev, card: str, arch: str,
+                                launches: dict, mode: str) -> dict:
+    """A smoke config (seed-0 weights) on the card and on this host's
+    CPU: greedy engine streams on 2 slots (5 requests, so slots are reused
+    and one is admitted with a one-token prompt from the blank state),
+    the card's eager steps against the CPU's row by row
+    (:func:`compare_decode_runs`), the card's CUDA-graph engine == its
+    eager one; xlstm's ``kv_shards`` engine refused (no attention); then a
+    short wanda calibration card vs CPU (:func:`calibration_card_vs_cpu`,
+    ``mode``: xlstm's smoke ff_down of 85 takes no 2:4)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine, eager
+    cfg = get_smoke_config(arch)
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    toks = batches_for(cfg, n=1, batch=len(RECURRENT_SMOKE_STREAMS), seq=32,
+                       split="valid")[0]["tokens"]
+    reqs = [(toks[i, :n], m) for i, (n, m) in
+            enumerate(RECURRENT_SMOKE_STREAMS)]
+    runs = {}
+    for d in (dev, "cpu"):
+        eng = ServeEngine(cfg, p_cpu, slots=2, capacity=64, device=d)
+        steps = record_decode(eng, [])
+        rids = [eng.submit(p, m) for p, m in reqs]
+        with eager():
+            out = eng.run()
+        del eng.fns.decode
+        runs[d] = ([out[r] for r in rids], _steps_to_cpu(steps), eng)
+    n_rows, worst, ties, _ = compare_decode_runs(
+        torch, runs["cpu"][1], runs[dev][1], coupled=False)
+    same = sum(a == b for a, b in zip(runs[dev][0], runs["cpu"][0]))
+    check(same + len(ties) >= len(reqs),
+          f"smoke {arch}: card streams {runs[dev][0]} differ from the "
+          f"CPU's {runs['cpu'][0]} past the near-ties {ties}")
+    eng = runs[dev][2]
+    rids = [eng.submit(p, m) for p, m in reqs]
+    out = eng.run()
+    check([out[r] for r in rids] == runs[dev][0]
+          and eng.fns.capture_counts() == {"decode": 1},
+          f"smoke {arch}: the card's graph engine streams differ from its "
+          "eager ones")
+    refused = None
+    if not M.cache_lengths(cfg, 64):
+        try:
+            ServeEngine(cfg, p_cpu, slots=2, capacity=64, device=dev,
+                        kv_shards=1)
+            fail(f"{arch}: an engine with kv_shards=1 was built")
+        except ValueError as e:
+            check("no attention" in str(e), f"kv_shards refusal: {e}")
+            refused = "kv_shards=1 refused (no attention)"
+    print(f"  smoke {arch} card vs this host's CPU: {same} of {len(reqs)} "
+          f"greedy streams equal, {n_rows} decode rows compared, logits "
+          f"worst {worst:.3f} of the tolerance, token near-ties {ties}; the "
+          f"card's graph engine == its eager one"
+          + (f"; {refused}" if refused else ""))
+    # the card's stats against the CPU's by each leaf's relative Frobenius
+    # error, its search on the CPU's stats: bf16 flips in the matmuls,
+    # carried by the recurrent states, move later layers' stats by up to
+    # 1.5% elementwise (tests/test_torch_zamba.py, ROADMAP R19)
+    calibration = calibration_card_vs_cpu(
+        torch, dev, cfg, p_cpu, launches, f"calibrate {arch} smoke wanda "
+        + ("2:4" if mode == "nm" else "unstructured"),
+        batches_for(cfg, n=2, batch=4, seq=32, split="calib"), 2,
+        shared_stats=True, mode=mode)
+    del runs, eng
+    return {"streams_equal": same, "streams": len(reqs), "rows": n_rows,
+            "worst": worst, "near_ties": len(ties),
+            "calibration": calibration}
+
+
+def phase_recurrent(torch, dev, card: str) -> dict:
+    """Phase 14: zamba2-7b whole (81 layers at its published widths) and
+    xlstm-125m whole through phase 4's path (:func:`phase_serve`), both
+    compressed against masked-dense layer by layer; then each smoke
+    config card vs CPU with a short calibration."""
+    from repro_torch.configs.base import get_config
+    launches, out = {}, {}
+    for arch, kw in ((ZAMBA, dict(long_cache=True, weights=weights_by_layer,
+                                  long_paths=RECURRENT_LONG_PATHS,
+                                  kv_by_layer=True)),
+                     (XLSTM, dict(weights=weights_whole))):
+        t0 = time.perf_counter()
+        out[arch] = phase_serve(torch, dev, card, get_config(arch),
+                                by_layer=True,
+                                profiled_tokens=RECURRENT_PROFILED_TOKENS,
+                                **kw)
+        out[arch]["s"] = time.perf_counter() - t0
+        print(f"  {arch} whole took {out[arch]['s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, mode in ((ZAMBA, "nm"), (XLSTM, "unstructured")):
+        out[arch]["smoke"] = recurrent_smoke_card_vs_cpu(
+            torch, dev, card, arch, launches, mode)
+    out["smoke_launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5055,7 +5462,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/14] device")
+    print("[1/15] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -5067,22 +5474,21 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/14] build")
+    print("[2/15] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report()
     build()
     for name in ENTRY_POINTS:
         library(name)
     print(f"  kernels built ({', '.join(ENTRY_POINTS)}: one nvcc each, in "
           f"parallel) and loaded in {time.perf_counter() - t0:.1f} s")
-    spills = ptxas_report(ptxas)
-    print(f"  ptxas, flash_decode_kernel at D 256 or G 8 (registers, spill "
+    spills = ptxas_report(ptxas_text())
+    print(f"  ptxas, flash_decode_kernel at D 112 or G 1 (registers, spill "
           f"store bytes, spill load bytes), {time.perf_counter() - t0:.1f} s "
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/14] kernels against their plain versions [{card}]")
+    print(f"[3/15] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -5111,14 +5517,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/14] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/15] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/14] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/15] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -5126,7 +5532,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/14] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/15] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -5135,7 +5541,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/14] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/15] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -5143,7 +5549,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/14] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/15] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -5155,7 +5561,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/14] training: the launcher at full width, its resume, the "
+    print(f"[9/15] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -5164,7 +5570,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/14] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/15] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -5173,14 +5579,14 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/14] committed mask bank at smoke width, card vs CPU")
+    print("[11/15] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/14] {DEEPSEEK} whole (27 layers, MLA, 64 experts top-6 + 2 "
-          f"shared) 2:4 serving at its published widths, the smoke config "
-          f"card vs CPU [{card}]")
+    print(f"[12/15] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+          f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
+          f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
     deep = phase_deepseek(torch, dev, card)
     t_deep = time.perf_counter() - t0
@@ -5188,7 +5594,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/14] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/15] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -5199,10 +5605,21 @@ def main() -> int:
     t_obs = time.perf_counter() - t0
     print(f"  phase took {t_obs:.1f} s")
 
-    print("[14/14] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[14/15] the recurrent families: {ZAMBA} whole (81 layers: Mamba2 "
+          f"+ the LoRA-shared attention, decode attention at G 1, D 112) "
+          f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
+          f"published widths, the smoke configs card vs CPU [{card}]")
+    t0 = time.perf_counter()
+    rec = phase_recurrent(torch, dev, card)
+    t_rec = time.perf_counter() - t0
+    print(f"  phase took {t_rec:.1f} s")
+
+    print("[15/15] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
-              DEEPSEEK: deep}
+              DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM]}
     paths = {"calibrate llama3.2-1b": calib["launches"]}
     for name, run in served.items():
         paths[name] = run["launches"]
@@ -5213,7 +5630,8 @@ def main() -> int:
     # phase 8's, 9's and 10's paths, each with the kernels it launched
     for name, launched in {**evalr["launches"], **trained["launches"],
                            **gemma["launches"],
-                           **deep["smoke_launches"]}.items():
+                           **deep["smoke_launches"],
+                           **rec["smoke_launches"]}.items():
         paths[name] = {k: v for k, v in launched.items() if v}
     # kernel launches the profiler saw on the CUDA-graph engine's runs of
     # phases 4-5's and 10's paths (2 requests), replays included, by
@@ -5253,7 +5671,9 @@ def main() -> int:
                  "at M=4 (4 slots), packed2, bf16; by_path: one decode "
                  "layer's projections on each path (deepseek-v2-lite-16b: "
                  "an mla_moe layer's wq, w_dkv, wo, shared up / gate / "
-                 "down, and every timed shape in its rows)"},
+                 "down, and every timed shape in its rows; zamba2-7b: a "
+                 "mamba layer's in_proj and out_proj and the shared block's "
+                 "7; xlstm-125m: an mLSTM and an sLSTM layer's 9)"},
         {"name": "nm_matmul_expert", "route": "cuda",
          "source": "src/repro_torch/csrc/nm_spmm.cu",
          "replaces": "src/repro/kernels/nm_spmm.py:202",
@@ -5294,8 +5714,9 @@ def main() -> int:
          "work": "one llama3.2-1b decode layer's attention at serving: "
                  "B=4 slots, 8 kv heads x 4 query heads of 64, C=256, bf16; "
                  "by_case: every phase-3 case, gemma3-1b's 1 kv head x 4 "
-                 "of 256 and yi-6b's 4 kv heads x 8 of 128 included; "
-                 "library: F.scaled_dot_product_attention (enable_gqa)"},
+                 "of 256, yi-6b's 4 kv heads x 8 of 128 and zamba2-7b's "
+                 "32 kv heads x 1 of 112 included; library: "
+                 "F.scaled_dot_product_attention (enable_gqa)"},
         {"name": "flash_decode_partial", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:140",
@@ -5316,7 +5737,8 @@ def main() -> int:
           f"{t_fleet:.1f} s, the evaluation phase {t_eval:.1f} s, the "
           f"training phase {t_train:.1f} s, the gemma and yi phase "
           f"{t_gemma:.1f} s, the deepseek phase {t_deep:.1f} s, the "
-          f"recorder's phase {t_obs:.1f} s)")
+          f"recorder's phase {t_obs:.1f} s, the recurrent phase "
+          f"{t_rec:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -5353,6 +5775,20 @@ def main() -> int:
         "smoke": deep["smoke"]}}))
     # phase 13's recorder figures, on a line of its own
     print(json.dumps({"obs": obsr}))
+    # phase 14's serving, on a line of its own
+    print(json.dumps({"recurrent": {arch: {
+        "prefill_ms": r["prefill_ms"], "peak_gib": r["peak_gib"],
+        "peak_gib_with_masked_dense": r["pinned"]["peak_gib"],
+        "eager_step_ms": r["step_ms"], "s": r["s"],
+        "build_s": r["build_s"], "export_s": r["export_s"],
+        "graph_ms": {str(S): v["graph_ms"]
+                     for S, v in r["steps_by_kv"].items()},
+        "long_graph_ms": {str(S): v["graph_ms"]
+                          for S, v in (r["long_cache"] or {}).items()},
+        "graph_tok_s": {str(S): g["tok_s"]
+                        for S, g in r["graph_runs"].items()},
+        "pinned": r["pinned"], "smoke": r["smoke"]}
+        for arch, r in ((a, rec[a]) for a in (ZAMBA, XLSTM))}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Field-for-field copy of ``repro.configs.base`` (which imports jax): a bank
 artifact's ``pcfg`` and a config's fields mean the same in both packages.
 Config modules so far: ``llama3.2-1b``, ``mixtral-8x22b``, ``gemma3-1b``,
-``gemma2-2b``, ``yi-6b`` and ``deepseek-v2-lite-16b``; the paper-table
-harness's tiny families are in ``configs/tiny.py``.
+``gemma2-2b``, ``yi-6b``, ``deepseek-v2-lite-16b``, ``zamba2-7b`` and
+``xlstm-125m``; the paper-table harness's tiny families are in
+``configs/tiny.py``.
 """
 from __future__ import annotations
 
@@ -81,6 +82,10 @@ class ModelConfig:
         n = self.num_layers - len(self.pattern_prefix)
         return self.pattern_prefix + tuple(
             self.pattern[i % len(self.pattern)] for i in range(n))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     @property
     def is_encoder_decoder(self) -> bool:

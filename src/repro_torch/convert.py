@@ -6,8 +6,11 @@ transform of them, so a test that compares the two packages on the same
 weights initialises them in JAX, pulls them to the host
 (``jax.device_get``: a tree of numpy arrays) and converts them here.  The trained benchmark models the reference
 cached under ``results/bench_models/*.pkl`` are such numpy trees already
-(:func:`load_params_pickle`).  Expert banks (layers, E, d_in, d_out) and an
-untied ``lm_head`` carry across like every other leaf.  This module imports
+(:func:`load_params_pickle`).  Expert banks (layers, E, d_in, d_out), an
+untied ``lm_head``, zamba2's ``shared`` block and ``lora_*`` adapters, and
+the recurrent mixers' leaves (Mamba2's ``A_log``, ``dt_bias``, ``D`` and
+``conv``, sLSTM's recurrent ``r``) carry across like every other leaf: the
+tree's key paths are the reference's.  This module imports
 neither jax nor ``repro``: it only sees numpy.
 """
 from __future__ import annotations

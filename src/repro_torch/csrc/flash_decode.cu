@@ -64,8 +64,12 @@
 //   groups.
 // * Tensor cores for bf16.  q . k is mma.m16n8k16 (bf16 in, f32 sums: each
 //   product is exact) with the G heads as rows 0..G-1 of the A tile (the
-//   rest zero), q's fragments held in registers for the whole range, k's
-//   loaded by ldmatrix.  The chunk's softmax runs on the score fragments in
+//   rest zero; G 1 uses one row of 16), q's fragments held in registers for
+//   the whole range, k's loaded by ldmatrix, two 16-wide k-steps an x4 load
+//   (D 112 has 7: the last one alone, an x2 load; a 112-wide row is 14
+//   16-byte units, padded to 15, so each K or V row of the ring starts 240
+//   bytes after the last and the 8 rows of an ldmatrix still hit 8 bank
+//   groups).  The chunk's softmax runs on the score fragments in
 //   registers (the 4 lanes of a row reduce with two shuffles).  p . v keeps
 //   f32 p: p = p_hi + p_lo, two bf16 terms (|p - p_hi - p_lo| <= 2^-18 p),
 //   each an mma against v's fragments (ldmatrix.trans) into f32 sums.
@@ -123,7 +127,8 @@ struct Shape {
   static constexpr int MIN_BLOCKS = 3 * (SMEM + 1024) <= kSmemSM   ? 3
                                     : 2 * (SMEM + 1024) <= kSmemSM ? 2
                                                                    : 1;
-  static_assert(RU >= 4 && RU <= 64 && D % 16 == 0 && G <= 8 &&
+  static_assert(RU >= 4 && RU <= 64 && D % 16 == 0 && DN % 2 == 0 &&
+                    G >= 1 && G <= 8 &&
                     WARP_RING >= STATE && SMEM <= kSmemLimit,
                 "head dim, group or shared memory");
 };
@@ -168,6 +173,15 @@ __device__ __forceinline__ void ldsm4(const void* p, unsigned (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// two 8x8 b16 matrices; lanes 0-15 give the row addresses (lanes 16-31
+// repeat them: their addresses must be valid, and are not used)
+__device__ __forceinline__ void ldsm2(const void* p, unsigned (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p)));
 }
 
@@ -325,13 +339,21 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ks += 2) {
+        for (int ks = 0; ks + 1 < D / 16; ks += 2) {
           unsigned kf[4];  // B fragments of k-steps ks and ks + 1
           ldsm4(sK + (nt * 8 + (lane & 7)) * ROW * 16 +
                     (ks * 16 + (lane >> 3) * 8) * 2,
                 kf);
           mma16816(s[nt], qa[ks][0], qa[ks][1], kf[0], kf[1]);
           mma16816(s[nt], qa[ks + 1][0], qa[ks + 1][1], kf[2], kf[3]);
+        }
+        if constexpr ((D / 16) % 2) {  // the last k-step alone (D 112: 7)
+          constexpr int ks = D / 16 - 1;
+          unsigned kf[2];
+          ldsm2(sK + (nt * 8 + (lane & 7)) * ROW * 16 +
+                    (ks * 16 + ((lane >> 3) & 1) * 8) * 2,
+                kf);
+          mma16816(s[nt], qa[ks][0], qa[ks][1], kf[0], kf[1]);
         }
       }
     } else if (g < G) {
@@ -594,6 +616,9 @@ cudaError_t launch_g(int G, bool partial, const void* q, const void* k,
                      float* m, float* l, int B, int C, int K, int S, int P,
                      float scale, cudaStream_t st) {
   switch (G) {
+    case 1:
+      return launch_p<T, D, 1>(partial, q, k, v, bias, out, acc, m, l, B, C,
+                               K, S, P, scale, st);
     case 2:
       return launch_p<T, D, 2>(partial, q, k, v, bias, out, acc, m, l, B, C,
                                K, S, P, scale, st);
@@ -622,6 +647,9 @@ cudaError_t launch_d(int D, int G, bool partial, const void* q,
     case 64:
       return launch_g<T, 64>(G, partial, q, k, v, bias, out, acc, m, l, B, C,
                              K, S, P, scale, st);
+    case 112:
+      return launch_g<T, 112>(G, partial, q, k, v, bias, out, acc, m, l, B,
+                              C, K, S, P, scale, st);
     case 128:
       return launch_g<T, 128>(G, partial, q, k, v, bias, out, acc, m, l, B,
                               C, K, S, P, scale, st);
@@ -634,8 +662,10 @@ cudaError_t launch_d(int D, int G, bool partial, const void* q,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and out alike); D in {32, 64, 128,
-// 256}, G in {2, 4, 6, 8}, S >= 1 dividing C, P in {1, 2, 4, 8} capacity splits per
+// dtype: 0 = f32, 1 = bf16 (q, k, v and out alike; built with
+// -DREPRO_FD_ONLY=0 or 1, the library takes that dtype alone: the two
+// compile in parallel); D in {32, 64, 112, 128, 256}, G in {1, 2, 4, 6,
+// 8}, S >= 1 dividing C, P in {1, 2, 4, 8} capacity splits per
 // shard with P <= C / S.  partial = 0: out (B,K,G,D), S = 1; partial = 1:
 // acc (S,B,K,G,D), m and l (S,B,K,G) f32.  Every array is contiguous; q, k
 // and v 16-byte aligned.
@@ -653,12 +683,16 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
       (P & (P - 1)) || P > C / S)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
+#if !defined(REPRO_FD_ONLY) || REPRO_FD_ONLY == 0
   if (dtype == 0)
     err = launch_d<float>(D, G, partial != 0, q, k, v, bi, out, a, mm, ll, B,
                           C, K, S, P, scale, st);
-  else if (dtype == 1)
+#endif
+#if !defined(REPRO_FD_ONLY) || REPRO_FD_ONLY == 1
+  if (dtype == 1)
     err = launch_d<__nv_bfloat16>(D, G, partial != 0, q, k, v, bi, out, a, mm,
                                   ll, B, C, K, S, P, scale, st);
+#endif
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

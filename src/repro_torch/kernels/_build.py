@@ -4,8 +4,12 @@ Each ``csrc/<name>.cu`` compiles for ``sm_90a`` into a shared library of its
 own with a plain C interface, loaded with ``ctypes``: pointers and the
 stream go as ``c_void_p``, sizes as ``c_int``/``c_longlong``, and each C
 function returns ``cudaGetLastError()``, which the wrappers raise on.
-:func:`build` starts one ``nvcc`` per missing library, all at once, and
-waits for every one.  The libraries land in ``build/repro_torch_kernels/``
+``flash_decode.cu`` builds twice, its f32 and its bf16 instantiations
+each a library of their own (``VARIANTS``: one define each), so that its
+100 instantiations compile on two cores.  :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for every one;
+ptxas's report of each (``-Xptxas -v`` where ``EXTRA_FLAGS`` asks for it)
+stays in :data:`LOGS`.  The libraries land in ``build/repro_torch_kernels/``
 at the repository root, named by a hash of their source and the flags, so
 an edited source rebuilds and an unchanged one loads the existing file.
 
@@ -46,18 +50,32 @@ ENTRY_POINTS = {
         "repro_saliency_fused_step": [_P] * 9 + [_LL] + [_I] * 4
                                      + [_F, _F, _P],
     },
-    "flash_decode": {
+    **{f"flash_decode_{dt}": {
         "repro_flash_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
         "repro_flash_decode_combine": [_P] * 4 + [_I] * 5 + [_P],
-    },
+    } for dt in ("f32", "bf16")},
 }
-# flags of one source on top of NVCC_FLAGS: the elementwise search passes
-# round every op on its own, as their plain PyTorch versions do
-EXTRA_FLAGS = {"prox24": ("-fmad=false",), "saliency_fuse": ("-fmad=false",)}
+# libraries built from another library's source with a define:
+# name -> (source, flags)
+VARIANTS = {f"flash_decode_{dt}": ("flash_decode",
+                                   (f"-DREPRO_FD_ONLY={code}",))
+            for dt, code in (("f32", 0), ("bf16", 1))}
+# flags of one library on top of NVCC_FLAGS: the elementwise search passes
+# round every op on its own, as their plain PyTorch versions do; the
+# decode attention kernels report their registers and spills
+EXTRA_FLAGS = {"prox24": ("-fmad=false",), "saliency_fuse": ("-fmad=false",),
+               **{name: ("-Xptxas", "-v") for name in VARIANTS}}
+# nvcc's output (ptxas's report) of each library built by this process
+LOGS: dict[str, str] = {}
+
+
+def _source(name: str) -> pathlib.Path:
+    return CSRC / f"{VARIANTS.get(name, (name, ()))[0]}.cu"
 
 
 def _flags(name: str) -> tuple[str, ...]:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    return (NVCC_FLAGS + VARIANTS.get(name, (name, ()))[1]
+            + EXTRA_FLAGS.get(name, ()))
 
 
 def _nvcc() -> str:
@@ -72,7 +90,7 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
+    src = _source(name)
     h = hashlib.sha256(" ".join(_flags(name)).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_{name}_{h.hexdigest()[:16]}.so"
@@ -90,13 +108,14 @@ def build(names=None) -> None:
     running = []
     for name, so in todo:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(_source(name))]
         running.append((cmd, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
-    for cmd, so, tmp, proc in running:
+    for (name, _), (cmd, so, tmp, proc) in zip(todo, running, strict=True):
         out, _ = proc.communicate()
+        LOGS[name] = out
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{out}")

@@ -16,9 +16,10 @@ for CUDA tensors, or raising:
 Operands: q (B,K,G,D) - the G query heads of each kv head; k and v
 (B,C,K,D) - the cache in its own layout; bias (B,C) f32, 0 for a valid
 slot and -1e30 for a masked one.  The kernels take f32 or bf16 q/k/v
-(one dtype), D in {32, 64, 128, 256}, G in {2, 4, 6, 8}, v's head dim
-equal to D, contiguous operands and 16-byte aligned q, k and v.  Each launches
-on the current stream and never synchronises, so a decode step that
+(one dtype), D in {32, 64, 112, 128, 256}, G in {1, 2, 4, 6, 8} (zamba2's
+shared attention: G 1, D 112), v's head dim equal to D, contiguous
+operands and 16-byte aligned q, k and v.  Each launches on the current
+stream and never synchronises, so a decode step that
 calls them can be captured in a CUDA graph.
 
 Inside its one launch, the attention kernel splits each shard's slots
@@ -37,8 +38,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.nm_spmm import _sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
-GROUPS = (2, 4, 6, 8)
+# the library of each dtype code: csrc/flash_decode.cu built once for each
+# (kernels/_build.py VARIANTS)
+_LIBRARY = {0: "flash_decode_f32", 1: "flash_decode_bf16"}
+HEAD_DIMS = (32, 64, 112, 128, 256)
+GROUPS = (1, 2, 4, 6, 8)
 CHUNK = 16          # slots of a warp's ring stage in the kernel (kChunk)
 MAX_SPLITS = 8      # the portable cluster size (kMaxSplits)
 
@@ -118,7 +122,7 @@ def _launch(q, k, v, bias, out, acc, m, l, shards, partial, code, scale):
     scale = D ** -0.5 if scale is None else scale
     splits = plan_splits(B, K, C, shards, _sm_count(q.device.index))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = library("flash_decode").repro_flash_decode(
+    err = library(_LIBRARY[code]).repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), ptr(out),
         ptr(acc), ptr(m), ptr(l), B, C, K, G, D, shards, splits, code,
         int(partial), scale, _stream(q))
@@ -206,7 +210,7 @@ def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     S, B, K, G, Dv = acc.shape
     out = torch.empty((B, K, G, Dv), dtype=out_dtype, device=acc.device)
     from repro_torch.kernels._build import library
-    err = library("flash_decode").repro_flash_decode_combine(
+    err = library(_LIBRARY[code]).repro_flash_decode_combine(
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), S, B * K,
         G, Dv, code, _stream(acc))
     if err:

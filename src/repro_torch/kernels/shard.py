@@ -101,7 +101,8 @@ def _count(site: str, payload_bytes: int, n_psum: int = 1) -> bool:
 def check_kv_shards(kv_shards, cache_lengths, kinds=()) -> None:
     """Raise ``ValueError`` unless ``kv_shards`` is None or an integer
     >= 1 that divides every cache length (a layer's ring: the capacity, or
-    min(capacity, window) for a sliding-window layer).  Any set value
+    min(capacity, window) for a sliding-window layer), and there is one
+    (an xlstm model has no ring).  Any set value
     raises for a model with MLA layers (``kinds``: its layer kinds): the
     reference's MLA decode is plain ``jnp`` with no decode-attention
     kernel (``attention.py:557-622``), so ``kv_shards`` would silently
@@ -117,6 +118,11 @@ def check_kv_shards(kv_shards, cache_lengths, kinds=()) -> None:
             or kv_shards < 1:
         raise ValueError(f"kv_shards must be None or an integer >= 1, got "
                          f"{kv_shards!r}")
+    if not cache_lengths:
+        raise ValueError(f"kv_shards={kv_shards!r}: the model has no "
+                         "attention layer (no KV ring) for a decode-"
+                         "attention path to run on; serve it with "
+                         "kv_shards=None")
     bad = sorted(c for c in set(cache_lengths) if c % kv_shards)
     if bad:
         raise ValueError(f"kv_shards={kv_shards} does not divide the KV "

@@ -13,7 +13,8 @@ reference's.
 
 ``--arch`` takes every config module of ``repro_torch.configs``:
 ``llama3.2-1b``, ``mixtral-8x22b``, ``yi-6b``, ``gemma2-2b``, ``gemma3-1b``,
-``deepseek-v2-lite-16b``.
+``deepseek-v2-lite-16b``, ``zamba2-7b``, ``xlstm-125m`` (its smoke config
+with ``--mode unstructured``: its ff_down is 85 deep there).
 
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Stage seconds
 come from ``obs.timer``s (``calibrate.stats``, ``calibrate.search``,

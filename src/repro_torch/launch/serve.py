@@ -31,8 +31,10 @@ Port of ``repro.launch.serve``:
 Runs on the card; ``--device cpu`` runs the plain CPU path.  Any ported
 arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window),
 ``yi-6b``, ``gemma2-2b`` (softcaps, sandwich norms), ``gemma3-1b``
-(QK-norm, 5:1 local:global) and ``deepseek-v2-lite-16b`` (MLA, 64 routed
-experts top-6 and 2 shared, a dense first layer).
+(QK-norm, 5:1 local:global), ``deepseek-v2-lite-16b`` (MLA, 64 routed
+experts top-6 and 2 shared, a dense first layer), ``zamba2-7b`` (Mamba2
+layers and one weight-shared attention block with per-layer LoRA) and
+``xlstm-125m`` (mLSTM / sLSTM, no attention).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b --gen 16
@@ -45,6 +47,8 @@ experts top-6 and 2 shared, a dense first layer).
       --smoke --sparse --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b \
       --fleet 0.0,0.5,2:4 --spec draft:2:4,verify:0.0,k:4 --device cpu

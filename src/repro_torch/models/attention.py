@@ -266,6 +266,15 @@ def _qk_normed(p: PyTree, q: torch.Tensor, k: torch.Tensor):
     return q, k
 
 
+def _qkv(p: PyTree, x: torch.Tensor, qkv_delta=None):
+    """The q, k and v projections of x, each plus its delta where
+    ``qkv_delta`` gives them (bf16 adds, as the reference's)."""
+    out = [cm.dense(p[n], x) for n in ("wq", "wk", "wv")]
+    if qkv_delta is not None:
+        out = [o + d for o, d in zip(out, qkv_delta, strict=True)]
+    return out
+
+
 def make_kv_cache(batch: int, capacity: int, num_kv: int, head_dim: int, *,
                   device, lead: tuple = (),
                   dtype: torch.dtype = torch.bfloat16) -> PyTree:
@@ -279,13 +288,17 @@ def attn_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
                     rope_theta: float = 1e4, use_rope: bool = True,
                     window: int = 0, attn_softcap: float = 0.0,
                     scale: float | None = None, cache_capacity: int = 0,
+                    qkv_delta=None,
                     ) -> tuple[torch.Tensor, PyTree | None]:
     """Prefill path. Returns (y, kv_cache or None); a windowed layer's
-    cache ring holds min(cache_capacity, window) slots."""
+    cache ring holds min(cache_capacity, window) slots.  ``qkv_delta``:
+    (dq, dk, dv) added to the projections before rope (zamba2's LoRA on
+    its shared block)."""
     B, S, _ = x.shape
-    q = cm.dense(p["wq"], x).reshape(B, S, num_heads, head_dim)
-    k = cm.dense(p["wk"], x).reshape(B, S, num_kv, head_dim)
-    v = cm.dense(p["wv"], x).reshape(B, S, num_kv, head_dim)
+    q, k, v = _qkv(p, x, qkv_delta)
+    q = q.reshape(B, S, num_heads, head_dim)
+    k = k.reshape(B, S, num_kv, head_dim)
+    v = v.reshape(B, S, num_kv, head_dim)
     q, k = _qk_normed(p, q, k)
     if use_rope:
         q = cm.rope(q, positions, theta=rope_theta)
@@ -378,22 +391,23 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
                       head_dim: int, rope_theta: float = 1e4,
                       use_rope: bool = True, window: int = 0,
                       attn_softcap: float = 0.0, scale: float | None = None,
-                      kv_shards: int | None = None,
+                      kv_shards: int | None = None, qkv_delta=None,
                       ) -> tuple[torch.Tensor, PyTree]:
     """Decode one token per row.  x: (B, 1, d); t: (B,) per-row positions.
 
     Row b writes its own ring slot t[b] % C of ``cache`` IN PLACE (the
     reference returns an updated copy; the values are the same) and
     attends at its own position, through :func:`decode_attend`'s
-    ``kv_shards`` path.
+    ``kv_shards`` path.  ``qkv_delta``: as :func:`attn_apply_full`.
     """
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per row, got {S}")
     C = cache["k"].shape[1]
-    q = cm.dense(p["wq"], x).reshape(B, 1, num_heads, head_dim)
-    k = cm.dense(p["wk"], x).reshape(B, 1, num_kv, head_dim)
-    v = cm.dense(p["wv"], x).reshape(B, 1, num_kv, head_dim)
+    q, k, v = _qkv(p, x, qkv_delta)
+    q = q.reshape(B, 1, num_heads, head_dim)
+    k = k.reshape(B, 1, num_kv, head_dim)
+    v = v.reshape(B, 1, num_kv, head_dim)
     q, k = _qk_normed(p, q, k)
     if use_rope:
         q = cm.rope(q, t[:, None], theta=rope_theta)

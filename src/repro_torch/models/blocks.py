@@ -1,26 +1,35 @@
-"""Per-layer-kind blocks.  Port of ``repro.models.blocks`` for the
-transformer kinds: ``attn`` (pre-norm attention + gated MLP, the llama
+"""Per-layer-kind blocks.  Port of ``repro.models.blocks``: the
+transformer kinds ``attn`` (pre-norm attention + gated MLP, the llama
 block), ``local`` (the same over a sliding window), ``moe`` and
 ``moe_local`` (attention, global or windowed, + the MoE FFN), with gemma's
 sandwich norms (``post_ln1`` / ``post_ln2`` on the attention and FFN
-outputs) where the config sets ``sandwich_norm``; and deepseek's
-``mla_dense`` and ``mla_moe`` (multi-head latent attention + the gated MLP
-or the MoE FFN with its shared experts), whose cache is the latent ring
-``{"ckv", "krope"}``.  Every other kind raises until its family is ported.
+outputs) where the config sets ``sandwich_norm``; deepseek's ``mla_dense``
+and ``mla_moe`` (multi-head latent attention + the gated MLP or the MoE FFN
+with its shared experts), whose cache is the latent ring ``{"ckv",
+"krope"}``; and the recurrent kinds: zamba2's ``mamba`` (a pre-norm Mamba2
+mixer, ``models/ssm.py``) and ``mamba_shared`` (the same, then the model's
+ONE weight-shared attention + MLP block with this layer's LoRA deltas on
+q, k and v), and xlstm's ``mlstm`` and ``slstm`` (``models/xlstm.py``).
+Every other kind raises until its family is ported.
 
 Every block kind exposes:
   block_init(kind, b, cfg)                          -> params
-  block_apply_full(kind, cfg, p, x, ctx)            -> (x, aux, cache|None)
+  block_apply_full(kind, cfg, p, x, ctx, shared=None)
+                                                    -> (x, aux, cache|None)
   block_init_cache(kind, cfg, batch, capacity, ...) -> cache entry
-  block_apply_decode(kind, cfg, p, x, cache, t, kv_shards=None)
-                                                    -> (x, cache)
+  block_apply_decode(kind, cfg, p, x, cache, t, kv_shards=None,
+                     shared=None)                   -> (x, cache)
 
-aux is the MoE load-balance loss (None for the MLP kinds).  Windowed kinds
-keep a KV ring of min(capacity, sliding_window) slots (:func:`cache_length`);
-``kv_shards`` picks the decode attention path (``attention.decode_attend``)
-of the GQA kinds.  MLA decode has one path, plain torch as the reference's
-(no decode-attention kernel): ``serve.engine`` refuses ``kv_shards`` for
-it, and a direct call with ``kv_shards`` set raises too.
+aux is the MoE load-balance loss (None for the other kinds).  Windowed
+kinds keep a KV ring of min(capacity, sliding_window) slots
+(:func:`cache_length`); ``kv_shards`` picks the decode attention path
+(``attention.decode_attend``) of the GQA kinds and of the shared block.
+MLA decode has one path, plain torch as the reference's (no
+decode-attention kernel): ``serve.engine`` refuses ``kv_shards`` for it,
+and a direct call with ``kv_shards`` set raises too.  The recurrent kinds'
+caches are their states (``{"mamba": {"h", "conv"}}`` plus the shared
+block's ``"kv"`` ring; mLSTM's ``{"C", "n", "m", "conv"}``; sLSTM's ``{"c",
+"n", "m", "h"}``), updated in place by decode.
 """
 from __future__ import annotations
 
@@ -33,13 +42,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import Builder
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 PyTree = Any
-KINDS = ("attn", "local", "moe", "moe_local", "mla_dense", "mla_moe")
+KINDS = ("attn", "local", "moe", "moe_local", "mla_dense", "mla_moe",
+         "mamba", "mamba_shared", "mlstm", "slstm")
 _LOCAL = ("local", "moe_local")
 MLA_KINDS = ("mla_dense", "mla_moe")
+# kinds whose cache is a recurrent state (the shared block's ring aside)
+RECURRENT_KINDS = ("mamba", "mamba_shared", "mlstm", "slstm")
 
 
 @dataclasses.dataclass
@@ -121,6 +135,8 @@ def _attn_block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
 
 def block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
     _check_kind(kind)
+    if kind in RECURRENT_KINDS:
+        return _recurrent_init(kind, b, cfg)
     p = {
         "ln1": _norm_init(b, cfg),
         "attn": _attn_block_init(kind, b, cfg),
@@ -163,8 +179,12 @@ def _block_tail(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
 
 
 def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
-                     x: torch.Tensor, ctx: Ctx):
+                     x: torch.Tensor, ctx: Ctx, shared: PyTree = None):
+    """``shared``: the model's shared block (``params["shared"]``), which
+    a ``mamba_shared`` layer runs after its mixer."""
     _check_kind(kind)
+    if kind in RECURRENT_KINDS:
+        return _recurrent_full(kind, cfg, p, x, ctx, shared)
     h = _norm(cfg, p["ln1"], x)
     if kind in MLA_KINDS:
         a, cache = attn.mla_apply_full(
@@ -179,9 +199,13 @@ def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
     return x, aux, cache
 
 
-def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int:
-    """Slots of a ``kind`` layer's KV ring at ``capacity``."""
+def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int | None:
+    """Slots of a ``kind`` layer's KV ring at ``capacity`` (None: a
+    recurrent kind with no ring; ``mamba_shared``'s shared attention keeps
+    a full one)."""
     _check_kind(kind)
+    if kind in ("mamba", "mlstm", "slstm"):
+        return None
     if kind in _LOCAL and cfg.sliding_window:
         return min(capacity, cfg.sliding_window)
     return capacity
@@ -189,6 +213,9 @@ def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int:
 
 def block_init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
                      *, device, lead: tuple = ()) -> PyTree:
+    if kind in RECURRENT_KINDS:
+        return _recurrent_cache(kind, cfg, batch, capacity, device=device,
+                                lead=lead)
     if kind in MLA_KINDS:
         return attn.make_mla_cache(batch, capacity, cfg.kv_lora,
                                    cfg.qk_rope_dim, device=device, lead=lead)
@@ -199,8 +226,11 @@ def block_init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
 
 def block_apply_decode(kind: str, cfg: ModelConfig, p: PyTree,
                        x: torch.Tensor, cache: PyTree, t: torch.Tensor, *,
-                       kv_shards: int | None = None):
+                       kv_shards: int | None = None, shared: PyTree = None):
     _check_kind(kind)
+    if kind in RECURRENT_KINDS:
+        return _recurrent_decode(kind, cfg, p, x, cache, t, kv_shards,
+                                 shared)
     h = _norm(cfg, p["ln1"], x)
     if kind in MLA_KINDS:
         if kv_shards is not None:
@@ -240,4 +270,165 @@ def block_apply_verify(kind: str, cfg: ModelConfig, p: PyTree,
         del kw["window"]
         a, cache = attn.attn_apply_verify(p["attn"], h, cache, t, **kw)
     x, _ = _block_tail(cfg, p, x, a)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# recurrent kinds: mamba (+ zamba2's shared attention with LoRA), xLSTM
+# ---------------------------------------------------------------------------
+
+def _lora_init(b: Builder, d_in: int, d_out: int, rank: int) -> PyTree:
+    return {"a": b.param((d_in, rank), ("embed", "lora"),
+                         scale=d_in ** -0.5),
+            "b": b.param((rank, d_out), ("lora", "qkv"), init="zeros")}
+
+
+def _lora_apply(p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    """(x @ a) @ b in x's dtype: plain matmuls (``lora_`` leaves are not
+    prunable, so the stats tape never sees them)."""
+    return (x @ p["a"].to(x.dtype)) @ p["b"].to(x.dtype)
+
+
+def shared_block_init(b: Builder, cfg: ModelConfig) -> PyTree:
+    """The weight-shared attention + MLP block (one copy a model)."""
+    return {
+        "ln1": _norm_init(b, cfg),
+        "attn": attn.attn_init(b, d_model=cfg.d_model,
+                               num_heads=cfg.num_heads,
+                               num_kv=cfg.num_kv_heads,
+                               head_dim=cfg.head_dim),
+        "ln2": _norm_init(b, cfg),
+        "mlp": mlp_init(b, cfg.d_model, cfg.d_ff),
+    }
+
+
+def _recurrent_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
+    p = {"ln": _norm_init(b, cfg)}
+    if kind in ("mamba", "mamba_shared"):
+        p["mamba"] = ssm_mod.mamba2_init(
+            b, d_model=cfg.d_model, d_inner=cfg.d_inner,
+            d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+    if kind == "mamba_shared":
+        r = cfg.lora_rank or 32
+        kv = cfg.num_kv_heads * cfg.head_dim
+        p["lora_q"] = _lora_init(b, cfg.d_model,
+                                 cfg.num_heads * cfg.head_dim, r)
+        p["lora_k"] = _lora_init(b, cfg.d_model, kv, r)
+        p["lora_v"] = _lora_init(b, cfg.d_model, kv, r)
+    if kind == "mlstm":
+        p["mlstm"] = xlstm_mod.mlstm_init(b, d_model=cfg.d_model,
+                                          num_heads=cfg.lstm_heads,
+                                          proj_factor=cfg.lstm_proj_factor)
+    if kind == "slstm":
+        p["slstm"] = xlstm_mod.slstm_init(b, d_model=cfg.d_model,
+                                          num_heads=cfg.lstm_heads)
+    return p
+
+
+def _qkv_delta(p: PyTree, h: torch.Tensor):
+    """This layer's LoRA deltas of the shared attention's q, k and v."""
+    return tuple(_lora_apply(p[f"lora_{n}"], h) for n in "qkv")
+
+
+def _ssm_kwargs(cfg: ModelConfig) -> dict:
+    return dict(d_inner=cfg.d_inner, d_state=cfg.ssm_state,
+                head_dim=cfg.ssm_head_dim)
+
+
+def _shared_tail(cfg: ModelConfig, p: PyTree, shared: PyTree,
+                 x: torch.Tensor, y: torch.Tensor, attend):
+    """x + y, then the shared block on it: attention with this layer's
+    LoRA deltas (``attend(h, qkv_delta) -> (a, kv)``), then the MLP; each
+    residual sum enters its norm in f32 (:func:`_residual_norm`)."""
+    if shared is None:
+        raise ValueError("a mamba_shared layer needs the model's shared "
+                         "block")
+    x, h = _residual_norm(cfg, shared["ln1"], x, y)
+    a, kv = attend(h, _qkv_delta(p, h))
+    x, n = _residual_norm(cfg, shared["ln2"], x, a)
+    return x.float() + mlp_apply(shared["mlp"], n, act=cfg.act), kv
+
+
+def _stream(cfg: ModelConfig, p: PyTree, x: torch.Tensor):
+    """(the residual stream in bf16, its pre-norm) at a recurrent block's
+    start.  x may be the previous block's f32 sum, unrounded: within one
+    layer of the jitted reference each block's closing ``x + y`` fuses
+    into the next block's norm, which takes the sum in f32 (R6); the
+    stream carries its bf16 rounding.  Recurrent blocks return that
+    unrounded sum, and the layer loop rounds x at each layer's end (the
+    reference's scan carry)."""
+    return x.to(cm.COMPUTE_DTYPE), _norm(cfg, p["ln"], x).to(
+        cm.COMPUTE_DTYPE)
+
+
+def _recurrent_full(kind, cfg, p, x, ctx: Ctx, shared):
+    want_state = ctx.cache_capacity > 0
+    x, h = _stream(cfg, p, x)
+    if kind == "mlstm":
+        y, st = xlstm_mod.mlstm_apply_full(
+            p["mlstm"], h, num_heads=cfg.lstm_heads, return_state=want_state)
+        return x.float() + y, None, st
+    if kind == "slstm":
+        y, st = xlstm_mod.slstm_apply(
+            p["slstm"], h, None, num_heads=cfg.lstm_heads,
+            return_state=want_state)
+        return x.float() + y, None, st
+    y, st = ssm_mod.mamba2_apply_full(p["mamba"], h, chunk=cfg.ssm_chunk,
+                                      return_state=want_state,
+                                      **_ssm_kwargs(cfg))
+    cache = {"mamba": st} if want_state else None
+    if kind == "mamba":
+        return x.float() + y, None, cache
+
+    def attend(hs, delta):
+        return attn.attn_apply_full(
+            shared["attn"], hs, positions=ctx.positions,
+            cache_capacity=ctx.cache_capacity, qkv_delta=delta,
+            **_attn_kwargs(cfg, local=False))
+    x, kv = _shared_tail(cfg, p, shared, x, y, attend)
+    if cache is not None:
+        cache["kv"] = kv
+    return x, None, cache
+
+
+def _recurrent_cache(kind, cfg, batch, capacity, *, device, lead):
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_init_state(
+            batch, d_inner=int(cfg.d_model * cfg.lstm_proj_factor),
+            num_heads=cfg.lstm_heads, device=device, lead=lead)
+    if kind == "slstm":
+        return xlstm_mod.slstm_init_state(
+            batch, d_model=cfg.d_model, num_heads=cfg.lstm_heads,
+            device=device, lead=lead)
+    c = {"mamba": ssm_mod.mamba2_init_state(batch, device=device, lead=lead,
+                                            **_ssm_kwargs(cfg))}
+    if kind == "mamba_shared":
+        c["kv"] = attn.make_kv_cache(batch, capacity, cfg.num_kv_heads,
+                                     cfg.head_dim, device=device, lead=lead)
+    return c
+
+
+def _recurrent_decode(kind, cfg, p, x, cache, t, kv_shards, shared):
+    """One token of a recurrent kind; its state (and the shared block's
+    ring) updated in place.  ``kv_shards`` reaches the shared attention
+    only.  x and the result: as :func:`_stream`."""
+    x, h = _stream(cfg, p, x)
+    if kind == "mlstm":
+        y, _ = xlstm_mod.mlstm_apply_decode(p["mlstm"], h, cache,
+                                            num_heads=cfg.lstm_heads)
+        return x.float() + y, cache
+    if kind == "slstm":
+        y, _ = xlstm_mod.slstm_apply(p["slstm"], h, cache,
+                                     num_heads=cfg.lstm_heads)
+        return x.float() + y, cache
+    y, _ = ssm_mod.mamba2_apply_decode(p["mamba"], h, cache["mamba"],
+                                       **_ssm_kwargs(cfg))
+    if kind == "mamba":
+        return x.float() + y, cache
+
+    def attend(hs, delta):
+        return attn.attn_apply_decode(
+            shared["attn"], hs, cache["kv"], t, kv_shards=kv_shards,
+            qkv_delta=delta, **_attn_kwargs(cfg, local=False))
+    x, _ = _shared_tail(cfg, p, shared, x, y, attend)
     return x, cache

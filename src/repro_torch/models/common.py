@@ -31,8 +31,9 @@ PARAM_DTYPE = torch.float32
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """One parameter as ``init`` mode draws it: its full shape (stacked
-    axes first), ``zeros`` or a truncated normal on [-2, 2] times
-    ``scale``, stored as ``dtype``."""
+    axes first), ``zeros``, ``ones``, a truncated normal on [-2, 2] times
+    ``scale`` (``normal``) or a uniform draw on [-1, 1) times ``scale``
+    (``uniform``: Mamba2's ``A_log``), stored as ``dtype``."""
     shape: tuple[int, ...]
     init: str
     scale: float | None
@@ -47,11 +48,15 @@ class ParamSpec:
         """The values (``index`` selects a slice of the leading axes, one
         layer of a stacked leaf, drawn alone)."""
         shape = self.shape[len(index):]
-        if self.init == "zeros":
-            return torch.zeros(shape, dtype=self.dtype, device=device)
+        if self.init in ("zeros", "ones"):
+            fill = torch.zeros if self.init == "zeros" else torch.ones
+            return fill(shape, dtype=self.dtype, device=device)
         t = torch.empty(shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
+        if self.init == "uniform":
+            t.uniform_(-1.0, 1.0, generator=generator)
+        else:
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
         return (t * self.scale).to(self.dtype)
 
 
@@ -88,10 +93,12 @@ class Builder:
                             + tuple(a or "" for a in axes))
         if self.mode == "shape":
             return full
-        if init not in ("zeros", "normal"):
+        if init not in ("zeros", "ones", "normal", "uniform"):
             raise ValueError(init)
         if init == "normal" and scale is None:  # fan-in scaling
             scale = (shape[0] if len(shape) > 1 else shape[-1]) ** -0.5
+        if init == "uniform" and scale is None:
+            scale = 1.0
         spec = ParamSpec(full, init, scale, dtype)
         if self.mode == "spec":
             return spec
@@ -106,9 +113,10 @@ def dense_init(b: Builder, d_in: int, d_out: int,
 
 def dense(params: PyTree, x: torch.Tensor, *,
           tape_x: torch.Tensor | None = None) -> torch.Tensor:
-    """x @ kernel.  While a stats tape records (the calibration stats
-    pass), the tape sees x, or ``tape_x`` where the caller has the input
-    before its rounding to x.dtype."""
+    """x @ kernel (the kernel rounded to bf16; an f32 x promotes it back
+    to f32, as JAX's type promotion does).  While a stats tape records
+    (the calibration stats pass), the tape sees x, or ``tape_x`` where the
+    caller has the input before its rounding to x.dtype."""
     k = params["kernel"]
     if isinstance(k, SparseTensor):
         # 2:4-compressed kernel: the hand-written nm_matmul
@@ -118,7 +126,8 @@ def dense(params: PyTree, x: torch.Tensor, *,
     t = _tape.current_tape()
     if t is not None:
         t.record(k, x if tape_x is None else tape_x)
-    return x @ k.to(COMPUTE_DTYPE)
+    return x @ k.to(COMPUTE_DTYPE).to(torch.promote_types(COMPUTE_DTYPE,
+                                                          x.dtype))
 
 
 def kernel_dense(params: PyTree) -> torch.Tensor:

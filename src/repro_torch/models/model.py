@@ -9,9 +9,12 @@ the layers slices ``[l]`` where the reference runs ``lax.scan``.
 Ported: the decoder families built from the ``attn``, ``local``, ``moe``,
 ``moe_local``, ``mla_dense`` and ``mla_moe`` kinds (llama, mixtral, yi,
 gemma2, gemma3, deepseek-v2-lite with its ``pattern_prefix`` stage and
-shared experts), tied or untied embeddings, gemma's scaled embeddings,
-attention and final logit softcaps, sandwich norms, QK-norm and gelu;
-:func:`check_supported` names what is missing for any other config.
+shared experts) and the recurrent ones (zamba2's ``mamba`` and
+``mamba_shared`` with the model's one shared attention block,
+``params["shared"]``; xlstm's ``mlstm`` and ``slstm``), tied or untied
+embeddings, gemma's scaled embeddings, attention and final logit
+softcaps, sandwich norms, QK-norm and gelu; :func:`check_supported` names
+what is missing for any other config.
 """
 from __future__ import annotations
 
@@ -46,7 +49,9 @@ def check_supported(cfg: ModelConfig) -> None:
     ) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {', '.join(missing)}")
+            f"{cfg.name}: not ported yet: {', '.join(missing)} (whisper's "
+            "encoder-decoder and pixtral's vision prefix are the next "
+            "slice: ROADMAP A item 5)")
 
 
 def make_stages(cfg: ModelConfig):
@@ -72,6 +77,8 @@ def _build(cfg: ModelConfig, b: Builder) -> PyTree:
         {str(j): blk.block_init(kind, b.stacked(repeats), cfg)
          for j, kind in enumerate(pattern)}
         for pattern, repeats in make_stages(cfg)]
+    if "mamba_shared" in cfg.layer_kinds:
+        p["shared"] = blk.shared_block_init(b, cfg)
     p["final_norm"] = blk._norm_init(b, cfg)
     if not cfg.tie_embeddings:
         p["lm_head"] = cm.dense_init(b, cfg.d_model, cfg.vocab_size,
@@ -113,10 +120,10 @@ def param_specs(cfg: ModelConfig) -> PyTree:
     return _build(cfg, Builder("spec"))
 
 
-# kernels the reference reads in f32: the MoE router (f32 logits) and
-# MLA's w_uk / w_uv, which its absorbed decode reads dense in f32
-# (``attention.mla_apply_decode``)
-_F32_KERNELS = ("['router']", "['w_uk']", "['w_uv']")
+# kernels the reference reads in f32: the MoE router (f32 logits), MLA's
+# w_uk / w_uv, which its absorbed decode reads dense in f32
+# (``attention.mla_apply_decode``), and sLSTM's recurrent ``r``
+_F32_KERNELS = ("['router']", "['w_uk']", "['w_uv']", "['r']")
 
 
 def serving_params(params: PyTree) -> PyTree:
@@ -171,16 +178,17 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor
 
 
 def _layer_apply(cfg: ModelConfig, pattern, lp: PyTree, x: torch.Tensor,
-                 ctx: Ctx):
-    """One layer of a stage: its blocks in order.  Returns (x, the layer's
-    MoE aux loss or None, {block: cache})."""
+                 ctx: Ctx, shared: PyTree = None):
+    """One layer of a stage: its blocks in order (``shared``: the model's
+    shared block).  Returns (x, the layer's MoE aux loss or None, {block:
+    cache})."""
     aux_total, out = None, {}
     for j, kind in enumerate(pattern):
         x, aux, out[str(j)] = blk.block_apply_full(kind, cfg, lp[str(j)], x,
-                                                   ctx)
+                                                   ctx, shared)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
-    return x, aux_total, out
+    return x.to(cm.COMPUTE_DTYPE), aux_total, out
 
 
 def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
@@ -204,6 +212,7 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
     ctx = Ctx(positions=pos, cache_capacity=cache_capacity)
+    shared = params.get("shared")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for s, ((pattern, repeats), sp) in enumerate(zip(
@@ -214,9 +223,9 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
                 tape.register_layer(lp, f"['stages'][{s}]", i)
             if remat:
                 x, aux, out = checkpoint(_layer_apply, cfg, pattern, lp, x,
-                                         ctx, use_reentrant=False)
+                                         ctx, shared, use_reentrant=False)
             else:
-                x, aux, out = _layer_apply(cfg, pattern, lp, x, ctx)
+                x, aux, out = _layer_apply(cfg, pattern, lp, x, ctx, shared)
             if aux is not None:
                 aux_total = aux_total + aux
             per_layer.append(out)
@@ -257,15 +266,19 @@ def stats_sumsq(cfg: ModelConfig, params: PyTree, batch: dict) -> PyTree:
     kernel's sums are stacked back along the layer axis, as the reference's
     scanned pass returns them.  Covers every kernel inside the layer
     stacks, MoE expert banks with their routed-row rescale included
-    (``models.moe.moe_apply``); leaves the pass does not project through
-    (embeddings, heads, routers, norms) come back None.  Accumulate over
-    batches and sqrt to get ||X_j||_2.
+    (``models.moe.moe_apply``), and the shared block's (registered with
+    each layer's tape at index -1, as the reference's scan body does, and
+    summed over every invocation under ``['shared']`` paths); leaves the
+    pass does not project through (embeddings, heads, routers, norms, the
+    LoRA adapters) come back None.  Accumulate over batches and sqrt to
+    get ||X_j||_2.
     """
     from repro_torch.core import tape as tape_mod
     tokens = _tokens(params, batch["tokens"])
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S))
+    shared = params.get("shared")
     by_path: dict[str, torch.Tensor] = {}
     for s, ((pattern, repeats), sp) in enumerate(zip(
             make_stages(cfg), params["stages"], strict=True)):
@@ -273,11 +286,17 @@ def stats_sumsq(cfg: ModelConfig, params: PyTree, batch: dict) -> PyTree:
         for lp in _unstack(sp, repeats):
             t = tape_mod.JitTape()
             t.register_layer(lp, "", 0)
+            if shared is not None:
+                t.register_layer(shared, "", -1)
             with tape_mod.recording(t):
                 for j, kind in enumerate(pattern):
                     x, _, _ = blk.block_apply_full(kind, cfg, lp[str(j)], x,
-                                                   ctx)
+                                                   ctx, shared)
+            x = x.to(cm.COMPUTE_DTYPE)
             per_layer.append(t.stats(0))
+            for path, ss in t.stats(-1).items():
+                key = "['shared']" + path
+                by_path[key] = ss if key not in by_path else by_path[key] + ss
         for path in per_layer[0]:
             by_path[f"['stages'][{s}]" + path] = torch.stack(
                 [ss[path] for ss in per_layer])
@@ -303,10 +322,26 @@ def prefill(cfg: ModelConfig, params: PyTree, batch: dict, *,
     return _unembed(cfg, params, x)[:, 0], caches
 
 
+def state_leaves(cfg: ModelConfig, caches: list) -> list[torch.Tensor]:
+    """The recurrent-state tensors of ``caches`` (Mamba's ``h`` and
+    ``conv``, the xLSTM states), every kind's but the KV rings: what a
+    decode step changes other than by writing a ring slot, so running a
+    step twice is not running it once."""
+    out = []
+    for (pattern, _), stage in zip(make_stages(cfg), caches, strict=True):
+        for j, kind in enumerate(pattern):
+            if kind in blk.RECURRENT_KINDS:
+                c = stage[str(j)]
+                out += tree.leaves(c["mamba"] if "mamba" in c else c)
+    return out
+
+
 def cache_lengths(cfg: ModelConfig, capacity: int) -> set[int]:
     """The distinct ring lengths of ``cfg``'s layers at ``capacity``: KV
-    rings and MLA's latent rings alike."""
-    return {blk.cache_length(k, cfg, capacity) for k in cfg.layer_kinds}
+    rings (the shared block's too) and MLA's latent rings alike; empty for
+    a model with no attention (xlstm)."""
+    return {n for n in (blk.cache_length(k, cfg, capacity)
+                        for k in cfg.layer_kinds) if n is not None}
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
@@ -326,6 +361,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
     # an engine surface's trace counts each (stage, pattern position) once,
     # as the reference's scanned layer body is traced once
     trace = ksh.trace_sites()
+    shared = params.get("shared")
     for si, ((pattern, repeats), sp, cache) in enumerate(zip(
             make_stages(cfg), params["stages"], caches, strict=True)):
         for i in range(repeats):
@@ -335,7 +371,10 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
                     trace.at = (si, j)
                 x, _ = blk.block_apply_decode(kind, cfg, lp[str(j)], x,
                                               lc[str(j)], t,
-                                              kv_shards=kv_shards)
+                                              kv_shards=kv_shards,
+                                              shared=shared)
+            x = x.to(cm.COMPUTE_DTYPE)      # the layer's end (blocks.py
+                                            # _stream)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], caches
 

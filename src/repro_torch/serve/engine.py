@@ -17,15 +17,21 @@ both, every compressed projection through the ``nm_matmul`` kernel and
 every compressed MoE expert bank through ``nm_matmul_expert`` on the card.
 Caches are per layer kind: a sliding-window layer keeps a ring of
 min(capacity, window) slots, an MLA layer (deepseek) a ring of its latent
-``ckv`` and shared rope key ``krope``.  ``kv_shards`` picks the decode
+``ckv`` and shared rope key ``krope``, a recurrent layer (zamba2's Mamba2,
+xlstm's mLSTM and sLSTM) its state, updated in place each step, and
+zamba2's shared attention a full ring.  Recurrent kinds fold every token
+into their state, so their prompts prefill unpadded, and a slot admitted
+with a one-token prompt starts from the blank state (``blank_row``), as
+in the reference.  ``kv_shards`` picks the decode
 attention path (``models.attention.decode_attend``): None, the reference's replicated
 plain-torch attention; 1, the ``flash_decode`` kernel; S >= 2, what the
 reference computes on a mesh whose ``model`` axis (``mesh.shape["model"] ==
 S``) shards the cache capacity: ``flash_decode_partial`` over S capacity
 shards plus the combine kernel, on one card.  S must divide every cache
 length, or construction raises; so does any set ``kv_shards`` on a model
-with MLA layers, whose decode has no decode-attention kernel.  ``ServeEngine.from_artifact`` builds the
-sparse engine straight from a saved mask bank.  Request validation happens
+with MLA layers, whose decode has no decode-attention kernel, or with no
+attention at all (xlstm).  ``ServeEngine.from_artifact`` builds the sparse
+engine straight from a saved mask bank.  Request validation happens
 at ``submit()``: an empty prompt, a prompt at or over cache capacity, or
 ``max_tokens <= 0`` never claims a slot.
 
@@ -115,11 +121,14 @@ class _Graph:
     inputs (fed tokens int64, positions int32), filled from pinned host
     buffers before each replay, and the greedy tokens (int32) read back
     from a static output.  Holds the params and caches whose buffers the
-    graph reads and writes."""
+    graph reads and writes.  ``state``: the caches' recurrent-state tensors
+    (``model.state_leaves``), which the eager warm-up before the capture
+    would advance: they are restored after it, so that the first replay
+    is the step's only application."""
 
     def __init__(self, body: Callable, params, caches: list,
                  inp: np.ndarray, pos: np.ndarray, device, pool,
-                 traced: bool = False):
+                 traced: bool = False, state: list = ()):
         self.params, self.caches = params, caches
         self.inp = torch.empty(inp.shape, dtype=torch.int64, device=device)
         self.pos = torch.empty(pos.shape, dtype=torch.int32, device=device)
@@ -135,7 +144,11 @@ class _Graph:
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
         with torch.cuda.stream(side), surface_call(False):
+            saved = [t.clone() for t in state]
             body(params, self.inp, caches, self.pos)
+            for t, was in zip(state, saved, strict=True):
+                t.copy_(was)
+            del saved
         cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         # the capture is the surface's trace when its signature is new
@@ -341,7 +354,8 @@ class EngineFns:
                 self._pool = torch.cuda.graph_pool_handle()
             g = self._graphs[key] = _Graph(
                 body, params, caches, inp, pos, self.device, self._pool,
-                traced=self._new_signature(surface, args))
+                traced=self._new_signature(surface, args),
+                state=M.state_leaves(self.cfg, caches))
         return g.run(inp, pos)
 
     def capture_counts(self) -> dict[str, int]:

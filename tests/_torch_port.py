@@ -257,3 +257,25 @@ def smoke_deepseek(prompt_lens=(9, 14, 9)):
         "prompts": [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                     for n in prompt_lens]}
 
+
+
+def smoke_recurrent(arch: str, prompt_lens=(9, 14, 1, 6)):
+    """A smoke recurrent family (zamba2-7b or xlstm-125m) for parity
+    tests: cfgs, params drawn by the port's ``init_params`` (seed 0) with
+    zamba2's LoRA ``b`` leaves (zero at init, which would make every
+    per-invocation delta vanish) drawn as N(0, 0.05), as (reference tree,
+    port tree), and numpy prompts (a one-token prompt among them: its slot
+    starts from the blank state)."""
+    from repro.configs.base import get_smoke_config as jax_smoke_config
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model as TM
+    cfg = get_smoke_config(arch)
+    tp = TM.init_params(cfg, 0, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    tp = tree.map_with_path(
+        lambda path, a: 0.05 * torch.randn(a.shape, generator=g)
+        if "['lora_" in path and path.endswith("['b']") else a, tp)
+    rng = np.random.default_rng(0)
+    return {"cfg": (jax_smoke_config(arch), cfg), "dense": (to_jax(tp), tp),
+            "prompts": [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                        for n in prompt_lens]}

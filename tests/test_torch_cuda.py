@@ -382,7 +382,17 @@ _DECODE_CASES = [(4, 8, 4, 64, 256, 1), (4, 8, 4, 64, 256, 4),
                  (4, 1, 4, 256, 512, 1), (4, 1, 4, 256, 512, 4),
                  (4, 1, 4, 256, 8192, 1), (4, 4, 8, 128, 256, 1),
                  (4, 4, 8, 128, 256, 4), (4, 4, 8, 128, 8192, 4),
-                 (3, 2, 8, 256, 148, 1), (3, 2, 8, 256, 148, 4)]
+                 (3, 2, 8, 256, 148, 1), (3, 2, 8, 256, 148, 4),
+                 # zamba2-7b's shared attention (32 kv heads of one query
+                 # head of 112: 7 k-steps of 16, the last one alone) at
+                 # serving and long caches, G 1 and D 112 at a ragged C
+                 # and beside the other widths and groups
+                 (4, 32, 1, 112, 256, 1), (4, 32, 1, 112, 256, 4),
+                 (4, 32, 1, 112, 8192, 1), (4, 32, 1, 112, 8192, 4),
+                 (3, 2, 1, 112, 148, 1), (3, 2, 1, 112, 148, 4),
+                 (3, 2, 4, 112, 148, 2), (3, 2, 8, 112, 74, 1),
+                 (3, 2, 1, 64, 148, 4), (3, 2, 1, 256, 148, 1),
+                 (3, 4, 1, 32, 74, 2)]
 
 
 @pytest.mark.cuda
@@ -438,7 +448,9 @@ _SPLIT_CASES = [(4, 8, 4, 64, 256, 1, [1, 40, 256, 33]),
                 (4, 8, 6, 128, 1024, 1, [1, 129, 1024, 700]),
                 (3, 2, 2, 32, 148, 1, [1, 74, 148]),
                 (4, 1, 4, 256, 512, 1, [1, 40, 512, 65]),
-                (4, 4, 8, 128, 256, 2, [1, 100, 256, 129])]
+                (4, 4, 8, 128, 256, 2, [1, 100, 256, 129]),
+                (4, 32, 1, 112, 256, 1, [1, 100, 256, 129]),
+                (2, 2, 1, 112, 512, 1, [40, 300])]
 
 
 @pytest.mark.cuda
@@ -699,6 +711,73 @@ def test_deepseek_graph_engine_equals_eager(cuda_device, weights):
     with pytest.raises(ValueError, match="MLA"):
         E.ServeEngine(cfg, params, slots=2, capacity=48, device=cuda_device,
                       kv_shards=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("zamba2-7b", "dense", None),
+                                  ("zamba2-7b", "2:4", None),
+                                  ("zamba2-7b", "2:4", 1),
+                                  ("zamba2-7b", "2:4", 4),
+                                  ("xlstm-125m", "dense", None),
+                                  ("xlstm-125m", "0.5", None)], ids=str)
+def test_recurrent_graph_engines_equal_eager(cuda_device, case):
+    """The smoke zamba2 (Mamba2, the shared attention at G 1 over its own
+    LoRA deltas) and xlstm (mLSTM / sLSTM) engines: the decode replayed
+    from its CUDA graph updates the recurrent states in place as the eager
+    step does (the capture's warm-up leaves them as they were), a slot
+    reused by a one-token prompt starts from the blank state; streams ==
+    eager; 2:4 projections and decode attention launched exactly where
+    the path takes them; xlstm's ``kv_shards`` refused (no attention)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_partial)
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    from repro_torch.sparse.apply import sparsify_params
+    arch, weights, kv_shards = case
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, 0, device=cuda_device)
+    if weights != "dense":      # xlstm's smoke ff_down (K 85) takes no 2:4
+        stats = tree.tree_map(lambda _: None, params)
+        masks = (baseline_masks("magnitude", params, stats, 0.5, mode="nm")
+                 if weights == "2:4" else
+                 baseline_masks("magnitude", params, stats, 0.5))
+        params = sparsify_params(params, masks, axes=M.param_axes(cfg),
+                                 idx_bits=2, dtype=torch.bfloat16)
+    params = M.serving_params(params)
+    g = torch.Generator().manual_seed(1)
+    reqs = ((9, 6), (17, 3), (1, 8), (5, 4))
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for n, _ in reqs]
+
+    def serve():
+        eng = E.ServeEngine(cfg, params, slots=2, capacity=48,
+                            device=cuda_device, kv_shards=kv_shards)
+        rids = [eng.submit(p, m) for p, (_, m) in zip(prompts, reqs)]
+        res = eng.run()
+        return eng, [res[r] for r in rids]
+
+    nm0 = nm_matmul.launches
+    fd0 = flash_decode.launches + flash_decode_partial.launches
+    with E.eager():
+        eng, want = serve()
+    per_layer = {"mamba": 2, "mamba_shared": 9, "mlstm": 6, "slstm": 3}
+    n_nm = sum(per_layer[k] for k in cfg.layer_kinds)
+    assert nm_matmul.launches - nm0 == (n_nm * (eng.prefill_calls
+                                                + eng.decode_steps)
+                                        if weights == "2:4" else 0)
+    n_attn = sum(k == "mamba_shared" for k in cfg.layer_kinds)
+    assert (flash_decode.launches + flash_decode_partial.launches - fd0
+            == (n_attn * eng.decode_steps if kv_shards else 0))
+    eng, got = serve()
+    assert got == want
+    assert eng.fns.capture_counts() == {"decode": 1}
+    if not n_attn:
+        with pytest.raises(ValueError, match="no attention"):
+            E.ServeEngine(cfg, params, slots=2, capacity=48,
+                          device=cuda_device, kv_shards=1)
 
 
 @pytest.mark.cuda

@@ -25,7 +25,8 @@ Tolerances:
     differ as above, and may round to neighbouring bf16 values);
   * an all-masked shard: m == -1e30 and l == its slot count exactly;
   * logits: 4 bf16 ulps of the largest logit (tests/test_torch_model.py),
-    for gemma3-1b and yi-6b (tests/test_torch_gemma.py) too;
+    for gemma3-1b and yi-6b (tests/test_torch_gemma.py) and zamba2-7b
+    (tests/test_torch_zamba.py) too;
   * greedy token streams exactly.
 """
 import pathlib
@@ -110,10 +111,11 @@ def _both(arrs, dtype):
 
 # (B, K, G, D, C): tests/test_kernels.py:163's dims, llama3.2-1b's heads
 # (8 kv x 4 of 64), mixtral-8x22b's (8 kv x 6 of 128), gemma3-1b's (1 kv x
-# 4 of 256) and yi-6b's (4 kv x 8 of 128) at a small C
+# 4 of 256), yi-6b's (4 kv x 8 of 128) and zamba2-7b's (kv heads of one
+# query head of 112) at a small C
 DIMS = [(2, 2, 4, 32, 128), (1, 1, 8, 64, 256), (2, 4, 1, 32, 64),
         (2, 8, 4, 64, 64), (2, 8, 6, 128, 32), (4, 1, 4, 256, 64),
-        (4, 4, 8, 128, 64)]
+        (4, 4, 8, 128, 64), (2, 4, 1, 112, 64)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -162,10 +164,12 @@ def test_flash_decode_partial_plain_matches_jax_per_shard(shards, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dims", [(4, 1, 4, 256, 64), (4, 4, 8, 128, 64)],
-                         ids=["gemma3 heads", "yi heads"])
+@pytest.mark.parametrize("dims", [(4, 1, 4, 256, 64), (4, 4, 8, 128, 64),
+                                  (4, 8, 1, 112, 64)],
+                         ids=["gemma3 heads", "yi heads", "zamba2 heads"])
 def test_wide_shapes_partial_and_combine_match_jax(dims, dtype):
-    """gemma3-1b's (G 4, D 256) and yi-6b's (G 8, D 128) through 4
+    """gemma3-1b's (G 4, D 256), yi-6b's (G 8, D 128) and zamba2-7b's
+    (G 1, D 112) through 4
     capacity shards: each shard's state against the reference kernel on
     its slice, the combine against the pmax / psum expression and the
     oracle; row 0 sees only the first 9 slots (shards 1..3 all-masked)."""
@@ -433,6 +437,56 @@ def test_gemma3_engine_streams_match_jax(smoke_models, jax_kv_shards,
     assert traced == _rings(cfg, 48)
     assert port_calls == _want_calls(kv_shards,
                                      cfg.num_layers * eng.decode_steps)
+
+
+@pytest.fixture(scope="module")
+def smoke_zamba():
+    from _torch_port import smoke_recurrent
+    return smoke_recurrent("zamba2-7b")
+
+
+@pytest.mark.parametrize("kv_shards", [1, 4])
+def test_zamba2_shared_attention_kv_shards_match_jax(smoke_zamba,
+                                                     jax_kv_shards,
+                                                     port_calls, kv_shards):
+    """zamba2's shared attention (G 1, its per-invocation LoRA deltas on
+    q, k, v) on the kv_shards paths: 3 decode steps' logits against the
+    reference's, rows at different positions; only the ``mamba_shared``
+    layer attends (one traced site, one call a step); then the dense
+    engine's streams at the same kv_shards (a one-token prompt among
+    them)."""
+    jcfg, cfg = smoke_zamba["cfg"]
+    jp, tp = smoke_zamba["dense"]
+    tp = TM.serving_params(tp)
+    traced = jax_kv_shards(kv_shards)
+    B, P, C = 2, 12, 32
+    rng = np.random.default_rng(kv_shards)
+    toks = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    feed = rng.integers(0, cfg.vocab_size, (3, B)).astype(np.int32)
+    jl, jc = jax.jit(lambda p, t: JM.prefill(jcfg, p, {"tokens": t},
+                                             cache_capacity=C))(jp, toks)
+    jdec = jax.jit(lambda p, tok, c, t: JM.decode_step(jcfg, p, tok, c, t))
+    tl, tc = TM.prefill(cfg, tp, {"tokens": torch.from_numpy(toks)},
+                        cache_capacity=C)
+    for i in range(3):
+        t = np.array([P + i, P - 3 + 2 * i], np.int32)
+        jl, jc = jdec(jp, jnp.asarray(feed[i]), jc, jnp.asarray(t))
+        tl, tc = TM.decode_step(cfg, tp, torch.from_numpy(feed[i]), tc,
+                                torch.from_numpy(t), kv_shards=kv_shards)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=_ulps(jl), err_msg=f"step {i}")
+    n_attn = sum(k == "mamba_shared" for k in cfg.layer_kinds)
+    assert traced == [C]
+    assert port_calls == _want_calls(kv_shards, 3 * n_attn)
+    port_calls.clear()
+    prompts = smoke_zamba["prompts"]
+    want = _streams(JaxServeEngine(jcfg, jp, slots=2, capacity=C),
+                    prompts, [5] * len(prompts))
+    eng = ServeEngine(cfg, tp, slots=2, capacity=C, device="cpu",
+                      kv_shards=kv_shards)
+    assert _streams(eng, prompts, [5] * len(prompts)) == want
+    assert port_calls == _want_calls(kv_shards,
+                                     n_attn * eng.decode_steps)
 
 
 def test_mixtral_engine_streams_match_jax(jax_kv_shards, port_calls):

@@ -108,15 +108,16 @@ def test_configs_are_the_references():
     (dict(vit_dim=64), "vision input")])
 def test_check_supported_still_refuses_the_rest(change, missing):
     cfg = dataclasses.replace(get_smoke_config("gemma3-1b"), **change)
-    if missing in PORTED_SINCE:     # accepted now (deepseek's slice)
+    if missing in PORTED_SINCE:     # accepted now (a later slice's)
         TM.check_supported(cfg)
         return
     with pytest.raises(NotImplementedError, match=missing):
         TM.check_supported(cfg)
 
 
-# features the cases above name that a later slice ported
-PORTED_SINCE = {"shared experts"}
+# features the cases above name that a later slice ported: shared
+# experts (deepseek's), the mamba kind (zamba2's)
+PORTED_SINCE = {"shared experts", "layer kinds"}
 
 
 def test_tiny_families_are_the_benchmarks():
