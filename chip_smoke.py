@@ -32,8 +32,12 @@ result line):
               D 112) at serving and long caches (these also in f32), rows
               at different positions and all-masked shards, against their
               plain versions and ``F.scaled_dot_product_attention``'s time
-              (with the planner's capacity splits P per case); prox24's
-              bound by bytes and by its unfused f32 issue rate.
+              (with the planner's capacity splits P per case); phase 15's
+              whisper self ring and 1536-slot cross cache (G 1, D 64) and
+              pixtral's heads (G 4, D 128) at its engine's and launcher's
+              capacities; ``nm_matmul`` at whisper's and pixtral's
+              projections; prox24's bound by bytes and by its unfused f32
+              issue rate.
 4. llama    - the first main path at full width: llama3.2-1b (16 layers,
               d 2048) from random weights (``torch.Generator`` seed 0), 2:4
               masks by ``baseline_masks("magnitude", mode="nm")`` through
@@ -151,7 +155,7 @@ result line):
 11. bank    - the committed mask bank at smoke width through
               ``MaskBank.load`` and ``ServeEngine.from_artifact``, card
               against CPU.
-12. deepseek - deepseek-v2-lite-16b at its published widths, cut to 8 of
+12. deepseek - deepseek-v2-lite-16b at its published widths, cut to 4 of
               its 27 layers by the script's time (MLA with kv_lora 512, a
               dense first layer, then 64 routed experts top-6 and 2
               shared) through phase 4's path, its weights (15.7 B whole)
@@ -191,11 +195,13 @@ result line):
               series within tests/test_torch_calibrate.py's history
               tolerance.  Phase 6's bank is removed after it.
 14. recurrent - the recurrent families through phase 4's path at their
-              published widths: zamba2-7b whole (81 layers: 13 x (5
-              ``mamba`` + 1 ``mamba_shared``) + 3 ``mamba``; d 3584,
+              published widths: zamba2-7b cut by the script's time to 9
+              of its 81 layers since phase 15 came (5 ``mamba`` + 1
+              ``mamba_shared``, then 3 ``mamba``: both of its stages;
+              whole in PR 24; d 3584,
               d_inner 7168, 112 ssm heads x 64, state 64, the one shared
               attention block of 32 x 112 with each invocation's LoRA
-              deltas, d_ff 14336; 6.6 B weights made, masked and packed a
+              deltas, d_ff 14336; weights made, masked and packed a
               layer slice at a time), every projection through
               ``nm_matmul`` (2 a mamba layer, 9 a mamba_shared one), decode
               attention at ``kv_shards`` 1 and 4 through ``flash_decode``
@@ -209,7 +215,29 @@ result line):
               state, the graph engine, xlstm's ``kv_shards`` refusal) and a
               short wanda calibration (zamba2 2:4; xlstm unstructured: its
               smoke ff_down is 85 deep).
-15. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+15. encdec   - the last two families at their published widths:
+              whisper-small whole (12 encoder layers over 1536 stub frames,
+              12 decoder layers; layernorm, gelu, no rope; d 768, 12 heads
+              x 64, d_ff 3072, vocab 51865; 1536: the reference's
+              flash_attention takes no 1500, ``attention.py:214``) and
+              pixtral-12b (d 5120, 32/8 heads x 128, d_ff 14336, vocab
+              131072, the 256-token vision prefix through ``vit_proj``;
+              its weights made, masked and packed a layer slice at a time),
+              2:4, through the serve launcher's loop
+              (``launch.serve.generate``): whisper 4 rows of 32 tokens x 32
+              new at ``kv_shards`` None, 1, 4 (decode attention on the self
+              ring and the 1536-slot cross cache, G 1, D 64), pixtral 4
+              rows of 256 image + 64 text tokens x 17 new at None and 1 (G
+              4, D 128); each path counted, every kernel call held against
+              its plain version, the decode loop replayed from a CUDA
+              graph == eager, compressed vs masked-dense and the
+              ``kv_shards`` paths held layer by layer on the same input
+              (end to end printed); pixtral's engine (text only, as the
+              reference's) through phase 4's path at None, 1, 4; then both
+              smoke configs card vs this host's CPU (the launcher's streams,
+              pixtral's engine, whisper's engine refused) and a short
+              whisper wanda 2:4 calibration.
+16. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -389,13 +417,27 @@ NM_MATMUL_SHAPES = {
                     "w_if": (1536, 8), "down": (1536, 768),
                     "w_in": (768, 3072), "ff_up": (768, 2048),
                     "ff_down": (1024, 768)}, (4, 127)),
+    # phase 15: a whisper-small decoder layer's projections (the
+    # encoder's and the cross K/V have the same (K, N)), at decode, the
+    # decoder's prefill (4 x 32 rows) and the encoder's and cross K/V's
+    # (4 x 1536 rows); a pixtral-12b layer's at decode and at the
+    # launcher's prefill of 4 x (256 + 64) rows
+    "whisper-small": ({"wq": (768, 768), "wk": (768, 768),
+                       "wv": (768, 768), "wo": (768, 768),
+                       "up": (768, 3072), "gate": (768, 3072),
+                       "down": (3072, 768)}, (4, 128, 6144)),
+    "pixtral-12b": ({"wq": (5120, 4096), "wk": (5120, 1024),
+                     "wv": (5120, 1024), "wo": (4096, 5120),
+                     "up": (5120, 14336), "gate": (5120, 14336),
+                     "down": (14336, 5120)}, (4, 1280)),
 }
 NM_MATMUL_EXTRA = {"deepseek-v2-lite-16b": {
     "w_uk": (512, 2048), "w_uv": (512, 2048), "dense up": (2048, 10944),
     "dense gate": (2048, 10944), "dense down": (10944, 2048)},
     "zamba2-7b": {"shared wq": (3584, 3584), "shared up": (3584, 14336),
                   "shared down": (14336, 3584)}}
-PACKED2_ONLY = ("deepseek-v2-lite-16b", "zamba2-7b", "xlstm-125m")
+PACKED2_ONLY = ("deepseek-v2-lite-16b", "zamba2-7b", "xlstm-125m",
+                "whisper-small", "pixtral-12b")
 # mixtral-8x22b's expert banks, (K, N) per expert, its expert count, and
 # the capacities C (rows per expert) its kernel calls see: 4 at decode
 # (4 slots), 16-40 for prefills of 31-127 tokens
@@ -638,7 +680,16 @@ FLASH_CASES = (("llama serving", 4, 8, 4, 64, 256, (1, 4)),
                # phase 14's zamba2-7b shared attention: 32 kv heads of one
                # query head of 112 at serving and long caches
                ("zamba2 serving", 4, 32, 1, 112, 256, (1, 4)),
-               ("zamba2 long cache", 4, 32, 1, 112, 8192, (1, 4)))
+               ("zamba2 long cache", 4, 32, 1, 112, 8192, (1, 4)),
+               # phase 15's whisper-small: 12 kv heads of one query head
+               # of 64 on the launcher's self ring (64 slots) and the
+               # cross cache of 1536 encoder slots; pixtral-12b's 8 kv
+               # heads of 4 x 128 at the engine's capacity and the
+               # launcher's (256 image + 64 + 17 slots)
+               ("whisper self ring", 4, 12, 1, 64, 64, (1, 4)),
+               ("whisper cross cache", 4, 12, 1, 64, 1536, (1, 4)),
+               ("pixtral serving", 4, 8, 4, 128, 256, (1, 4)),
+               ("pixtral launcher", 4, 8, 4, 128, 337, (1,)))
 # the cases also held against their plain versions in f32 (checked, not
 # timed): f32 at D 256 takes the kernel's one-stage ring
 FLASH_F32 = ("gemma3 window", "gemma3 long cache", "yi serving",
@@ -1073,9 +1124,12 @@ def path_launches(cfg) -> dict:
     wv, wo, and up, gate, down of a dense MLP; MLA: wq, w_dkv, wo, w_uk and
     w_uv at prefill only (the absorbed decode reads those two dense), and
     up, gate, down of the dense or shared MLP; the recurrent kinds:
-    RECURRENT_PROJECTIONS) and one ``nm_matmul_expert`` per expert bank (3
-    a MoE layer)."""
+    RECURRENT_PROJECTIONS; whisper's ``dec``: the cross-attention's wq,
+    wk, wv and wo at prefill, wq and wo at decode (the cross K/V are
+    cached), and at prefill 7 a layer of its encoder) and one
+    ``nm_matmul_expert`` per expert bank (3 a MoE layer)."""
     out = {f: {n: 0 for n in PATH_KERNELS} for f in ("prefill", "decode")}
+    out["prefill"]["nm_matmul"] += 7 * cfg.encoder_layers
     for kind in cfg.layer_kinds:
         if kind in RECURRENT_PROJECTIONS:
             for f in out:
@@ -1086,6 +1140,8 @@ def path_launches(cfg) -> dict:
         mlp = 3 if (not moe or cfg.num_shared_experts) else 0
         for f in out:
             attn = (5 if f == "prefill" else 3) if mla else 4
+            if kind == "dec":
+                attn += 4 if f == "prefill" else 2
             out[f]["nm_matmul"] += attn + mlp
             out[f]["nm_matmul_expert"] += 3 if moe else 0
     return out
@@ -4773,9 +4829,9 @@ def phase_gemma_yi(torch, dev, card: str) -> dict:
 
 DEEPSEEK = "deepseek-v2-lite-16b"
 # layers served: the published depth is 27 (one mla_dense + 26 mla_moe);
-# cut to the dense layer + 7 MoE ones by the script's time since phase 14
-# came in (PERF.md section 4)
-DEEPSEEK_LAYERS = 8
+# cut by the script's time to the dense layer + 7 MoE ones when phase 14
+# came in, + 3 since phase 15 (PERF.md section 4)
+DEEPSEEK_LAYERS = 4
 # the profiled graph run's tokens per request: a deepseek decode step is
 # ~27 layers x ~200 kernels, so 8 steps would pass the profiler's buffers
 DEEPSEEK_PROFILED_TOKENS = 4
@@ -5331,20 +5387,24 @@ def phase_obs(torch, dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ZAMBA, XLSTM = "zamba2-7b", "xlstm-125m"
-# a zamba2 decode step is ~7200 kernels (81 layers of the Mamba2 mixer's
-# small ops) and its eager prefill more: 2 profiled tokens a request keep
-# the window inside the profiler's buffers and its processing near 20 s a
-# path (4 tokens: ~30 s)
+# zamba2-7b's depth served: 5 mamba + 1 mamba_shared + 3 mamba, both of
+# its stages (81 whole, PR 24); cut by the script's 1200 s limit when
+# phase 15 came
+ZAMBA_LAYERS = 9
+# a whole zamba2-7b decode step is ~7200 kernels (81 layers of the Mamba2
+# mixer's small ops) and its eager prefill more: 2 profiled tokens a
+# request keep the window inside the profiler's buffers and its processing
+# near 20 s a path (4 tokens: ~30 s)
 RECURRENT_PROFILED_TOKENS = 2
 # the capacity-8192 step: the replicated path and flash_decode
 RECURRENT_LONG_PATHS = (None, 1)
 # zamba2's kv_shards paths against None are held layer by layer on the
-# same input (phase_serve kv_by_layer): its 13 attention layers keep f32
+# same input (phase_serve kv_by_layer): its attention layers keep f32
 # probabilities in the kernels where the replicated path rounds them to
-# bf16 (the reference's rounding), and 81 layers of recurrent states carry
-# each difference to every later position, so end to end the runs part by
-# more than 8 ulps at the logits (up to 34 on the H100: PERF.md section
-# 6); those figures are printed
+# bf16 (the reference's rounding), and its recurrent states carry each
+# difference to every later position, so end to end the runs part by
+# more than 8 ulps at the logits (up to 34 on the H100 over the whole 81
+# layers: PERF.md section 6); those figures are printed
 # smoke streams (prompt tokens, new tokens): a one-token prompt admits
 # through the blank row (a reused slot's state reset)
 RECURRENT_SMOKE_STREAMS = ((9, 6), (17, 8), (1, 8), (12, 6), (5, 6))
@@ -5422,28 +5482,614 @@ def recurrent_smoke_card_vs_cpu(torch, dev, card: str, arch: str,
 
 
 def phase_recurrent(torch, dev, card: str) -> dict:
-    """Phase 14: zamba2-7b whole (81 layers at its published widths) and
-    xlstm-125m whole through phase 4's path (:func:`phase_serve`), both
-    compressed against masked-dense layer by layer; then each smoke
-    config card vs CPU with a short calibration."""
+    """Phase 14: zamba2-7b (ZAMBA_LAYERS of its 81 layers at its
+    published widths) and xlstm-125m whole through phase 4's path
+    (:func:`phase_serve`), both compressed against masked-dense layer by
+    layer; then each smoke config card vs CPU with a short calibration."""
     from repro_torch.configs.base import get_config
     launches, out = {}, {}
-    for arch, kw in ((ZAMBA, dict(long_cache=True, weights=weights_by_layer,
-                                  long_paths=RECURRENT_LONG_PATHS,
-                                  kv_by_layer=True)),
-                     (XLSTM, dict(weights=weights_whole))):
+    zamba = dataclasses.replace(get_config(ZAMBA), num_layers=ZAMBA_LAYERS)
+    print(f"  {ZAMBA} cut to {ZAMBA_LAYERS} of its 81 layers (both stages): "
+          "the script's 1200 s limit since phase 15")
+    for cfg, kw in ((zamba, dict(long_cache=True, weights=weights_by_layer,
+                                 long_paths=RECURRENT_LONG_PATHS,
+                                 kv_by_layer=True)),
+                    (get_config(XLSTM), dict(weights=weights_whole))):
+        arch = cfg.name
         t0 = time.perf_counter()
-        out[arch] = phase_serve(torch, dev, card, get_config(arch),
-                                by_layer=True,
+        out[arch] = phase_serve(torch, dev, card, cfg, by_layer=True,
                                 profiled_tokens=RECURRENT_PROFILED_TOKENS,
                                 **kw)
         out[arch]["s"] = time.perf_counter() - t0
-        print(f"  {arch} whole took {out[arch]['s']:.1f} s")
+        print(f"  {arch} ({cfg.num_layers} layers) took "
+              f"{out[arch]['s']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     for arch, mode in ((ZAMBA, "nm"), (XLSTM, "unstructured")):
         out[arch]["smoke"] = recurrent_smoke_card_vs_cpu(
             torch, dev, card, arch, launches, mode)
+    out["smoke_launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: whisper-small's encoder-decoder and pixtral-12b's vision prefix
+# ---------------------------------------------------------------------------
+
+WHISPER, PIXTRAL = "whisper-small", "pixtral-12b"
+# whisper's 30-second window is 1500 frames, but the reference's
+# flash_attention tiles a sequence only by a block that divides it
+# (attention.py:214: 512 at these lengths), so 1536 is the nearest
+# encoder length it takes above 1500
+WHISPER_FRAMES = 1536
+# 4 rows of 32-token decoder prompts, 32 new tokens: the prefill's and
+# 31 decode steps, at a capacity of P + gen = 64 (4 shards divide it and
+# the 1536 cross slots; 65 would not split in 4)
+WHISPER_PROMPT, WHISPER_GEN = 32, 32
+# pixtral: 4 rows of the 256-patch prefix + 64 text tokens, 17 new tokens
+# (16 decode steps), capacity 64 + 17 + 256 = 337
+PIXTRAL_TEXT, PIXTRAL_GEN = 64, 17
+PIXTRAL_LAUNCHER_KV = (None, 1)
+# pixtral's decoder depth served (40: whole)
+PIXTRAL_LAYERS = 40
+LAUNCHER_BY_LAYER_STEPS = 4
+# smoke streams card vs CPU: the launcher's (B 2, 16 prompt tokens)
+ENCDEC_SMOKE_GEN = 8
+
+
+def launcher_batch(cfg, rows: int, prompt: int, enc_len: int = 0) -> dict:
+    """The launcher's numpy batch: ``rows`` prompts of ``prompt`` tokens of
+    the validation split, with whisper's ``enc_len`` frame embeddings or
+    pixtral's ``num_image_tokens`` patch embeddings (``_stub_embeds``)."""
+    from repro_torch.data.synthetic import batches_for
+    if cfg.is_encoder_decoder:
+        b = batches_for(cfg, n=1, batch=rows, seq=enc_len, split="valid")[0]
+        return {"tokens": b["tokens"][:, :prompt], "frames": b["frames"]}
+    return batches_for(cfg, n=1, batch=rows, seq=prompt, split="valid")[0]
+
+
+@contextlib.contextmanager
+def recording_launcher(steps: list):
+    """While open, each ``models.model.prefill`` and ``decode_step`` call
+    appends (fed tokens or None, logits) to ``steps``: what
+    ``launch.serve.generate`` computed, step by step."""
+    from repro_torch.models import model as M
+    prefill, decode = M.prefill, M.decode_step
+
+    def rec_prefill(*a, **kw):
+        logits, caches = prefill(*a, **kw)
+        steps.append((None, logits.clone()))
+        return logits, caches
+
+    def rec_decode(cfg, params, token, caches, t, **kw):
+        logits, caches = decode(cfg, params, token, caches, t, **kw)
+        steps.append((token.clone(), logits.clone()))
+        return logits, caches
+
+    M.prefill, M.decode_step = rec_prefill, rec_decode
+    try:
+        yield steps
+    finally:
+        M.prefill, M.decode_step = prefill, decode
+
+
+def compare_launcher_runs(torch, ref: list, got: list, hold: bool):
+    """Two recorded launcher runs (:func:`recording_launcher`) of the same
+    batch, row by row while the row's fed tokens agree: logits within
+    LOGIT_ULPS_FULL bf16 ulps of the reference row's largest (held unless
+    ``hold`` is off: printed only), and where the greedy tokens differ,
+    the reference's margin between them at most twice the logit
+    difference (a near-tie; the row is compared no further).  Returns
+    (rows compared, worst logit error over its tolerance, near-ties)."""
+    B = ref[0][1].shape[0]
+    n, worst, ties = 0, 0.0, []
+    for r in range(B):
+        for i, ((_, la), (fb, lb)) in enumerate(zip(ref, got, strict=True)):
+            if i and int(fb[r]) != int(ref[i][0][r]):
+                break
+            err, tol = logit_err(torch, lb[r], la[r], LOGIT_ULPS_FULL)
+            check(err <= tol or not hold, f"row {r}, step {i}: logits "
+                  f"differ by {err} over {tol} ({LOGIT_ULPS_FULL} bf16 ulps "
+                  "of the row's max)")
+            n += 1
+            worst = max(worst, err / tol)
+            a, b = int(la[r].argmax()), int(lb[r].argmax())
+            if a != b:
+                margin = float(la[r, a] - la[r, b])
+                check(margin <= 2 * err or not hold, f"row {r}, step {i}: "
+                      f"tokens {a} vs {b} with margin {margin} past twice "
+                      f"the logit difference {err}")
+                ties.append((r, i, a, b, margin, err))
+                break
+    return n, worst, ties
+
+
+def launcher_counts(cfg) -> dict:
+    """``nm_matmul`` launches of one launcher prefill and of one decode
+    step of ``cfg``'s compressed model (:func:`path_launches`, whisper's
+    encoder and cross projections included), and the decode attention
+    layers a step (whisper's self ring and cross cache: 2 a layer)."""
+    c = path_launches(cfg)
+    return {"prefill": c["prefill"]["nm_matmul"],
+            "decode": c["decode"]["nm_matmul"],
+            "attn": attn_layers(cfg) * (2 if cfg.is_encoder_decoder else 1)}
+
+
+def graph_decode_loop(torch, M, cfg, params, batch: dict, gen: int,
+                      kv_shards, want) -> dict:
+    """The launcher's decode loop on a CUDA graph: the prefill eager
+    (``models.model.prefill`` at the launcher's capacity), then one decode
+    step captured (static token and position buffers, the greedy argmax
+    inside) and replayed ``gen - 1`` times; its tokens must equal the
+    eager launcher's ``want`` (B, gen).  Returns the replays' wall ms a
+    step and tok/s."""
+    dev = params["embed"]["table"].device
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    B, P = batch["tokens"].shape
+    off = cfg.num_image_tokens if "patches" in batch else 0
+    with torch.inference_mode():
+        logits, caches = M.prefill(cfg, params, batch,
+                                   cache_capacity=P + gen + off)
+        tok = logits.argmax(-1)
+        tok_buf = tok.clone()
+        t_buf = torch.full((B,), P + off, dtype=torch.int32, device=dev)
+
+        def step():
+            return M.decode_step(cfg, params, tok_buf, caches, t_buf,
+                                 kv_shards=kv_shards)[0].argmax(-1)
+        # the warm-up writes the first step's ring slot with the first
+        # step's own values: the replay writes them again
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        toks = [tok.cpu()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            t_buf.fill_(P + off + i)
+            graph.replay()
+            tok_buf.copy_(out)
+            toks.append(out.cpu())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        del graph
+    got = torch.stack(toks, dim=1)
+    check(torch.equal(got, want), f"{cfg.name} kv_shards={kv_shards}: the "
+          "decode loop replayed from a CUDA graph gives other tokens than "
+          "the eager launcher")
+    return {"graph_loop_ms": dt * 1e3 / (gen - 1),
+            "graph_tok_s": B * (gen - 1) / dt}
+
+
+def launcher_by_layer(torch, M, cfg, params, masked, batch: dict,
+                      capacity: int, kv_paths=(),
+                      steps: int = LAUNCHER_BY_LAYER_STEPS) -> dict:
+    """Compressed (``params``) against masked-dense (``masked``) on the
+    launcher's path, layer by layer on the compressed run's input:
+    whisper's encoder layers, then the prefill of every decoder layer
+    (outputs and the caches it writes: rings and cross K/V), then
+    ``steps`` decode passes fed the compressed run's greedy tokens, where
+    each decoder layer's masked-dense twin runs on a copy of the
+    compressed layer's cache rows, and at each ``kv_paths`` S the
+    compressed layer again (its decode attention through the kernels),
+    each held within LOGIT_ULPS_FULL bf16 ulps of each row's largest
+    value (outputs, rings, cross caches).  Returns the worst of each."""
+    from repro_torch import tree
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import common as cm
+    dev = params["embed"]["table"].device
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    worst = torch.zeros((), device=dev)
+    worst_kv = torch.zeros((), device=dev)
+
+    def held(a_tree, b_tree, acc):
+        for a, b in zip(tree.leaves(a_tree), tree.leaves(b_tree),
+                        strict=True):
+            acc = torch.maximum(acc, _rows_ulps(a, b).max())
+        return acc
+
+    with torch.inference_mode():
+        enc = None
+        if cfg.is_encoder_decoder:
+            xc = cm.dense(params["frame_proj"],
+                          M._features(params, batch["frames"]))
+            B, Se, _ = xc.shape
+            xc = xc + torch.from_numpy(cm.sinusoidal_positions(
+                Se, cfg.d_model)).to(dev, xc.dtype)
+            ectx = blk.Ctx(positions=torch.arange(Se, device=dev).expand(
+                B, Se))
+            for (pattern, repeats), sc, sm in zip(
+                    M.encoder_stages(cfg), params["enc_stages"],
+                    masked["enc_stages"], strict=True):
+                for i in range(repeats):
+                    yc = M._layer_apply(cfg, pattern, M._layer(sc, i), xc,
+                                        ectx)[0]
+                    ym = M._layer_apply(cfg, pattern, M._layer(sm, i), xc,
+                                        ectx)[0]
+                    worst = torch.maximum(worst, _rows_ulps(ym, yc).max())
+                    xc = yc
+            enc = blk._norm(cfg, params["enc_norm"], xc)
+        x = M._embed_inputs(cfg, params, batch)
+        B, S, _ = x.shape
+        if cfg.is_encoder_decoder:
+            x = x + params["pos_embed"][:S].to(x.dtype)[None]
+        layers = [(kind, s, i, str(q))
+                  for s, (pattern, repeats) in enumerate(M.make_stages(cfg))
+                  for i in range(repeats) for q, kind in enumerate(pattern)]
+        caches = M.init_caches(cfg, B, capacity, device=dev,
+                               enc_len=0 if enc is None else enc.shape[1])
+        ctx = blk.Ctx(positions=torch.arange(S, device=dev).expand(B, S),
+                      cache_capacity=capacity, encoder_out=enc)
+        tok = None
+        for j in range(steps + 1):
+            if j:
+                t = torch.full((B,), S + j - 1, dtype=torch.int32,
+                               device=dev)
+                x = M._embed(cfg, params, tok[:, None])
+                if cfg.is_encoder_decoder:
+                    x = x + params["pos_embed"][t.long()][:, None].to(
+                        x.dtype)
+            for kind, s, i, q in layers:
+                pc, pm = (M._layer(tr["stages"][s], i)[q]
+                          for tr in (params, masked))
+                cc = M._layer(caches[s], i)[q]
+                if j == 0:
+                    yc, _, rc = blk.block_apply_full(kind, cfg, pc, x, ctx)
+                    ym, _, rm = blk.block_apply_full(kind, cfg, pm, x, ctx)
+                    tree.tree_map(lambda a, b: a.copy_(b), cc, rc)
+                else:
+                    rm = tree.tree_map(torch.clone, cc)
+                    by_kv = {S_: tree.tree_map(torch.clone, cc)
+                             for S_ in kv_paths}
+                    yc, _ = blk.block_apply_decode(kind, cfg, pc, x, cc, t)
+                    rc = cc
+                    for S_, rk in by_kv.items():
+                        yk, _ = blk.block_apply_decode(kind, cfg, pc, x, rk,
+                                                       t, kv_shards=S_)
+                        worst_kv = torch.maximum(worst_kv,
+                                                 _rows_ulps(yk, yc).max())
+                        worst_kv = held(rk, rc, worst_kv)
+                    ym, _ = blk.block_apply_decode(kind, cfg, pm, x, rm, t)
+                worst = torch.maximum(worst, _rows_ulps(ym, yc).max())
+                worst = held(rm, rc, worst)
+                x = yc.to(torch.bfloat16)
+            logits = M._unembed(cfg, params, blk._norm(
+                cfg, params["final_norm"], x[:, -1:]))[:, 0]
+            tok = logits.argmax(-1)
+    worst, worst_kv = float(worst), float(worst_kv)
+    check(worst <= LOGIT_ULPS_FULL, f"{cfg.name} compressed vs masked-dense "
+          f"layer by layer on the same input: {worst:.2f} bf16 ulps of a "
+          f"row's max (outputs and caches), past {LOGIT_ULPS_FULL}")
+    check(worst_kv <= LOGIT_ULPS_FULL, f"{cfg.name} kv_shards {kv_paths} vs "
+          f"None layer by layer on the same input: {worst_kv:.2f} bf16 "
+          f"ulps, past {LOGIT_ULPS_FULL}")
+    return {"worst_layer_ulps": worst, "worst_kv_layer_ulps": worst_kv,
+            "blocks": len(layers), "encoder_layers": cfg.encoder_layers,
+            "passes": steps + 1}
+
+
+def launcher_path(torch, dev, cfg, w: dict, batch: dict, gen: int,
+                  kv_list, name: str) -> dict:
+    """``cfg``'s compressed weights (``w``: :func:`weights_whole` /
+    :func:`weights_by_layer`) through the serve launcher's loop
+    (``launch.serve.generate``) at each ``kv_shards`` of ``kv_list``
+    (None first), each counted on its own (one ``nm_matmul`` per
+    compressed projection a forward, one decode attention kernel (or
+    partial + combine) per attention a decode step, nothing else; the
+    None path also the 2:4 export's ``nm_mask24`` launches that made
+    ``w``, one a mask),
+    every distinct kernel call held against its plain version, its
+    logits and streams against None's (printed; held layer by layer by
+    :func:`launcher_by_layer`); the decode loop replayed from a CUDA
+    graph == eager, its steps timed; one eager decode step and one
+    graph replay of it per path timed in turns; then compressed vs
+    masked-dense layer by layer, and end to end (printed)."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.nm_prox import nm_mask24
+    from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.sparse.apply import compressed_report
+    counted = {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
+               "nm_mask24": nm_mask24,
+               **{k: getattr(fd, k) for k in FLASH_KERNELS}}
+    # the 2:4 export's launches since the caller zeroed the counter before
+    # making ``w``: the None path's
+    export = nm_mask24.launches
+    check(export == w["masks_made"], f"{name}: nm_mask24 launched {export} "
+          f"times making the weights, want {w['masks_made']}")
+    params = M.serving_params(w["sparse"])
+    rep = compressed_report(params, w["masks"]) if w["masks"] else None
+    want_n = launcher_counts(cfg)
+    B, P = batch["tokens"].shape
+    off = cfg.num_image_tokens if "patches" in batch else 0
+    capacity = P + gen + off
+    runs, out = {}, {}
+    for S in (None,) + tuple(kv_list):
+        calls, steps = {}, []
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with first_call_per_signature(calls), recording_launcher(steps):
+            toks, t_pre, t_dec = generate(cfg, params, batch, gen,
+                                          kv_shards=S)
+        launches = {k: fn.launches for k, fn in counted.items()}
+        if S is None:
+            launches["nm_mask24"] += export
+        attn = want_n["attn"] * (gen - 1) if S is not None else 0
+        want = {"nm_matmul": want_n["prefill"] + want_n["decode"] * (gen - 1),
+                "nm_matmul_expert": 0,
+                "nm_mask24": export if S is None else 0,
+                "flash_decode": attn if S == 1 else 0,
+                "flash_decode_partial": attn if S not in (None, 1) else 0,
+                "combine_partials": attn if S not in (None, 1) else 0}
+        check(launches == want, f"{name} kv_shards={S}: launches "
+              f"{launches}, want {want}")
+        print(f"  {name} kv_shards={S}: launcher prefill {B}x{P}"
+              + (f" + {off} image tokens" if off else "")
+              + (f" over {batch['frames'].shape[1]} frames"
+                 if "frames" in batch else "")
+              + f" {t_pre * 1e3:.1f} ms, {gen - 1} eager decode steps "
+              f"{t_dec * 1e3 / (gen - 1):.2f} ms a step; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print("  " + check_path_calls(torch, calls))
+        check(bool(torch.isfinite(steps[-1][1]).all()), f"{name} "
+              f"kv_shards={S}: non-finite logits")
+        check(tuple(toks.shape) == (B, gen), f"{name}: tokens "
+              f"{tuple(toks.shape)}")
+        runs[S] = (toks, steps)
+        out[S] = {"launches": launches, "prefill_ms": t_pre * 1e3,
+                  "eager_step_ms": t_dec * 1e3 / (gen - 1)}
+        if S is not None:
+            n_rows, worst, ties = compare_launcher_runs(
+                torch, runs[None][1], steps, hold=False)
+            same = int((toks == runs[None][0]).all(dim=1).sum())
+            check(same + len(ties) >= B, f"{name} kv_shards={S}: streams "
+                  f"of {B - same} rows differ past the near-ties {ties}")
+            out[S].update(rows=n_rows, end_to_end_ulps=worst *
+                          LOGIT_ULPS_FULL, streams_equal=same)
+            print(f"  {name} kv_shards={S} vs None end to end: {same} of "
+                  f"{B} streams equal, {n_rows} rows with the same history, "
+                  f"logits worst {worst * LOGIT_ULPS_FULL:.2f} bf16 ulps of "
+                  f"the row's max (printed; held layer by layer below); "
+                  f"near-ties {ties}")
+        out[S].update(graph_decode_loop(torch, M, cfg, params, batch, gen, S,
+                                        toks))
+    # one decode step per path, eager vs replayed, timed in turns
+    with torch.inference_mode():
+        dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        step_fns = {}
+        for S in out:
+            _, caches = M.prefill(cfg, params, dbatch,
+                                  cache_capacity=capacity)
+            tok = runs[S][0][:, 0].to(dev)
+            t_dev = torch.full((B,), P + off, dtype=torch.int32,
+                               device=dev)
+            step_fns[S] = (lambda c=caches, S=S, tok=tok, t=t_dev:
+                           M.decode_step(cfg, params, tok, c, t,
+                                         kv_shards=S)[0])
+            check(replay_matches_eager(torch, step_fns[S]), f"{name} "
+                  f"kv_shards={S}: the step replayed from a CUDA graph "
+                  "differs from the eager step")
+            if not cfg.is_encoder_decoder or S == 4:
+                continue
+            # where one eager step's device time goes, by kernel (pixtral's
+            # engine run profiles its step: phase_serve; kv_shards=4's
+            # step is kv_shards=1's but for the shards)
+            with profiler_window(torch) as prof:
+                step_fns[S]()
+            evs = [e for e in device_events(prof)
+                   if e.self_device_time_total > 0]
+            out[S].update(
+                kernels=sum(e.count for e in evs),
+                device_ms=sum(e.self_device_time_total for e in evs) / 1e3,
+                top=[(e.self_device_time_total, e.count, e.key[:90])
+                     for e in sorted(evs, key=lambda e:
+                                     -e.self_device_time_total)[:6]])
+        timed = paired_graph_ms(torch, step_fns)
+    for S, (med, lo, hi) in timed.items():
+        out[S].update(graph_ms=med, graph_min_ms=lo, graph_max_ms=hi)
+        print(f"  {name} kv_shards={S}: decode step from a CUDA graph "
+              f"{med:.3f} ms (median of 10 rounds in turns, {lo:.3f}-"
+              f"{hi:.3f}); the launcher's loop on its graph "
+              f"{out[S]['graph_loop_ms']:.3f} ms a step = "
+              f"{out[S]['graph_tok_s']:.1f} tok/s, streams == eager"
+              + ("" if "top" not in out[S] else
+                 f"; profiler, one eager step: {out[S]['kernels']:.0f} "
+                 f"kernels, {out[S]['device_ms']:.3f} ms of device time; "
+                 "top (us, launches):"))
+        for us, count, key in out[S].get("top", ()):
+            print(f"    {us:10.1f}  {count:5.0f}  {key}")
+    del step_fns
+    # compressed vs masked-dense: layer by layer (held), end to end
+    # (printed)
+    masked = w["masked"]()
+    by_layer = launcher_by_layer(torch, M, cfg, params, masked, batch,
+                                 capacity, tuple(kv_list))
+    steps = []
+    with recording_launcher(steps):
+        mtoks = generate(cfg, masked, batch, gen)[0]
+    n_rows, worst, ties = compare_launcher_runs(torch, runs[None][1], steps,
+                                                hold=False)
+    same = int((mtoks == runs[None][0]).all(dim=1).sum())
+    check(same + len(ties) >= B, f"{name} compressed vs masked-dense: "
+          f"streams of {B - same} rows differ past the near-ties {ties}")
+    del masked
+    print(f"  {name} compressed vs masked-dense, layer by layer on the same "
+          f"input ({by_layer['encoder_layers']} encoder layers, "
+          f"{by_layer['blocks']} decoder blocks, prefill + "
+          f"{by_layer['passes'] - 1} decode passes): worst "
+          f"{by_layer['worst_layer_ulps']:.3f} bf16 ulps of a row's max "
+          f"(bound {LOGIT_ULPS_FULL}); kv_shards {tuple(kv_list)} vs None "
+          f"layer by layer {by_layer['worst_kv_layer_ulps']:.3f}; end to "
+          f"end: {same} of {B} streams equal, logits worst "
+          f"{worst * LOGIT_ULPS_FULL:.2f} ulps over {n_rows} rows "
+          f"(printed), near-ties {ties}")
+    if rep is not None:
+        check(rep["fallback_leaves"] == 0 and rep["ratio"] == 0.5625,
+              f"{name} compression: {rep['fallback_leaves']} fallbacks, "
+              f"ratio {rep['ratio']}")
+    return {"paths": out, "by_layer": by_layer,
+            "end_to_end_masked_ulps": worst * LOGIT_ULPS_FULL,
+            "compressed_gb": None if rep is None
+            else rep["bytes_compressed"] / 1e9}
+
+
+def encdec_smoke_card_vs_cpu(torch, dev, launches: dict) -> dict:
+    """The smoke whisper and pixtral (seed-0 weights, 2:4 magnitude) card
+    vs this host's CPU: the launcher's greedy streams (2 rows, 16 prompt
+    tokens, pixtral's 8 image tokens, whisper's 16 frames) at every
+    ``kv_shards`` each takes, each path on both devices (the CPU runs the
+    kernels' plain versions), the card's logits within
+    LOGIT_ULPS_FULL ulps (:func:`compare_launcher_runs`); pixtral's engine
+    streams (text only); whisper's engine refused; then a short whisper
+    wanda 2:4 calibration card vs CPU."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sparse.apply import sparsify_params
+    out = {}
+    for arch, kv_list in ((WHISPER, (None, 1, 4)), (PIXTRAL, (None, 1))):
+        cfg = get_smoke_config(arch)
+        p_cpu = M.init_params(cfg, 0, device="cpu")
+        masks = baseline_masks("magnitude", p_cpu, tree.tree_map(
+            lambda _: None, p_cpu), 0.5, mode="nm")
+        sp = M.serving_params(sparsify_params(
+            p_cpu, masks, axes=M.param_axes(cfg), idx_bits=2,
+            dtype=torch.bfloat16))
+        sp_card = tree.to_device(sp, dev)
+        batch = batches_for(cfg, n=1, batch=2, seq=16, split="valid")[0]
+        equal, worst, n_rows = 0, 0.0, 0
+        for S in kv_list:           # each path on both devices
+            ref, steps = [], []
+            with recording_launcher(ref):
+                want = generate(cfg, sp, batch, ENCDEC_SMOKE_GEN,
+                                kv_shards=S)[0]
+            with recording_launcher(steps):
+                got = generate(cfg, sp_card, batch, ENCDEC_SMOKE_GEN,
+                               kv_shards=S)[0]
+            rows, w_, ties = compare_launcher_runs(
+                torch, ref, [(None if f is None else f.cpu(), lg.cpu())
+                             for f, lg in steps], hold=True)
+            n_rows += rows
+            worst = max(worst, w_)
+            check(torch.equal(got, want) or ties, f"smoke {arch} "
+                  f"kv_shards={S}: card streams {got.tolist()} vs CPU "
+                  f"{want.tolist()}")
+            equal += int(torch.equal(got, want))
+        engine = None
+        if cfg.is_encoder_decoder:
+            try:
+                ServeEngine(cfg, sp_card, slots=2, capacity=32, device=dev)
+                fail(f"{arch}: an engine was built")
+            except ValueError as e:
+                check("decoder-only" in str(e), f"engine refusal: {e}")
+                engine = "refused (decoder-only, as the reference's)"
+        else:
+            prompts = [batch["tokens"][0, :9], batch["tokens"][1, :14],
+                       batch["tokens"][0, 3:8]]
+            res = []
+            for d, p in (("cpu", sp), (dev, sp_card)):
+                eng = ServeEngine(cfg, p, slots=2, capacity=32, device=d)
+                rids = [eng.submit(q, 6) for q in prompts]
+                o = eng.run()
+                res.append([o[r] for r in rids])
+            check(res[0] == res[1], f"smoke {arch} engine streams card "
+                  f"{res[1]} vs CPU {res[0]}")
+            engine = f"engine streams (text only) {len(prompts)} of " \
+                     f"{len(prompts)} equal"
+        print(f"  smoke {arch} card vs this host's CPU: launcher streams "
+              f"equal at {equal} of {len(kv_list)} kv_shards paths "
+              f"{kv_list}; {n_rows} rows with the same history, logits worst "
+              f"{worst:.3f} of the tolerance; {engine}")
+        out[arch] = {"paths_equal": equal, "paths": len(kv_list),
+                     "worst": worst, "rows": n_rows}
+    cfg = get_smoke_config(WHISPER)
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    out["calibration"] = calibration_card_vs_cpu(
+        torch, dev, cfg, p_cpu, launches, f"calibrate {WHISPER} smoke wanda "
+        "2:4", batches_for(cfg, n=2, batch=4, seq=32, split="calib"), 2,
+        shared_stats=True)
+    return out
+
+
+def phase_encdec_vision(torch, dev, card: str) -> dict:
+    """Phase 15: whisper-small whole (12 encoder + 12 decoder layers over
+    1536 stub frames) and pixtral-12b at its published widths
+    (``PIXTRAL_LAYERS`` of 40) 2:4, through the serve launcher's loop at
+    every ``kv_shards`` (:func:`launcher_path`); pixtral's engine path
+    (text only, phase 4's traffic: :func:`phase_serve`); then both smoke
+    configs card vs CPU and a short whisper calibration."""
+    from repro_torch.configs.base import get_config
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    from repro_torch.kernels.nm_prox import nm_mask24
+    cfg = get_config(WHISPER)
+    torch.cuda.reset_peak_memory_stats()
+    nm_mask24.launches = 0
+    w = weights_whole(torch, dev, cfg)
+    print(f"  {WHISPER}: {cfg.encoder_layers} encoder + {cfg.num_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"layernorm, gelu, no rope: {w['n_params']} params, made, masked "
+          f"({w['masks_made']} nm_mask24 launches) and packed in "
+          f"{w['export_s']:.2f} s; {WHISPER_FRAMES} frames (the reference's "
+          f"flash_attention takes no 1500: attention.py:214)")
+    batch = launcher_batch(cfg, 4, WHISPER_PROMPT, WHISPER_FRAMES)
+    out[WHISPER] = launcher_path(torch, dev, cfg, w, batch, WHISPER_GEN,
+                                 KV_SHARDS, WHISPER)
+    out[WHISPER]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del w
+    out[WHISPER]["s"] = time.perf_counter() - t0
+    print(f"  {WHISPER} whole took {out[WHISPER]['s']:.1f} s, peak "
+          f"{out[WHISPER]['peak_gib']:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    full = get_config(PIXTRAL)
+    cfg = dataclasses.replace(full, num_layers=PIXTRAL_LAYERS)
+    if PIXTRAL_LAYERS < full.num_layers:
+        print(f"  {PIXTRAL} cut to {PIXTRAL_LAYERS} of its "
+              f"{full.num_layers} layers: the script's 1200 s limit")
+    torch.cuda.reset_peak_memory_stats()
+    nm_mask24.launches = 0
+    w = weights_by_layer(torch, dev, cfg)
+    print(f"  {PIXTRAL}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, rope theta "
+          f"{cfg.rope_theta:g}, vit_dim {cfg.vit_dim}, "
+          f"{cfg.num_image_tokens} image tokens: {w['n_params']} params, "
+          f"made, masked and packed a layer slice at a time in "
+          f"{w['export_s']:.1f} s of export")
+    batch = launcher_batch(cfg, 4, PIXTRAL_TEXT)
+    out[PIXTRAL] = launcher_path(torch, dev, cfg, w, batch, PIXTRAL_GEN,
+                                 PIXTRAL_LAUNCHER_KV[1:], PIXTRAL)
+    out[PIXTRAL]["launcher_s"] = time.perf_counter() - t0
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the engine, text only (the reference's engine takes no patches),
+    # phase 4's traffic at kv_shards None, 1, 4, on weights made again
+    out[PIXTRAL]["engine"] = phase_serve(
+        torch, dev, card, cfg, weights=weights_by_layer, by_layer=True,
+        kv_by_layer=True)
+    out[PIXTRAL]["s"] = time.perf_counter() - t0
+    print(f"  {PIXTRAL} ({cfg.num_layers} layers) took "
+          f"{out[PIXTRAL]['s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke"] = encdec_smoke_card_vs_cpu(torch, dev, launches)
     out["smoke_launches"] = launches
     return out
 
@@ -5462,7 +6108,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/15] device")
+    print("[1/16] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -5474,7 +6120,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/15] build")
+    print("[2/16] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -5488,7 +6134,7 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/15] kernels against their plain versions [{card}]")
+    print(f"[3/16] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -5517,14 +6163,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/15] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/16] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/15] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/16] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -5532,7 +6178,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/15] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/16] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -5541,7 +6187,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/15] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/16] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -5549,7 +6195,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/15] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/16] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -5561,7 +6207,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/15] training: the launcher at full width, its resume, the "
+    print(f"[9/16] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -5570,7 +6216,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/15] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/16] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -5579,12 +6225,12 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/15] committed mask bank at smoke width, card vs CPU")
+    print("[11/16] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/15] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+    print(f"[12/16] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
           f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
           f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -5594,7 +6240,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/15] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/16] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -5607,8 +6253,9 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[14/15] the recurrent families: {ZAMBA} whole (81 layers: Mamba2 "
-          f"+ the LoRA-shared attention, decode attention at G 1, D 112) "
+    print(f"[14/16] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
+          f"layers: Mamba2 + the LoRA-shared attention, decode attention at "
+          f"G 1, D 112) "
           f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
           f"published widths, the smoke configs card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -5616,22 +6263,43 @@ def main() -> int:
     t_rec = time.perf_counter() - t0
     print(f"  phase took {t_rec:.1f} s")
 
-    print("[15/15] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[15/16] the last two families: {WHISPER} whole (12 encoder "
+          f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, decode "
+          f"attention at G 1, D 64 on its self ring and cross cache) and "
+          f"{PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the 256-token vision "
+          f"prefix) 2:4 through the serve launcher and {PIXTRAL}'s engine "
+          f"at their published widths, the smoke configs card vs CPU "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    encdec = phase_encdec_vision(torch, dev, card)
+    t_encdec = time.perf_counter() - t0
+    print(f"  phase took {t_encdec:.1f} s")
+
+    print("[16/16] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
-              DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM]}
+              DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM],
+              f"{PIXTRAL} engine": encdec[PIXTRAL]["engine"]}
     paths = {"calibrate llama3.2-1b": calib["launches"]}
     for name, run in served.items():
         paths[name] = run["launches"]
         for S, r in run["kv_runs"].items():
             paths[f"{name} kv_shards={S}"] = r["launches"]
+    # phase 15's launcher paths, each kv_shards path counted on its own
+    for name in (WHISPER, PIXTRAL):
+        for S, r in encdec[name]["paths"].items():
+            paths[f"{name} launcher kv_shards={S}"] = {
+                k: v for k, v in r["launches"].items() if v}
     for S, r in fleet["by_kv"].items():
         paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
     # phase 8's, 9's and 10's paths, each with the kernels it launched
     for name, launched in {**evalr["launches"], **trained["launches"],
                            **gemma["launches"],
                            **deep["smoke_launches"],
-                           **rec["smoke_launches"]}.items():
+                           **rec["smoke_launches"],
+                           **encdec["smoke_launches"]}.items():
         paths[name] = {k: v for k, v in launched.items() if v}
     # kernel launches the profiler saw on the CUDA-graph engine's runs of
     # phases 4-5's and 10's paths (2 requests), replays included, by
@@ -5673,7 +6341,10 @@ def main() -> int:
                  "an mla_moe layer's wq, w_dkv, wo, shared up / gate / "
                  "down, and every timed shape in its rows; zamba2-7b: a "
                  "mamba layer's in_proj and out_proj and the shared block's "
-                 "7; xlstm-125m: an mLSTM and an sLSTM layer's 9)"},
+                 "7; xlstm-125m: an mLSTM and an sLSTM layer's 9; "
+                 "whisper-small: a decoder layer's 7 at M 4, 128 and the "
+                 "encoder's 6144; pixtral-12b: a layer's 7 at M 4 and "
+                 "1280)"},
         {"name": "nm_matmul_expert", "route": "cuda",
          "source": "src/repro_torch/csrc/nm_spmm.cu",
          "replaces": "src/repro/kernels/nm_spmm.py:202",
@@ -5714,8 +6385,10 @@ def main() -> int:
          "work": "one llama3.2-1b decode layer's attention at serving: "
                  "B=4 slots, 8 kv heads x 4 query heads of 64, C=256, bf16; "
                  "by_case: every phase-3 case, gemma3-1b's 1 kv head x 4 "
-                 "of 256, yi-6b's 4 kv heads x 8 of 128 and zamba2-7b's "
-                 "32 kv heads x 1 of 112 included; library: "
+                 "of 256, yi-6b's 4 kv heads x 8 of 128, zamba2-7b's "
+                 "32 kv heads x 1 of 112, whisper-small's 12 kv heads x 1 "
+                 "of 64 (its self ring and 1536-slot cross cache) and "
+                 "pixtral-12b's 8 kv heads x 4 of 128 included; library: "
                  "F.scaled_dot_product_attention (enable_gqa)"},
         {"name": "flash_decode_partial", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
@@ -5738,7 +6411,8 @@ def main() -> int:
           f"training phase {t_train:.1f} s, the gemma and yi phase "
           f"{t_gemma:.1f} s, the deepseek phase {t_deep:.1f} s, the "
           f"recorder's phase {t_obs:.1f} s, the recurrent phase "
-          f"{t_rec:.1f} s)")
+          f"{t_rec:.1f} s, the encoder-decoder and vision phase "
+          f"{t_encdec:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -5789,6 +6463,30 @@ def main() -> int:
                         for S, g in r["graph_runs"].items()},
         "pinned": r["pinned"], "smoke": r["smoke"]}
         for arch, r in ((a, rec[a]) for a in (ZAMBA, XLSTM))}}))
+    # phase 15's launcher paths and pixtral's engine, on a line of its own
+    eng = encdec[PIXTRAL]["engine"]
+    print(json.dumps({"encdec_vision": {
+        **{name: {"paths": {str(S): {k: v for k, v in r.items()
+                                     if k != "launches"}
+                            for S, r in encdec[name]["paths"].items()},
+                  "by_layer": encdec[name]["by_layer"],
+                  "end_to_end_masked_ulps":
+                      encdec[name]["end_to_end_masked_ulps"],
+                  "s": encdec[name]["s"]}
+           for name in (WHISPER, PIXTRAL)},
+        WHISPER + " peak_gib": encdec[WHISPER]["peak_gib"],
+        PIXTRAL + " layers": PIXTRAL_LAYERS,
+        PIXTRAL + " engine": {
+            "prefill_ms": eng["prefill_ms"], "peak_gib": eng["peak_gib"],
+            "peak_gib_with_masked_dense": eng["pinned"]["peak_gib"],
+            "eager_step_ms": eng["step_ms"], "build_s": eng["build_s"],
+            "graph_ms": {str(S): v["graph_ms"]
+                         for S, v in eng["steps_by_kv"].items()},
+            "graph_tok_s": {str(S): g["tok_s"]
+                            for S, g in eng["graph_runs"].items()},
+            "pinned": {k: v for k, v in eng["pinned"].items()
+                       if k != "free_by_depth"}},
+        "smoke": {k: v for k, v in encdec["smoke"].items()}}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Field-for-field copy of ``repro.configs.base`` (which imports jax): a bank
 artifact's ``pcfg`` and a config's fields mean the same in both packages.
-Config modules so far: ``llama3.2-1b``, ``mixtral-8x22b``, ``gemma3-1b``,
-``gemma2-2b``, ``yi-6b``, ``deepseek-v2-lite-16b``, ``zamba2-7b`` and
-``xlstm-125m``; the paper-table harness's tiny families are in
+Config modules: all ten of the reference's, ``llama3.2-1b``,
+``mixtral-8x22b``, ``gemma3-1b``, ``gemma2-2b``, ``yi-6b``,
+``deepseek-v2-lite-16b``, ``zamba2-7b``, ``xlstm-125m``, ``whisper-small``
+and ``pixtral-12b``; the paper-table harness's tiny families are in
 ``configs/tiny.py``.
 """
 from __future__ import annotations

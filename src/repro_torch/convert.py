@@ -9,8 +9,10 @@ cached under ``results/bench_models/*.pkl`` are such numpy trees already
 (:func:`load_params_pickle`).  Expert banks (layers, E, d_in, d_out), an
 untied ``lm_head``, zamba2's ``shared`` block and ``lora_*`` adapters, and
 the recurrent mixers' leaves (Mamba2's ``A_log``, ``dt_bias``, ``D`` and
-``conv``, sLSTM's recurrent ``r``) carry across like every other leaf: the
-tree's key paths are the reference's.  This module imports
+``conv``, sLSTM's recurrent ``r``), whisper's ``frame_proj``,
+``pos_embed``, ``enc_stages`` and ``enc_norm`` (layernorm ``scale`` and
+``bias``) and pixtral's ``vit_proj`` carry across like every other leaf:
+the tree's key paths are the reference's.  This module imports
 neither jax nor ``repro``: it only sees numpy.
 """
 from __future__ import annotations

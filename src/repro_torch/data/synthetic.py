@@ -9,9 +9,11 @@ prompts are the reference's prompts token for token:
 
 Batches are a pure function of (seed, split, index), so any host can
 compute its shard and a restart resumes from a cursor with no replay
-(:class:`ShardedLoader`).  Only the text families are covered: the
-frame/patch stubs of the audio and vision families come with those
-families.
+(:class:`ShardedLoader`).  The audio and vision families' batches carry
+the reference's deterministic stand-ins for their frontends: ``frames``
+(whisper, one d_model embedding a token) and ``patches`` (pixtral,
+``num_image_tokens`` vit_dim embeddings from a disjoint token draw),
+both looked up in a seeded table (:func:`_stub_embeds`).
 """
 from __future__ import annotations
 
@@ -62,16 +64,33 @@ def sample_tokens(cfg: CorpusConfig, split: str, index: int,
     return toks.astype(np.int32)
 
 
+def _stub_embeds(tokens: np.ndarray, dim: int, seed: int) -> np.ndarray:
+    """Deterministic frame/patch embedding stub derived from token ids:
+    rows of a seeded (257, dim) f32 table."""
+    rng = np.random.default_rng(seed + 29)
+    table = rng.standard_normal((257, dim)).astype(np.float32) * 0.5
+    return table[tokens % 257]
+
+
 def batches_for(model_cfg, *, n: int, batch: int, seq: int, split: str,
                 seed: int = 0, start: int = 0) -> list[dict]:
-    """``n`` token batches of shape (batch, seq), as numpy int32."""
-    if model_cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{model_cfg.family} batches need frame/patch stubs, which this "
-            "package does not port yet")
+    """``n`` batches: ``tokens`` (batch, seq) numpy int32, and for the
+    audio family ``frames`` (batch, seq, d_model) f32 (the encoder's input
+    has the prompt's length, as the reference's), for the vision family
+    ``patches`` (batch, num_image_tokens, vit_dim) f32."""
     ccfg = CorpusConfig(vocab_size=model_cfg.vocab_size, seed=seed)
-    return [{"tokens": sample_tokens(ccfg, split, i, batch, seq)}
-            for i in range(start, start + n)]
+    out = []
+    for i in range(start, start + n):
+        toks = sample_tokens(ccfg, split, i, batch, seq)
+        b = {"tokens": toks}
+        if model_cfg.family == "audio":
+            b["frames"] = _stub_embeds(toks, model_cfg.d_model, seed)
+        if model_cfg.family == "vlm":
+            img = sample_tokens(ccfg, split, i + 100_000, batch,
+                                model_cfg.num_image_tokens)
+            b["patches"] = _stub_embeds(img, model_cfg.vit_dim, seed)
+        out.append(b)
+    return out
 
 
 @dataclasses.dataclass

@@ -34,7 +34,12 @@ arch serves: ``llama3.2-1b``, ``mixtral-8x22b`` (MoE, sliding window),
 (QK-norm, 5:1 local:global), ``deepseek-v2-lite-16b`` (MLA, 64 routed
 experts top-6 and 2 shared, a dense first layer), ``zamba2-7b`` (Mamba2
 layers and one weight-shared attention block with per-layer LoRA) and
-``xlstm-125m`` (mLSTM / sLSTM, no attention).
+``xlstm-125m`` (mLSTM / sLSTM, no attention), ``whisper-small``
+(encoder-decoder: the batch's stub ``frames`` through the encoder, the
+decoder's cross-attention over it) and ``pixtral-12b`` (the batch's stub
+``patches`` as a ``num_image_tokens`` prefix before the prompt).
+Whisper has no engine, fleet or spec path, as in the reference:
+``--fleet`` refuses it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b --gen 16
@@ -48,6 +53,10 @@ layers and one weight-shared attention block with per-layer LoRA) and
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --sparse-artifact results/bank/llama3.2-1b \
@@ -126,25 +135,40 @@ def _next_tokens(logits: torch.Tensor, temperature: float, i: int
     return prng.categorical(prng.key(100 + i), logits / t)
 
 
-def generate(cfg, params, toks: torch.Tensor, gen: int, *,
-             temperature: float = 0.0, xprof: bool = False):
-    """Prefill (B, P) prompt tokens, then decode ``gen - 1`` steps at a
-    capacity of P + gen: (tokens (B, gen) on the host, prefill seconds,
-    decode seconds).  The prefill's token is the argmax; each decode step's
-    is :func:`_next_tokens`'s.  The stages are ``obs.timer``s
-    (``launch.prefill``, ``launch.decode``) fenced on their outputs, each
-    decode step a ``serve.decode_step`` span and a ``serve.decode_step_ms``
-    observation; ``xprof``: each under a ``record_function``."""
+def generate(cfg, params, batch, gen: int, *, temperature: float = 0.0,
+             xprof: bool = False, kv_shards: int | None = None):
+    """Prefill a batch of (B, P) prompts (a dict with ``tokens``, and
+    whisper's ``frames`` or pixtral's ``patches``; or the token tensor
+    alone), then decode ``gen - 1`` steps at a capacity of P + gen plus
+    the image prefix's tokens, each step at position P + its index past
+    that prefix, as the reference's loop: (tokens (B, gen) on the host,
+    prefill seconds, decode seconds).  The prefill's token is the argmax;
+    each decode step's is :func:`_next_tokens`'s.  ``kv_shards``: the
+    decode attention path (``models.model.decode_step``; whisper's cross
+    slots are the encoder's length, which it must divide too).  The
+    stages are ``obs.timer``s (``launch.prefill``, ``launch.decode``)
+    fenced on their outputs, each decode step a ``serve.decode_step``
+    span and a ``serve.decode_step_ms`` observation; ``xprof``: each under
+    a ``record_function``."""
     device = params["embed"]["table"].device
-    B, P = toks.shape
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    B, P = batch["tokens"].shape
+    offset = cfg.num_image_tokens if "patches" in batch else 0
+    capacity = P + gen + offset
+    if kv_shards is not None:
+        from repro_torch.kernels.shard import check_kv_shards
+        enc_len = batch["frames"].shape[1] if "frames" in batch else 0
+        check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity, enc_len),
+                        cfg.layer_kinds)
     with torch.inference_mode():
         # work still queued for the weights is not the prefill's
         obs.core.block_until_ready(params)
         with _step_annotation("prefill", 0, xprof), \
                 obs.timer("launch.prefill", batch=B, prompt_len=P) as tp:
-            logits, caches = M.prefill(cfg, params,
-                                       {"tokens": toks.to(device)},
-                                       cache_capacity=P + gen)
+            logits, caches = M.prefill(cfg, params, batch,
+                                       cache_capacity=capacity)
             tok = logits.argmax(dim=-1)
             tp.fence((tok, caches))
         out = [tok.cpu()]
@@ -153,7 +177,8 @@ def generate(cfg, params, toks: torch.Tensor, gen: int, *,
                 sp = obs.span("serve.decode_step")
                 with sp, _step_annotation("decode", i + 1, xprof):
                     logits, caches = M.decode_step(cfg, params, tok, caches,
-                                                   P + i)
+                                                   P + offset + i,
+                                                   kv_shards=kv_shards)
                     tok = _next_tokens(logits, temperature, i)
                     out.append(tok.cpu())   # host copy: the step's sync
                 if sp.seconds is not None:
@@ -320,6 +345,8 @@ def main(argv=None) -> None:
 
 def _serve(args, device) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encoder_decoder and args.gen <= 0:
+        raise SystemExit("an encoder-decoder model needs --gen > 0")
     params = M.init_params(cfg, 0, device=device)
     if args.spec and not args.fleet:
         raise SystemExit("--spec rides the fleet router: pass --fleet with "
@@ -337,9 +364,8 @@ def _serve(args, device) -> None:
     params = M.serving_params(params)
 
     B, P = args.batch, args.prompt_len
-    toks = torch.from_numpy(batches_for(cfg, n=1, batch=B, seq=P,
-                                        split="valid")[0]["tokens"])
-    gen, t_prefill, t_decode = generate(cfg, params, toks, args.gen,
+    batch = batches_for(cfg, n=1, batch=B, seq=P, split="valid")[0]
+    gen, t_prefill, t_decode = generate(cfg, params, batch, args.gen,
                                         temperature=args.temperature,
                                         xprof=bool(args.xprof_dir))
     print(f"device {device}"

@@ -1,9 +1,11 @@
 """Attention: GQA + RoPE + sliding window + softcap + QK-norm, and
 DeepSeek-V2's multi-head latent attention (MLA).  Port of
 ``repro.models.attention``: the ``attn`` and ``local`` kinds (global and
-sliding-window causal attention, gemma's logit softcap and QK-norm) and
-the ``mla_*`` kinds' attention (:func:`mla_apply_full`, and the absorbed
-c-space decode and verify, plain torch as the reference's ``jnp``).
+sliding-window causal attention, gemma's logit softcap and QK-norm),
+whisper's non-causal encoder attention and its cross-attention over K/V
+computed elsewhere (``kv_override``), and the ``mla_*`` kinds' attention
+(:func:`mla_apply_full`, and the absorbed c-space decode and verify,
+plain torch as the reference's ``jnp``).
 
 Two execution paths (and :func:`reference_attention`, the reference's
 materialised oracle, for tests):
@@ -11,7 +13,8 @@ materialised oracle, for tests):
 * :func:`flash_attention` - prefill and calibration, plain torch as in
   the reference, which leaves it to XLA.  The reference's
   chunked online-softmax forward (query blocks in a Python loop,
-  triangle-exact under the causal mask; kv blocks with a running
+  triangle-exact under the causal mask, every kv block without it; kv
+  blocks with a running
   (m, l, acc) state), f32 logits and accumulator, probabilities rounded to
   the value dtype before PV.  Under autograd its backward is the
   reference's ``custom_vjp`` (:class:`_Flash`): it recomputes
@@ -57,10 +60,13 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, *,
-               window: int = 0) -> torch.Tensor:
-    """Additive causal (and sliding-window) mask bias, 0 or NEG_INF.
-    qpos: (Sq,), kpos: (Sk,)."""
-    ok = kpos[None, :] <= qpos[:, None]
+               window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Additive causal (and sliding-window) mask bias, 0 or NEG_INF; all 0
+    when neither ``causal`` nor ``window`` masks.  qpos: (Sq,), kpos:
+    (Sk,)."""
+    ok = (kpos[None, :] <= qpos[:, None] if causal else
+          torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                     device=qpos.device))
     if window:
         ok &= qpos[:, None] - kpos[None, :] < window
     return torch.where(ok, 0.0, NEG_INF)
@@ -74,7 +80,7 @@ def _qk(q: torch.Tensor, k: torch.Tensor, scale: float,
 
 
 def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window,
-                     softcap=0.0):
+                     softcap=0.0, causal=True):
     """One query block vs all (needed) kv blocks -> (normalized f32 output,
     m, l)."""
     B, Sq, K, G, _ = q_blk.shape
@@ -87,7 +93,8 @@ def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window,
         sl = slice(ikv * kv_block, (ikv + 1) * kv_block)
         kpos = ikv * kv_block + torch.arange(kv_block, device=dev)
         s = _qk(q_blk, k[:, sl], scale, softcap)
-        s = s + _mask_bias(qpos, kpos, window=window)[None, None, None]
+        s = s + _mask_bias(qpos, kpos, window=window,
+                           causal=causal)[None, None, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -100,31 +107,36 @@ def _flash_fwd_block(q_blk, k, v, *, qpos, scale, kv_block, window,
     return o, m, l
 
 
-def _q_blocks(Sq, Sk, q_block, kv_block, device):
-    """(query slice, qpos, visible kv length n) per query block: only kv
-    blocks whose start can be visible (static causal bound)."""
+def _q_blocks(Sq, Sk, q_block, kv_block, device, causal=True):
+    """(query slice, qpos, visible kv length n) per query block: under the
+    causal mask only kv blocks whose start can be visible (static bound),
+    else every whole kv block."""
     for iq in range(Sq // q_block):
         qpos = (Sk - Sq) + iq * q_block + torch.arange(q_block, device=device)
-        hi = min(Sk, (Sk - Sq) + (iq + 1) * q_block)
-        yield (slice(iq * q_block, (iq + 1) * q_block), qpos,
-               -(-hi // kv_block) * kv_block)
+        if causal:
+            hi = min(Sk, (Sk - Sq) + (iq + 1) * q_block)
+            n = -(-hi // kv_block) * kv_block
+        else:
+            n = Sk // kv_block * kv_block
+        yield slice(iq * q_block, (iq + 1) * q_block), qpos, n
 
 
-def _flash_fwd(q, k, v, window, softcap, scale, q_block, kv_block):
+def _flash_fwd(q, k, v, causal, window, softcap, scale, q_block, kv_block):
     """Grouped q (B,Sq,K,G,D) -> (out in q.dtype, logsumexp L (B,K,G,Sq))."""
     os_, Ls = [], []
     for sl, qpos, n in _q_blocks(q.shape[1], k.shape[1], q_block, kv_block,
-                                 q.device):
+                                 q.device, causal):
         o, m, l = _flash_fwd_block(q[:, sl], k[:, :n], v[:, :n], qpos=qpos,
                                    scale=scale, kv_block=kv_block,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   causal=causal)
         os_.append(o)
         Ls.append(m + torch.log(torch.clamp_min(l, 1e-30)))
     return torch.cat(os_, dim=1).to(q.dtype), torch.cat(Ls, dim=3)
 
 
 def _flash_bwd_block(q_blk, k, v, o_blk, L_blk, do_blk, *, qpos, scale,
-                     kv_block, window, softcap=0.0):
+                     kv_block, window, softcap=0.0, causal=True):
     """Backward for one query block: (dq_blk, dk, dv), f32, dk/dv over the
     block's visible kv length.  Under a softcap the logits are
     t * cap with t = tanh(raw / cap), and ds takes the factor 1 - t t."""
@@ -144,7 +156,8 @@ def _flash_bwd_block(q_blk, k, v, o_blk, L_blk, do_blk, *, qpos, scale,
         if softcap:
             t = torch.tanh(s / torch.full((), softcap, device=dev))
             s = t * softcap
-        bias = _mask_bias(qpos, kpos, window=window)[None, None, None]
+        bias = _mask_bias(qpos, kpos, window=window,
+                          causal=causal)[None, None, None]
         p = torch.exp(s + bias - L_blk[..., None])          # (B,K,G,Sq,Sk)
         dp = torch.einsum("bqkgd,bskd->bkgqs", do_f, vs)
         dv[:, sl] += torch.einsum("bkgqs,bqkgd->bskd", p, do_f)
@@ -163,39 +176,43 @@ class _Flash(torch.autograd.Function):
     query block and kv block (nothing quadratic is saved)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, softcap, scale, q_block, kv_block):
-        out, L = _flash_fwd(q, k, v, window, softcap, scale, q_block,
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_block,
+                kv_block):
+        out, L = _flash_fwd(q, k, v, causal, window, softcap, scale, q_block,
                             kv_block)
         ctx.save_for_backward(q, k, v, out, L)
-        ctx.cfg = (window, softcap, scale, q_block, kv_block)
+        ctx.cfg = (causal, window, softcap, scale, q_block, kv_block)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, L = ctx.saved_tensors
-        window, softcap, scale, q_block, kv_block = ctx.cfg
+        causal, window, softcap, scale, q_block, kv_block = ctx.cfg
         dqs = []
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
         for sl, qpos, n in _q_blocks(q.shape[1], k.shape[1], q_block,
-                                     kv_block, q.device):
+                                     kv_block, q.device, causal):
             dq_blk, dk_p, dv_p = _flash_bwd_block(
                 q[:, sl], k[:, :n], v[:, :n], out[:, sl], L[..., sl],
                 do[:, sl], qpos=qpos, scale=scale, kv_block=kv_block,
-                window=window, softcap=softcap)
+                window=window, softcap=softcap, causal=causal)
             dqs.append(dq_blk)
             dk[:, :n] += dk_p
             dv[:, :n] += dv_p
         return (torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None, None, None, None, None)
+                dv.to(v.dtype), None, None, None, None, None, None)
 
 
-def flash_attention(q, k, v, *, window=0, attn_softcap=0.0, scale=None,
-                    q_block=None, kv_block=None):
-    """Causal attention, over the last ``window`` positions when window > 0,
-    logits softcapped at ``attn_softcap`` when set.  q: (B,Sq,H,D) or
-    (B,Sq,K,G,D); k,v: (B,Sk,K,D).  Returns (B,Sq,H,Dv) (or grouped) in
-    q.dtype."""
+def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
+                    scale=None, q_block=None, kv_block=None):
+    """Causal attention (``causal=False``: every query sees every key, as
+    whisper's encoder and its cross-attention, where Sq may differ from
+    Sk), over the last ``window`` positions when window > 0, logits
+    softcapped at ``attn_softcap`` when set.  q: (B,Sq,H,D) or
+    (B,Sq,K,G,D); k,v: (B,Sk,K,D).  Sq and Sk must be multiples of their
+    blocks (512 or less), as the reference asserts.  Returns (B,Sq,H,Dv)
+    (or grouped) in q.dtype."""
     squeeze = q.dim() == 4
     if squeeze:
         B, Sq, H, D = q.shape
@@ -209,21 +226,23 @@ def flash_attention(q, k, v, *, window=0, attn_softcap=0.0, scale=None,
         raise ValueError((Sq, q_block, Sk, kv_block))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out = _Flash.apply(q, k, v, window, attn_softcap, scale, q_block,
-                           kv_block)
+        out = _Flash.apply(q, k, v, causal, window, attn_softcap, scale,
+                           q_block, kv_block)
     else:
         out = torch.cat([
             _flash_fwd_block(q[:, sl], k[:, :n], v[:, :n], qpos=qpos,
                              scale=scale, kv_block=kv_block, window=window,
-                             softcap=attn_softcap)[0]
+                             softcap=attn_softcap, causal=causal)[0]
             for sl, qpos, n in _q_blocks(Sq, Sk, q_block, kv_block,
-                                         q.device)], dim=1).to(q.dtype)
+                                         q.device, causal)],
+            dim=1).to(q.dtype)
     return out.reshape(B, Sq, K * G, v.shape[-1]) if squeeze else out
 
 
-def reference_attention(q, k, v, *, window=0, attn_softcap=0.0, scale=None):
+def reference_attention(q, k, v, *, causal=True, window=0,
+                        attn_softcap=0.0, scale=None):
     """The reference's materialised-logits oracle (``attention.py:216``):
-    the causal (and windowed) softmax over all f32 logits at once,
+    the causal (or not) and windowed softmax over all f32 logits at once,
     softcapped where set, the probabilities rounded to v's dtype before
     PV.  q (B,Sq,H,D), k/v (B,Sk,K,D) -> (B,Sq,H,Dv) in v's dtype."""
     B, Sq, H, D = q.shape
@@ -232,7 +251,7 @@ def reference_attention(q, k, v, *, window=0, attn_softcap=0.0, scale=None):
     s = _qk(q.reshape(B, Sq, K, H // K, D), k, scale, attn_softcap)
     qpos = (Sk - Sq) + torch.arange(Sq, device=q.device)
     s = s + _mask_bias(qpos, torch.arange(Sk, device=q.device),
-                       window=window)[None, None, None]
+                       window=window, causal=causal)[None, None, None]
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(v.dtype)
@@ -286,25 +305,36 @@ def make_kv_cache(batch: int, capacity: int, num_kv: int, head_dim: int, *,
 def attn_apply_full(p: PyTree, x: torch.Tensor, *, positions: torch.Tensor,
                     num_heads: int, num_kv: int, head_dim: int,
                     rope_theta: float = 1e4, use_rope: bool = True,
-                    window: int = 0, attn_softcap: float = 0.0,
-                    scale: float | None = None, cache_capacity: int = 0,
+                    causal: bool = True, window: int = 0,
+                    attn_softcap: float = 0.0, scale: float | None = None,
+                    cache_capacity: int = 0, kv_override=None,
                     qkv_delta=None,
                     ) -> tuple[torch.Tensor, PyTree | None]:
     """Prefill path. Returns (y, kv_cache or None); a windowed layer's
-    cache ring holds min(cache_capacity, window) slots.  ``qkv_delta``:
-    (dq, dk, dv) added to the projections before rope (zamba2's LoRA on
-    its shared block)."""
+    cache ring holds min(cache_capacity, window) slots.  ``causal=False``:
+    whisper's encoder.  ``kv_override``: (k, v) (B, Sk, K, D) computed
+    elsewhere (whisper's cross-attention over the encoder output): wk and
+    wv are not applied and k takes no rope.  ``qkv_delta``: (dq, dk, dv)
+    added to the projections before rope (zamba2's LoRA on its shared
+    block)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, qkv_delta)
+    if kv_override is None:
+        q, k, v = _qkv(p, x, qkv_delta)
+        k = k.reshape(B, S, num_kv, head_dim)
+        v = v.reshape(B, S, num_kv, head_dim)
+    else:
+        q = cm.dense(p["wq"], x)
+        if qkv_delta is not None:
+            q = q + qkv_delta[0]
+        k, v = kv_override
     q = q.reshape(B, S, num_heads, head_dim)
-    k = k.reshape(B, S, num_kv, head_dim)
-    v = v.reshape(B, S, num_kv, head_dim)
     q, k = _qk_normed(p, q, k)
     if use_rope:
         q = cm.rope(q, positions, theta=rope_theta)
-        k = cm.rope(k, positions, theta=rope_theta)
-    o = flash_attention(q, k, v, window=window, attn_softcap=attn_softcap,
-                        scale=scale)
+        if kv_override is None:
+            k = cm.rope(k, positions, theta=rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        attn_softcap=attn_softcap, scale=scale)
     y = cm.dense(p["wo"], o.reshape(B, S, num_heads * head_dim))
     cache = None
     if cache_capacity:

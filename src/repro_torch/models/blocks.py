@@ -9,8 +9,12 @@ with its shared experts), whose cache is the latent ring ``{"ckv",
 "krope"}``; and the recurrent kinds: zamba2's ``mamba`` (a pre-norm Mamba2
 mixer, ``models/ssm.py``) and ``mamba_shared`` (the same, then the model's
 ONE weight-shared attention + MLP block with this layer's LoRA deltas on
-q, k and v), and xlstm's ``mlstm`` and ``slstm`` (``models/xlstm.py``).
-Every other kind raises until its family is ported.
+q, k and v), and xlstm's ``mlstm`` and ``slstm`` (``models/xlstm.py``);
+whisper's ``enc`` (the llama block with non-causal self-attention, the
+encoder's kind) and ``dec`` (causal self-attention with no rope, then
+cross-attention on ``ln_cross`` over the encoder output, then the gated
+MLP).  The norm is the config's (``rmsnorm`` or ``layernorm``).  Any
+other kind raises.
 
 Every block kind exposes:
   block_init(kind, b, cfg)                          -> params
@@ -29,7 +33,11 @@ decode-attention kernel): ``serve.engine`` refuses ``kv_shards`` for it,
 and a direct call with ``kv_shards`` set raises too.  The recurrent kinds'
 caches are their states (``{"mamba": {"h", "conv"}}`` plus the shared
 block's ``"kv"`` ring; mLSTM's ``{"C", "n", "m", "conv"}``; sLSTM's ``{"c",
-"n", "m", "h"}``), updated in place by decode.
+"n", "m", "h"}``), updated in place by decode.  A ``dec`` layer's cache is
+its self-attention ring ``"kv"`` and the encoder output's K/V in bf16,
+``"cross_k"`` / ``"cross_v"`` (B, Se, K, D), written at prefill and read
+whole at every decode step (``kv_shards`` takes both: the cross step is
+``attention.decode_attend`` over the Se slots with every one valid).
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ from repro_torch.models.mlp import mlp_apply, mlp_init
 
 PyTree = Any
 KINDS = ("attn", "local", "moe", "moe_local", "mla_dense", "mla_moe",
-         "mamba", "mamba_shared", "mlstm", "slstm")
+         "mamba", "mamba_shared", "mlstm", "slstm", "enc", "dec")
 _LOCAL = ("local", "moe_local")
 MLA_KINDS = ("mla_dense", "mla_moe")
 # kinds whose cache is a recurrent state (the shared block's ring aside)
@@ -61,6 +69,7 @@ class Ctx:
     """Per-call context for full (prefill) passes."""
     positions: torch.Tensor              # (B, S)
     cache_capacity: int = 0              # 0 -> no cache output
+    encoder_out: torch.Tensor | None = None   # whisper's cross-attention
 
 
 def _check_kind(kind: str) -> None:
@@ -70,10 +79,14 @@ def _check_kind(kind: str) -> None:
 
 
 def _norm_init(b: Builder, cfg: ModelConfig) -> PyTree:
+    if cfg.norm == "layernorm":
+        return cm.layernorm_init(b, cfg.d_model)
     return cm.rmsnorm_init(b, cfg.d_model)
 
 
 def _norm(cfg: ModelConfig, p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return cm.layernorm(p, x, eps=cfg.norm_eps)
     return cm.rmsnorm(p, x, eps=cfg.norm_eps)
 
 
@@ -156,6 +169,12 @@ def block_init(kind: str, b: Builder, cfg: ModelConfig) -> PyTree:
     if cfg.sandwich_norm:
         p["post_ln1"] = _norm_init(b, cfg)
         p["post_ln2"] = _norm_init(b, cfg)
+    if kind == "dec":
+        p["ln_cross"] = _norm_init(b, cfg)
+        p["cross"] = attn.attn_init(b, d_model=cfg.d_model,
+                                    num_heads=cfg.num_heads,
+                                    num_kv=cfg.num_kv_heads,
+                                    head_dim=cfg.head_dim)
     return p
 
 
@@ -185,6 +204,8 @@ def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
     _check_kind(kind)
     if kind in RECURRENT_KINDS:
         return _recurrent_full(kind, cfg, p, x, ctx, shared)
+    if kind == "dec":
+        return _dec_full(cfg, p, x, ctx)
     h = _norm(cfg, p["ln1"], x)
     if kind in MLA_KINDS:
         a, cache = attn.mla_apply_full(
@@ -193,7 +214,7 @@ def block_apply_full(kind: str, cfg: ModelConfig, p: PyTree,
     else:
         a, cache = attn.attn_apply_full(
             p["attn"], h, positions=ctx.positions,
-            cache_capacity=ctx.cache_capacity,
+            causal=kind != "enc", cache_capacity=ctx.cache_capacity,
             **_attn_kwargs(cfg, local=kind in _LOCAL))
     x, aux = _block_tail(cfg, p, x, a)
     return x, aux, cache
@@ -212,7 +233,20 @@ def cache_length(kind: str, cfg: ModelConfig, capacity: int) -> int | None:
 
 
 def block_init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
-                     *, device, lead: tuple = ()) -> PyTree:
+                     *, device, lead: tuple = (), enc_len: int = 0) -> PyTree:
+    """``enc_len``: a ``dec`` layer's cross-attention slots (the encoder's
+    length)."""
+    if kind == "enc":
+        raise ValueError("an encoder layer keeps no cache")
+    if kind == "dec":
+        kv = attn.make_kv_cache(batch, capacity, cfg.num_kv_heads,
+                                cfg.head_dim, device=device, lead=lead)
+        shape = (*lead, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"kv": kv,
+                "cross_k": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device),
+                "cross_v": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device)}
     if kind in RECURRENT_KINDS:
         return _recurrent_cache(kind, cfg, batch, capacity, device=device,
                                 lead=lead)
@@ -231,6 +265,8 @@ def block_apply_decode(kind: str, cfg: ModelConfig, p: PyTree,
     if kind in RECURRENT_KINDS:
         return _recurrent_decode(kind, cfg, p, x, cache, t, kv_shards,
                                  shared)
+    if kind == "dec":
+        return _dec_decode(cfg, p, x, cache, t, kv_shards)
     h = _norm(cfg, p["ln1"], x)
     if kind in MLA_KINDS:
         if kv_shards is not None:
@@ -432,3 +468,63 @@ def _recurrent_decode(kind, cfg, p, x, cache, t, kv_shards, shared):
             qkv_delta=delta, **_attn_kwargs(cfg, local=False))
     x, _ = _shared_tail(cfg, p, shared, x, y, attend)
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# whisper's decoder kind: self-attention, cross-attention, gated MLP
+# ---------------------------------------------------------------------------
+
+def _dec_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor, ctx: Ctx):
+    """A ``dec`` layer over the prompt: causal self-attention (the
+    config's ``use_rope``: none for whisper), then cross-attention of
+    ``ln_cross(x)`` over K/V projected from ``ctx.encoder_out`` (no rope,
+    not causal), then the MLP on ``ln2``; each residual sum enters its
+    norm in f32 (:func:`_residual_norm`).  Its cache: the self ring and
+    the cross K/V in bf16."""
+    kw = _attn_kwargs(cfg, local=False)
+    a, kv = attn.attn_apply_full(p["attn"], _norm(cfg, p["ln1"], x),
+                                 positions=ctx.positions,
+                                 cache_capacity=ctx.cache_capacity, **kw)
+    x, h = _residual_norm(cfg, p["ln_cross"], x, a)
+    enc = ctx.encoder_out
+    if enc is None:
+        raise ValueError("a dec layer needs the encoder output "
+                         "(Ctx.encoder_out)")
+    B, Se, _ = enc.shape
+    k = cm.dense(p["cross"]["wk"], enc).reshape(B, Se, cfg.num_kv_heads,
+                                                cfg.head_dim)
+    v = cm.dense(p["cross"]["wv"], enc).reshape(B, Se, cfg.num_kv_heads,
+                                                cfg.head_dim)
+    c, _ = attn.attn_apply_full(p["cross"], h, positions=ctx.positions,
+                                causal=False, kv_override=(k, v),
+                                **dict(kw, use_rope=False))
+    x, n = _residual_norm(cfg, p["ln2"], x, c)
+    x = x + mlp_apply(p["mlp"], n, act=cfg.act)
+    cache = None
+    if kv is not None:
+        cache = {"kv": kv, "cross_k": k.to(torch.bfloat16),
+                 "cross_v": v.to(torch.bfloat16)}
+    return x, None, cache
+
+
+def _dec_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor, cache: PyTree,
+                t: torch.Tensor, kv_shards):
+    """One token of a ``dec`` layer: the self step writes its ring slot in
+    place; the cross step attends over every one of the cache's Se
+    encoder slots (kpos = arange(Se), t = Se), through ``kv_shards``'s
+    path as the self ring does (S must divide Se too, or it raises)."""
+    a, _ = attn.attn_apply_decode(p["attn"], _norm(cfg, p["ln1"], x),
+                                  cache["kv"], t, kv_shards=kv_shards,
+                                  **_attn_kwargs(cfg, local=False))
+    x, h = _residual_norm(cfg, p["ln_cross"], x, a)
+    B = x.shape[0]
+    H, D = cfg.num_heads, cfg.head_dim
+    q = cm.dense(p["cross"]["wq"], h).reshape(B, H, D)
+    Se = cache["cross_k"].shape[1]
+    kpos = torch.arange(Se, device=x.device)
+    t_cross = torch.full((), Se, dtype=torch.int32, device=x.device)
+    o = attn.decode_attend(q, cache["cross_k"], cache["cross_v"], kpos,
+                           t_cross, kv_shards=kv_shards)
+    c = cm.dense(p["cross"]["wo"], o.reshape(B, 1, H * D))
+    x, n = _residual_norm(cfg, p["ln2"], x, c)
+    return x + mlp_apply(p["mlp"], n, act=cfg.act), cache

@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.sparse.formats import SparseTensor
@@ -257,6 +258,25 @@ def rmsnorm(params: PyTree, x: torch.Tensor, *,
     return (x * (1.0 + params["scale"].float())).to(dt)
 
 
+def layernorm_init(b: Builder, dim: int) -> PyTree:
+    return {"scale": b.param((dim,), ("embed_act",), init="zeros"),
+            "bias": b.param((dim,), ("embed_act",), init="zeros")}
+
+
+def layernorm(params: PyTree, x: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32: the mean, then the variance
+    as ``jnp.var`` takes it (the mean of the squared deviations), then
+    ``(1 + scale)`` and ``bias`` (zeros-init is the identity), cast back
+    to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"]) + params["bias"]).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Positional encodings / embeddings
 # ---------------------------------------------------------------------------
@@ -274,6 +294,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(num: int, dim: int) -> np.ndarray:
+    """Whisper's encoder positions (num, dim) f32: sin on the even
+    columns, cos on the odd ones; the reference's numpy, so the same
+    bits."""
+    pos = np.arange(num)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.zeros((num, dim), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
 
 
 def embed_init(b: Builder, vocab: int, dim: int) -> PyTree:

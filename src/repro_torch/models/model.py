@@ -11,10 +11,15 @@ Ported: the decoder families built from the ``attn``, ``local``, ``moe``,
 gemma2, gemma3, deepseek-v2-lite with its ``pattern_prefix`` stage and
 shared experts) and the recurrent ones (zamba2's ``mamba`` and
 ``mamba_shared`` with the model's one shared attention block,
-``params["shared"]``; xlstm's ``mlstm`` and ``slstm``), tied or untied
-embeddings, gemma's scaled embeddings, attention and final logit
-softcaps, sandwich norms, QK-norm and gelu; :func:`check_supported` names
-what is missing for any other config.
+``params["shared"]``; xlstm's ``mlstm`` and ``slstm``), whisper's
+encoder-decoder (``frame_proj`` and sinusoidal positions into the ``enc``
+stages and ``enc_norm``; ``pos_embed`` on the ``dec`` stages, whose
+cross-attention reads the encoder output) and pixtral's vision prefix
+(``vit_proj`` of the batch's ``patches`` before the text embeddings),
+tied or untied embeddings, gemma's scaled embeddings, attention and final
+logit softcaps, sandwich norms, QK-norm, layernorm and gelu: every
+family of the reference.  :func:`check_supported` names what a config
+asks for beyond that.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from repro_torch.models.common import Builder
 from repro_torch.sparse.formats import SparseTensor
 
 PyTree = Any
+POS_EMBED_ROWS = 32768       # the decoder's learned positions (whisper)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -41,24 +47,25 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = [name for name, on in (
         (f"layer kinds other than {', '.join(blk.KINDS)}",
          set(cfg.layer_kinds) - set(blk.KINDS)),
-        ("norm other than rmsnorm", cfg.norm != "rmsnorm"),
+        ("norm other than rmsnorm or layernorm",
+         cfg.norm not in ("rmsnorm", "layernorm")),
         ("activation other than silu or gelu",
          cfg.act not in ("silu", "gelu")),
-        ("encoder-decoder", cfg.is_encoder_decoder),
-        ("vision input", cfg.vit_dim),
     ) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {', '.join(missing)} (whisper's "
-            "encoder-decoder and pixtral's vision prefix are the next "
-            "slice: ROADMAP A item 5)")
+            f"{cfg.name}: not ported: {', '.join(missing)}")
 
 
-def make_stages(cfg: ModelConfig):
-    """Compress the layer-kind sequence into (pattern, repeats) stages."""
-    L, pat = cfg.num_layers, cfg.pattern
+def make_stages(cfg: ModelConfig, num_layers: int | None = None,
+                pattern: tuple[str, ...] | None = None):
+    """Compress the layer-kind sequence into (pattern, repeats) stages;
+    ``num_layers`` and ``pattern`` name another stack than the decoder's
+    (whisper's encoder: ``encoder_layers`` of ``("enc",)``)."""
+    L = cfg.num_layers if num_layers is None else num_layers
+    pat = cfg.pattern if pattern is None else pattern
     stages = []
-    if cfg.pattern_prefix:
+    if pattern is None and cfg.pattern_prefix:
         stages.append((tuple(cfg.pattern_prefix), 1))
         L -= len(cfg.pattern_prefix)
     p = len(pat)
@@ -69,14 +76,33 @@ def make_stages(cfg: ModelConfig):
     return stages
 
 
+def encoder_stages(cfg: ModelConfig):
+    """Whisper's encoder stack as stages (none without an encoder)."""
+    return make_stages(cfg, cfg.encoder_layers, ("enc",)) \
+        if cfg.is_encoder_decoder else []
+
+
+def _stages_init(b: Builder, cfg: ModelConfig, stages) -> list:
+    return [{str(j): blk.block_init(kind, b.stacked(repeats), cfg)
+             for j, kind in enumerate(pattern)}
+            for pattern, repeats in stages]
+
+
 def _build(cfg: ModelConfig, b: Builder) -> PyTree:
     check_supported(cfg)
     p: dict[str, Any] = {"embed": cm.embed_init(b, cfg.vocab_size,
                                                 cfg.d_model)}
-    p["stages"] = [
-        {str(j): blk.block_init(kind, b.stacked(repeats), cfg)
-         for j, kind in enumerate(pattern)}
-        for pattern, repeats in make_stages(cfg)]
+    if cfg.vit_dim:
+        p["vit_proj"] = cm.dense_init(b, cfg.vit_dim, cfg.d_model,
+                                      (None, "embed"))
+    if cfg.is_encoder_decoder:
+        p["frame_proj"] = cm.dense_init(b, cfg.d_model, cfg.d_model,
+                                        ("embed", "embed"))
+        p["pos_embed"] = b.param((POS_EMBED_ROWS, cfg.d_model),
+                                 (None, "embed"), scale=0.02)
+        p["enc_stages"] = _stages_init(b, cfg, encoder_stages(cfg))
+        p["enc_norm"] = blk._norm_init(b, cfg)
+    p["stages"] = _stages_init(b, cfg, make_stages(cfg))
     if "mamba_shared" in cfg.layer_kinds:
         p["shared"] = blk.shared_block_init(b, cfg)
     p["final_norm"] = blk._norm_init(b, cfg)
@@ -169,12 +195,101 @@ def _tokens(params: PyTree, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).long()
 
 
+def _features(params: PyTree, a) -> torch.Tensor:
+    """A batch's ``frames`` / ``patches`` (numpy or a tensor, any float
+    dtype) on the params' device, cast to the compute dtype as the
+    reference casts them."""
+    dev = params["embed"]["table"].device
+    return torch.as_tensor(a, device=dev).to(cm.COMPUTE_DTYPE)
+
+
 def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor
            ) -> torch.Tensor:
     """The bf16 embeddings of ``tokens``, times sqrt(d_model) where the
     config scales them (gemma)."""
     x = cm.embed_lookup(params["embed"], tokens)
     return cm.scale_embed(x, cfg.d_model) if cfg.scale_embed else x
+
+
+def _embed_inputs(cfg: ModelConfig, params: PyTree, batch: dict
+                  ) -> torch.Tensor:
+    """The embedded token rows, after pixtral's image prefix where the
+    batch has ``patches``: ``vit_proj`` of the (B, N, vit_dim) patch
+    embeddings, concatenated before the text, (B, N + S, d)."""
+    x = _embed(cfg, params, _tokens(params, batch["tokens"]))
+    if cfg.vit_dim and "patches" in batch:
+        img = cm.dense(params["vit_proj"],
+                       _features(params, batch["patches"]))
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
+def _stage_stats(cfg: ModelConfig, pattern, sp, repeats: int,
+                 x: torch.Tensor, ctx: Ctx, shared, by_path: dict,
+                 prefix: str) -> torch.Tensor:
+    """One stage of the stats pass: each layer's sliced params registered
+    with a :class:`~repro_torch.core.tape.JitTape` (the shared block
+    with it, at index -1) while its blocks run; each kernel's sums stacked
+    back along the layer axis under ``prefix`` + its path in ``by_path``,
+    the shared block's summed over its invocations.  Returns x."""
+    from repro_torch.core import tape as tape_mod
+    per_layer = []
+    for lp in _unstack(sp, repeats):
+        t = tape_mod.JitTape()
+        t.register_layer(lp, "", 0)
+        if shared is not None:
+            t.register_layer(shared, "", -1)
+        with tape_mod.recording(t):
+            for j, kind in enumerate(pattern):
+                x, _, _ = blk.block_apply_full(kind, cfg, lp[str(j)], x,
+                                               ctx, shared)
+        x = x.to(cm.COMPUTE_DTYPE)
+        per_layer.append(t.stats(0))
+        for path, ss in t.stats(-1).items():
+            key = "['shared']" + path
+            by_path[key] = ss if key not in by_path else by_path[key] + ss
+    for path in per_layer[0]:
+        by_path[prefix + path] = torch.stack([ss[path] for ss in per_layer])
+    return x
+
+
+def _run_encoder(cfg: ModelConfig, params: PyTree, frames, *,
+                 tape=None, stats: dict | None = None) -> torch.Tensor:
+    """Whisper's encoder: ``frame_proj`` of the (B, Se, d) frame
+    embeddings plus the sinusoidal positions, the ``enc`` stages (not
+    causal), ``enc_norm``.  ``tape``: the eager stats tape, each layer
+    registered under its ``['enc_stages'][s]`` path; ``stats``: the jit
+    stats pass's dict, which gains the encoder's stacked sums."""
+    x = cm.dense(params["frame_proj"], _features(params, frames))
+    B, S, _ = x.shape
+    pe = cm.sinusoidal_positions(S, cfg.d_model)
+    x = x + torch.from_numpy(pe).to(x.device, x.dtype)
+    ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S))
+    for s, ((pattern, repeats), sp) in enumerate(zip(
+            encoder_stages(cfg), params["enc_stages"], strict=True)):
+        prefix = f"['enc_stages'][{s}]"
+        if stats is not None:
+            x = _stage_stats(cfg, pattern, sp, repeats, x, ctx, None, stats,
+                             prefix)
+            continue
+        for i, lp in enumerate(_unstack(sp, repeats)):
+            if tape is not None:
+                tape.register_layer(lp, prefix, i)
+            x, _, _ = _layer_apply(cfg, pattern, lp, x, ctx)
+    return blk._norm(cfg, params["enc_norm"], x)
+
+
+def _decoder_inputs(cfg: ModelConfig, params: PyTree, batch: dict, *,
+                    tape=None, stats: dict | None = None):
+    """(the embedded inputs, the encoder output or None): for an
+    encoder-decoder model the encoder runs on ``batch["frames"]`` and the
+    decoder's rows take ``pos_embed[:S]``."""
+    x = _embed_inputs(cfg, params, batch)
+    if not cfg.is_encoder_decoder:
+        return x, None
+    enc = _run_encoder(cfg, params, batch["frames"], tape=tape, stats=stats)
+    pe = params["pos_embed"][:x.shape[1]].to(x.dtype)
+    return x + pe[None], enc
 
 
 def _layer_apply(cfg: ModelConfig, pattern, lp: PyTree, x: torch.Tensor,
@@ -191,12 +306,14 @@ def _layer_apply(cfg: ModelConfig, pattern, lp: PyTree, x: torch.Tensor,
     return x.to(cm.COMPUTE_DTYPE), aux_total, out
 
 
-def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
-           unroll: bool = False, remat: bool = False):
-    """Embed + every layer: (hidden states before the final norm, summed
-    MoE aux loss, caches).  ``unroll``: register every layer's sliced
-    params, under its stage's path and its layer index, with the eager
-    stats tape if one records (the reference's unrolled tape pass).
+def _trunk(cfg: ModelConfig, params: PyTree, batch: dict,
+           cache_capacity: int, unroll: bool = False, remat: bool = False):
+    """Embed (and the encoder, or the image prefix) + every decoder layer:
+    (hidden states before the final norm, summed MoE aux loss, caches).
+    The encoder never runs under remat, as in the reference.
+    ``unroll``: register every layer's sliced params, under its stage's
+    path and its layer index, with the eager stats tape if one records
+    (the reference's unrolled tape pass).
     ``remat``: each layer runs under ``torch.utils.checkpoint`` (the
     reference's ``jax.checkpoint`` of its scanned layer body): the backward
     keeps only the layer's input and recomputes the rest, with the same
@@ -207,11 +324,10 @@ def _trunk(cfg: ModelConfig, params: PyTree, tokens, cache_capacity: int,
         tape = tape_mod.current_tape()
         if tape is not None:      # unstacked leaves
             tape.register_layer(params, "", -1)
-    tokens = _tokens(params, tokens)
-    x = _embed(cfg, params, tokens)
+    x, enc = _decoder_inputs(cfg, params, batch, tape=tape)
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
-    ctx = Ctx(positions=pos, cache_capacity=cache_capacity)
+    ctx = Ctx(positions=pos, cache_capacity=cache_capacity, encoder_out=enc)
     shared = params.get("shared")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
@@ -251,8 +367,8 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, *,
     ``remat``: recompute each layer in the backward (:func:`_trunk`); off
     when ``cache_capacity`` is set, as in the reference.  ``unroll``: the
     eager stats tape's pass (:func:`_trunk`)."""
-    x, aux, caches = _trunk(cfg, params, batch["tokens"], cache_capacity,
-                            unroll, remat=remat and not cache_capacity)
+    x, aux, caches = _trunk(cfg, params, batch, cache_capacity, unroll,
+                            remat=remat and not cache_capacity)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), aux, caches
 
@@ -270,43 +386,30 @@ def stats_sumsq(cfg: ModelConfig, params: PyTree, batch: dict) -> PyTree:
     each layer's tape at index -1, as the reference's scan body does, and
     summed over every invocation under ``['shared']`` paths); leaves the
     pass does not project through (embeddings, heads, routers, norms, the
-    LoRA adapters) come back None.  Accumulate over batches and sqrt to
-    get ||X_j||_2.
+    LoRA adapters, the frame and patch projections) come back None.
+    Whisper's encoder stages come first, under ``['enc_stages'][s]``
+    paths.  Accumulate over batches and sqrt to get ||X_j||_2.
     """
-    from repro_torch.core import tape as tape_mod
-    tokens = _tokens(params, batch["tokens"])
-    x = _embed(cfg, params, tokens)
-    B, S, _ = x.shape
-    ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S))
-    shared = params.get("shared")
     by_path: dict[str, torch.Tensor] = {}
+    x, enc = _decoder_inputs(cfg, params, batch, stats=by_path)
+    B, S, _ = x.shape
+    ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S),
+              encoder_out=enc)
+    shared = params.get("shared")
     for s, ((pattern, repeats), sp) in enumerate(zip(
             make_stages(cfg), params["stages"], strict=True)):
-        per_layer = []
-        for lp in _unstack(sp, repeats):
-            t = tape_mod.JitTape()
-            t.register_layer(lp, "", 0)
-            if shared is not None:
-                t.register_layer(shared, "", -1)
-            with tape_mod.recording(t):
-                for j, kind in enumerate(pattern):
-                    x, _, _ = blk.block_apply_full(kind, cfg, lp[str(j)], x,
-                                                   ctx, shared)
-            x = x.to(cm.COMPUTE_DTYPE)
-            per_layer.append(t.stats(0))
-            for path, ss in t.stats(-1).items():
-                key = "['shared']" + path
-                by_path[key] = ss if key not in by_path else by_path[key] + ss
-        for path in per_layer[0]:
-            by_path[f"['stages'][{s}]" + path] = torch.stack(
-                [ss[path] for ss in per_layer])
+        x = _stage_stats(cfg, pattern, sp, repeats, x, ctx, shared, by_path,
+                         f"['stages'][{s}]")
     return tree.map_with_path(lambda path, _: by_path.get(path), params)
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, *,
-                device) -> list:
+                device, enc_len: int = 0) -> list:
+    """Zeroed caches; ``enc_len``: the cross-attention slots of a ``dec``
+    layer (the encoder's length)."""
     return [{str(j): blk.block_init_cache(k, cfg, batch, capacity,
-                                          device=device, lead=(repeats,))
+                                          device=device, lead=(repeats,),
+                                          enc_len=enc_len)
              for j, k in enumerate(pattern)}
             for pattern, repeats in make_stages(cfg)]
 
@@ -317,7 +420,7 @@ def prefill(cfg: ModelConfig, params: PyTree, batch: dict, *,
 
     Only the last position goes through the final norm and unembedding
     (both are row-wise, so the values are the reference's)."""
-    x, _, caches = _trunk(cfg, params, batch["tokens"], cache_capacity)
+    x, _, caches = _trunk(cfg, params, batch, cache_capacity)
     x = blk._norm(cfg, params["final_norm"], x[:, -1:])
     return _unembed(cfg, params, x)[:, 0], caches
 
@@ -336,12 +439,17 @@ def state_leaves(cfg: ModelConfig, caches: list) -> list[torch.Tensor]:
     return out
 
 
-def cache_lengths(cfg: ModelConfig, capacity: int) -> set[int]:
+def cache_lengths(cfg: ModelConfig, capacity: int,
+                  enc_len: int = 0) -> set[int]:
     """The distinct ring lengths of ``cfg``'s layers at ``capacity``: KV
-    rings (the shared block's too) and MLA's latent rings alike; empty for
-    a model with no attention (xlstm)."""
-    return {n for n in (blk.cache_length(k, cfg, capacity)
-                        for k in cfg.layer_kinds) if n is not None}
+    rings (the shared block's too) and MLA's latent rings alike, and a
+    ``dec`` layer's ``enc_len`` cross slots when given; empty for a model
+    with no attention (xlstm)."""
+    out = {n for n in (blk.cache_length(k, cfg, capacity)
+                       for k in cfg.layer_kinds) if n is not None}
+    if enc_len and "dec" in cfg.layer_kinds:
+        out.add(enc_len)
+    return out
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
@@ -358,6 +466,8 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     if t.dim() == 0:
         t = t.expand(B)
+    if cfg.is_encoder_decoder:      # each row's learned position
+        x = x + params["pos_embed"][t.long()][:, None].to(x.dtype)
     # an engine surface's trace counts each (stage, pattern position) once,
     # as the reference's scanned layer body is traced once
     trace = ksh.trace_sites()
@@ -388,7 +498,10 @@ def verify_step(cfg: ModelConfig, params: PyTree, tokens, caches: list, t):
     :func:`decode_step` one at a time would, but the layer ops run once
     for all S positions.  Writes the S ring rows of every row of
     ``caches`` in place; the caller guarantees max(t) + S <= capacity (no
-    ring wrap).  Returns (logits (B, S, V) f32, caches)."""
+    ring wrap).  Returns (logits (B, S, V) f32, caches).  An
+    encoder-decoder model raises, as the reference asserts."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name}: spec verify is decoder-only")
     tokens = _tokens(params, tokens)
     x = _embed(cfg, params, tokens)
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)

@@ -14,13 +14,16 @@ def lm_loss(cfg: ModelConfig, params: Any, batch: dict, *,
             remat: bool = False, aux_weight: float = 0.01,
             unroll: bool = False):
     """Next-token cross entropy over f32 log-softmax.  batch["tokens"]:
-    (B, S); optional batch["mask"]: (B, S) loss weights.  Returns
+    (B, S); optional batch["mask"]: (B, S) loss weights; a vision batch's
+    image-prefix positions take no loss.  Returns
     (loss, {"nll", "aux"}), device scalars.  ``remat``: recompute each
     layer in the backward; ``unroll``: the eager stats tape's pass (both
     ``models.model.forward``)."""
     logits, aux, _ = M.forward(cfg, params, batch, remat=remat,
                                unroll=unroll)
     tokens = M._tokens(params, batch["tokens"])
+    if cfg.vit_dim and "patches" in batch:  # the image prefix: no loss
+        logits = logits[:, -tokens.shape[1]:]
     targets = tokens[:, 1:]
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]

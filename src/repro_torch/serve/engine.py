@@ -30,10 +30,13 @@ S``) shards the cache capacity: ``flash_decode_partial`` over S capacity
 shards plus the combine kernel, on one card.  S must divide every cache
 length, or construction raises; so does any set ``kv_shards`` on a model
 with MLA layers, whose decode has no decode-attention kernel, or with no
-attention at all (xlstm).  ``ServeEngine.from_artifact`` builds the sparse
-engine straight from a saved mask bank.  Request validation happens
-at ``submit()``: an empty prompt, a prompt at or over cache capacity, or
-``max_tokens <= 0`` never claims a slot.
+attention at all (xlstm).  An encoder-decoder model (whisper) is refused,
+as the reference's engine asserts, and so by the fleet and spec that
+build on it; pixtral serves text-only (its prefill takes no
+``patches``), as in the reference.  ``ServeEngine.from_artifact`` builds
+the sparse engine straight from a saved mask bank.  Request validation
+happens at ``submit()``: an empty prompt, a prompt at or over cache
+capacity, or ``max_tokens <= 0`` never claims a slot.
 
 The step functions (decode, the k-token draft loop and the k-token
 teacher-forced verify of ``serve.spec``, bucketed prefill, the slot write)
@@ -191,6 +194,11 @@ class EngineFns:
         if decode_mode not in ("fused", "vmap"):
             raise ValueError(f"decode_mode {decode_mode!r}: 'fused' or "
                              "'vmap'")
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name}: the engine is decoder-only, as the "
+                "reference's: an encoder-decoder model serves through "
+                "launch.serve's generate (its prefill runs the encoder)")
         check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity),
                         cfg.layer_kinds)
         self.cfg = cfg

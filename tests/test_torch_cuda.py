@@ -1283,3 +1283,100 @@ def test_obs_recorder_on_graph_engines(cuda_device, recorder, monkeypatch,
         assert d.fns.capture_counts() == {"draft_2": 1}
         assert v.fns.capture_counts() == {"verify_2": 1}
     assert captured and not any(captured)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("whisper-small", None),
+                                  ("whisper-small", 1),
+                                  ("whisper-small", 4),
+                                  ("pixtral-12b", None),
+                                  ("pixtral-12b", 1)], ids=str)
+def test_encdec_and_vision_decode_card_matches_cpu(cuda_device, case):
+    """The smoke whisper (the encoder over stub frames, the decoder's
+    self ring and cross cache) and pixtral (the image prefix) 2:4 through
+    the launcher's loop on the card and on the CPU: teacher-forced logits
+    within 8 bf16 ulps of each row's max, greedy streams equal, every
+    projection through ``nm_matmul`` and every decode attention through
+    the ``kv_shards`` path's kernels, a decode step replayed from a CUDA
+    graph == eager."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.calibrate import baseline_masks
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_partial)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.sparse.apply import sparsify_params
+    arch, kv_shards = case
+    cfg = get_smoke_config(arch)
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    masks = baseline_masks("magnitude", p_cpu, tree.tree_map(
+        lambda _: None, p_cpu), 0.5, mode="nm")
+    p_cpu = M.serving_params(sparsify_params(
+        p_cpu, masks, axes=M.param_axes(cfg), idx_bits=2,
+        dtype=torch.bfloat16))
+    p_card = tree.to_device(p_cpu, cuda_device)
+    batch = batches_for(cfg, n=1, batch=2, seq=16, split="valid")[0]
+    gen = 8
+    off = cfg.num_image_tokens
+    C = 16 + gen + off
+    runs = {}
+    for dev, params in (("cpu", p_cpu), (cuda_device, p_card)):
+        nm0 = nm_matmul.launches
+        fd0 = flash_decode.launches + flash_decode_partial.launches
+        with torch.inference_mode():
+            logits, caches = M.prefill(cfg, params, batch, cache_capacity=C)
+            out = [logits.float().cpu()]
+            tok = logits.argmax(-1) if dev == "cpu" else \
+                runs["cpu"][1][0].to(cuda_device)
+            fed = [tok.cpu()]
+            for i in range(gen - 1):
+                logits, caches = M.decode_step(cfg, params, tok, caches,
+                                               16 + off + i,
+                                               kv_shards=kv_shards)
+                out.append(logits.float().cpu())
+                tok = logits.argmax(-1) if dev == "cpu" else \
+                    runs["cpu"][1][i + 1].to(cuda_device)
+                fed.append(tok.cpu())
+        runs["cpu" if dev == "cpu" else "card"] = (out, fed, caches)
+        if dev != "cpu":
+            per_fwd = {"whisper-small": (7 * cfg.encoder_layers
+                                         + 11 * cfg.num_layers,
+                                         9 * cfg.num_layers),
+                       "pixtral-12b": (7 * cfg.num_layers,
+                                       7 * cfg.num_layers)}[arch]
+            assert nm_matmul.launches - nm0 == per_fwd[0] + per_fwd[1] * (
+                gen - 1)
+            attn = (2 if cfg.is_encoder_decoder else 1) * cfg.num_layers
+            assert (flash_decode.launches + flash_decode_partial.launches
+                    - fd0) == (attn * (gen - 1) if kv_shards else 0)
+    for i, (a, b) in enumerate(zip(runs["cpu"][0], runs["card"][0])):
+        tol = 8 * 2 ** -8 * a.abs().amax(-1)
+        assert bool(((b - a).abs().amax(-1) <= tol).all()), i
+    want = generate(cfg, p_cpu, batch, gen)[0]
+    got = generate(cfg, p_card, batch, gen, kv_shards=kv_shards)[0]
+    assert torch.equal(got, want)
+    # one decode step captured in a CUDA graph == the eager step
+    caches = runs["card"][2]
+    tok = runs["card"][1][-1].to(cuda_device)
+    t = torch.full((2,), 16 + off + gen, dtype=torch.int32,
+                   device=cuda_device)
+
+    def step():
+        return M.decode_step(cfg, p_card, tok, caches, t,
+                             kv_shards=kv_shards)[0]
+    with torch.inference_mode():
+        want_l = step().clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got_l = step()
+        got_l.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(got_l, want_l)

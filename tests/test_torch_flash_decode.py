@@ -37,10 +37,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_params_to_torch
+from _torch_port import (_jax_combine, _want_calls,  # noqa: F401
+                         jax_kv_shards, jax_params_to_torch, port_calls)
 from repro.configs.base import get_smoke_config as jax_smoke_config
 from repro.core import calibrate as jcal
-from repro.kernels import shard as jshard
 from repro.kernels.flash_decode import (flash_decode as jax_flash_decode,
                                         flash_decode_partial as
                                         jax_flash_decode_partial,
@@ -195,17 +195,6 @@ def test_wide_shapes_partial_and_combine_match_jax(dims, dtype):
                      jax_flash_decode_ref(jq, jk, jv, jb), dtype)
 
 
-def _jax_combine(parts, dtype):
-    """shard.py:327-330 over a list of per-shard (acc, m, l): pmax, then
-    psum of (l * corr, acc * corr), then acc / max(l, 1e-30)."""
-    mg = parts[0][1]
-    for _, m, _ in parts[1:]:
-        mg = jnp.maximum(mg, m)
-    l_tot = sum(l * jnp.exp(m - mg) for _, m, l in parts)
-    acc_tot = sum(acc * jnp.exp(m - mg) for acc, m, _ in parts)
-    return (acc_tot / jnp.maximum(l_tot, 1e-30)).astype(dtype)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shards", [2, 4])
 def test_decode_attend_sharded_matches_jax_combine(shards, dtype):
@@ -232,66 +221,6 @@ def test_decode_attend_sharded_matches_jax_combine(shards, dtype):
 # ---------------------------------------------------------------------------
 # The model and engine paths against JAX under the stand-in
 # ---------------------------------------------------------------------------
-
-@pytest.fixture
-def jax_kv_shards(monkeypatch):
-    """Install the stand-in for the reference's capacity-sharded decode
-    with S shards: ``set_shards(S)`` returns the list its traces append
-    to, one entry per decode attention traced."""
-    def set_shards(S):
-        traced = []
-
-        def kv_shard_axes(B, C):
-            # the port shards B = 1 too (see kernels/shard.py)
-            return ("model",) if C % S == 0 else ()
-
-        def decode_attend_sharded(qg, cache_k, cache_v, ok, *, axes, scale):
-            assert axes == ("model",)
-            assert scale == qg.shape[-1] ** -0.5   # the kernels' default
-            C = cache_k.shape[1]
-            traced.append(C)
-            bias = jnp.where(ok, 0.0, NEG).astype(jnp.float32)
-            if S == 1:
-                return jax_flash_decode(qg, cache_k, cache_v, bias, bc=C,
-                                        interpret=True)
-            n = C // S
-            parts = [jax_flash_decode_partial(
-                qg, cache_k[:, s:s + n], cache_v[:, s:s + n],
-                bias[:, s:s + n], bc=n, interpret=True)
-                for s in range(0, C, n)]
-            return _jax_combine(parts, qg.dtype)
-
-        monkeypatch.setattr(jshard, "kv_shard_axes", kv_shard_axes)
-        monkeypatch.setattr(jshard, "decode_attend_sharded",
-                            decode_attend_sharded)
-        return traced
-    return set_shards
-
-
-@pytest.fixture
-def port_calls(monkeypatch):
-    """Calls the port's decode attention makes to each kernel wrapper
-    (their CPU runs add nothing to ``.launches``)."""
-    calls = {}
-
-    def counting(name, fn):
-        def call(*a, **kw):
-            calls[name] = calls.get(name, 0) + 1
-            return fn(*a, **kw)
-        return call
-
-    for mod, name in ((tattn, "flash_decode"),
-                      (tshard, "flash_decode_partial"),
-                      (tshard, "combine_partials")):
-        monkeypatch.setattr(mod, name, counting(name, getattr(mod, name)))
-    return calls
-
-
-def _want_calls(kv_shards, n):
-    if kv_shards == 1:
-        return {"flash_decode": n}
-    return {"flash_decode_partial": n, "combine_partials": n}
-
 
 def _ulps(want, n=4) -> float:
     return n * 2 ** -8 * float(np.abs(np.asarray(want, np.float32)).max())

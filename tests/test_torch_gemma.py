@@ -116,8 +116,10 @@ def test_check_supported_still_refuses_the_rest(change, missing):
 
 
 # features the cases above name that a later slice ported: shared
-# experts (deepseek's), the mamba kind (zamba2's)
-PORTED_SINCE = {"shared experts", "layer kinds"}
+# experts (deepseek's), the mamba kind (zamba2's), layernorm, the
+# encoder-decoder (whisper's) and the vision input (pixtral's)
+PORTED_SINCE = {"shared experts", "layer kinds", "norm other than rmsnorm",
+                "encoder-decoder", "vision input"}
 
 
 def test_tiny_families_are_the_benchmarks():

@@ -1,6 +1,7 @@
 """repro_torch stands alone: it imports neither jax nor the JAX package,
 runs its CPU path with both unimportable (llama from the committed bank,
-2:4 mixtral smoke), and its entry points refuse to run silently on the CPU
+2:4 mixtral smoke, whisper's and pixtral's launcher loop), and its entry
+points refuse to run silently on the CPU
 when no card is present."""
 import ast
 import os
@@ -69,6 +70,14 @@ def test_cpu_serve_with_jax_and_repro_unimportable():
         rids = [eng.submit(list(range(1, 21)), 4), eng.submit([7, 8], 3)]
         out = eng.run()
         assert [len(out[r]) for r in rids] == [4, 3], out
+        # the encoder-decoder and the vision prefix through the launcher
+        from repro_torch.data.synthetic import batches_for
+        from repro_torch.launch.serve import generate
+        for arch in ("whisper-small", "pixtral-12b"):
+            cfg = get_smoke_config(arch)
+            params = M.init_params(cfg, 0, device="cpu")
+            batch = batches_for(cfg, n=1, batch=2, seq=8, split="valid")[0]
+            assert tuple(generate(cfg, params, batch, 3)[0].shape) == (2, 3)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

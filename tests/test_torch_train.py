@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import f64, jax_flat, jax_params_to_torch, tiny_model
+from _torch_port import global_rel, jax_params_to_torch, tiny_model
 from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.base import SHAPE_CELLS as JAX_CELLS
 from repro.configs.base import PruneConfig as JaxPruneConfig
@@ -71,18 +71,6 @@ def model(request):
         jcfg, cfg = jax_smoke_config(name), get_smoke_config(name)
         jp = JM.init_params(jcfg, jax.random.key(0))
     return name, jcfg, cfg, jax.device_get(jp)
-
-
-def _global_rel(jt, tt, base=None) -> float:
-    """||t - j|| / ||j - base|| over every leaf (base 0 by default)."""
-    tf = dict(tree.flatten_with_path(tt))
-    bf = jax_flat(base) if base is not None else {}
-    num = den = 0.0
-    for path, jv in jax_flat(jt).items():
-        j, t = f64(jv), f64(tf[path])
-        num += float(np.sum((t - j) ** 2))
-        den += float(np.sum((j - (f64(bf[path]) if bf else 0)) ** 2))
-    return float(np.sqrt(num / den))
 
 
 # each option on and off once per model
@@ -116,9 +104,9 @@ def test_train_step_matches_reference(model, accum, remat, cast_bf16):
                                    rtol=2.0 ** -22)
     assert int(ts.count) == int(js.count) == STEPS
     assert all(x.dtype == torch.float32 for x in tree.leaves(tp))
-    rel = _global_rel(jp, tp)
-    upd = _global_rel(jp, tp, base=jp0)
-    moments = max(_global_rel(js.mu, ts.mu), _global_rel(js.nu, ts.nu))
+    rel = global_rel(jp, tp)
+    upd = global_rel(jp, tp, base=jp0)
+    moments = max(global_rel(js.mu, ts.mu), global_rel(js.nu, ts.nu))
     print(f"{name} accum={accum} remat={remat} cast_bf16={cast_bf16}: "
           f"params {rel:.2e} (of the update {upd:.3f}), moments "
           f"{moments:.2e}")

@@ -55,7 +55,7 @@ from repro.optim import losses as jlosses
 from repro.serve import engine as jengine
 from repro.serve import spec as jspec
 from repro_torch import tree
-from repro_torch.configs.base import (ModelConfig, PruneConfig, get_config,
+from repro_torch.configs.base import (PruneConfig, get_config,
                                       get_smoke_config)
 from repro_torch.core import calibrate as tcal
 from repro_torch.core import mirror as tmirror
@@ -94,8 +94,9 @@ def _ulps(want, n=ULPS) -> float:
 def test_config_structure_and_support():
     """The port's config, params and axes trees against the reference's
     (shapes by ``jax.eval_shape``: nothing drawn); ``check_supported``
-    takes both recurrent families, full and smoke, and still refuses
-    whisper and pixtral."""
+    takes both recurrent families and the last two, whisper and pixtral,
+    full and smoke, whose config, shapes and axes trees are the
+    reference's too; it still refuses what no family has."""
     for full in (True, False):
         cfg = get_config(ARCH) if full else get_smoke_config(ARCH)
         jcfg = jax_config(ARCH) if full else _jax_smoke(ARCH)
@@ -104,10 +105,20 @@ def test_config_structure_and_support():
         TM.check_supported(cfg)
         TM.check_supported(get_config("xlstm-125m") if full
                            else get_smoke_config("xlstm-125m"))
-    for arch in ("whisper-small", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            TM.check_supported(ModelConfig(**dataclasses.asdict(
-                jax_config(arch))))
+        for arch in ("whisper-small", "pixtral-12b"):
+            other = get_config(arch) if full else get_smoke_config(arch)
+            jother = jax_config(arch) if full else _jax_smoke(arch)
+            assert dataclasses.asdict(other) == dataclasses.asdict(jother)
+            TM.check_supported(other)
+            shapes = jax.eval_shape(lambda: JM.init_params(
+                jother, jax.random.key(0)))
+            assert dict(tree.flatten_with_path(TM.param_shapes(other))) \
+                == {p: tuple(v.shape) for p, v in jax_flat(shapes).items()}
+            assert dict(tree.flatten_with_path(TM.param_axes(other))) \
+                == jax_flat(JM.param_axes(jother))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TM.check_supported(dataclasses.replace(get_smoke_config(ARCH),
+                                               norm="groupnorm"))
     cfg, jcfg = get_config(ARCH), jax_config(ARCH)
     shapes = jax.eval_shape(lambda: JM.init_params(jcfg,
                                                    jax.random.key(0)))
