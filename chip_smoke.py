@@ -237,7 +237,20 @@ result line):
               smoke configs card vs this host's CPU (the launcher's streams,
               pixtral's engine, whisper's engine refused) and a short
               whisper wanda 2:4 calibration.
-16. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+16. train_families - the train step (``launch.steps.make_train_step``,
+              AdamW, remat on) at the published widths of the families
+              phase 9 does not train: gemma3-1b (6 of 26 layers, phase
+              10's cut), deepseek-v2-lite-16b (2 of 27: the ``mla_dense``
+              and one ``mla_moe`` with its 64 experts), zamba2-7b (6 of
+              81: 5 ``mamba`` + 1 ``mamba_shared``), xlstm-125m whole and
+              whisper-small whole (128 frames + 128 tokens, the train
+              cell's split); 2 steps each of 2 x 256 tokens from random
+              weights (seed 0): every loss, grad norm and updated leaf
+              finite, the second loss, each step's fenced ms and the peak
+              memory; then each smoke config's step on the card against
+              the same step on this host's CPU at the CPU tests'
+              tolerances (ROADMAP R14).  No hand-written kernel runs here.
+17. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -4751,7 +4764,8 @@ def calibration_card_vs_cpu(torch, dev, cfg, p_cpu, launches: dict,
                 stats_err = max(
                     float((a.cpu() - b).norm() / b.norm())
                     for a, b in zip(tree.leaves(own),
-                                    tree.leaves(on["cpu"].stats))
+                                    tree.leaves(on["cpu"].stats),
+                                    strict=True)
                     if b is not None)
                 check(stats_err <= 2e-2, f"{cfg.name} stats card vs CPU: a "
                       f"leaf {stats_err:.2e} apart (relative Frobenius), "
@@ -6094,6 +6108,153 @@ def phase_encdec_vision(torch, dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the train step on the families phase 9 does not train
+# ---------------------------------------------------------------------------
+
+# (arch, layers trained): the published widths, cut in depth only (None:
+# whole); whisper's 12 + 12 layers whole over the train cell's split
+TRAIN_FAMILIES = (("gemma3-1b", 6), (DEEPSEEK, 2), (ZAMBA, 6),
+                  (XLSTM, None), (WHISPER, None))
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_ROWS, TRAIN_FAMILY_TOKENS = 2, 2, 256
+# tests/test_torch_train_families.py's tolerances (ROADMAP R14): loss,
+# grad_norm, params against the other's, of the other's update, moments
+R14_DENSE = dict(loss=2e-3, grad_norm=1e-2, params=2e-4, update=0.12,
+                 moments=2e-2)
+R14_MOE = dict(loss=1e-2, grad_norm=3e-2, params=2e-4, update=0.25,
+               moments=0.2)
+# zamba2's random-weight smoke model: the reference's own eager step is
+# 0.206 of the update from its jitted one (tests/torch_port_evidence.py
+# spread), so R14's dense 0.12 does not hold for the reference itself
+R14_ZAMBA = dict(R14_DENSE, update=0.25)
+# the CPU tests' (accumulation, remat) of each family's smoke step
+TRAIN_SMOKE = {"gemma3-1b": (2, False), DEEPSEEK: (2, True),
+               ZAMBA: (1, True), XLSTM: (1, False), WHISPER: (2, True)}
+
+
+def _rel_norm(a: list, b: list, base: list | None = None) -> float:
+    """||a - b|| / ||b - base|| over paired lists of CPU leaves (base 0)."""
+    num = den = 0.0
+    for x, y, z in zip(a, b, base or [None] * len(b), strict=True):
+        y = y.double()
+        num += float(((x.double() - y) ** 2).sum())
+        den += float(((y if z is None else y - z.double()) ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def train_family_card(torch, dev, card: str, arch: str, layers) -> dict:
+    """Two steps of one family at its published widths on the card."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    # whisper: the encoder takes half a train cell's tokens as frames
+    seq = TRAIN_FAMILY_TOKENS // 2 if cfg.is_encoder_decoder \
+        else TRAIN_FAMILY_TOKENS
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in batches_for(cfg, n=TRAIN_FAMILY_STEPS,
+                                    batch=TRAIN_FAMILY_ROWS, seq=seq,
+                                    split="train")]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device=dev)
+    ostate = opt.adamw_init(params)
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    step = make_train_step(cfg, opt.AdamWConfig(
+        lr=3e-4, total_steps=TRAIN_FAMILY_STEPS, warmup_steps=1), remat=True)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    losses, norms, ms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, ostate, m = step(params, ostate, b)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    bad = [path for path, x in tree.flatten_with_path(params)
+           if not bool(torch.isfinite(x).all())]
+    check(all(map(math.isfinite, losses + norms)) and not bad,
+          f"{arch} training on the card: losses {losses}, grad norms "
+          f"{norms}, non-finite leaves {bad[:5]}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"  [{card}] {arch} ({cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder layers"
+             if cfg.is_encoder_decoder else "")
+          + f", {n_params / 1e9:.3f} B params): {TRAIN_FAMILY_STEPS} steps "
+          f"of {TRAIN_FAMILY_ROWS} x "
+          + (f"({seq} frames + {seq} tokens)" if cfg.is_encoder_decoder
+             else f"{seq} tokens") + ", "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)} (second "
+          f"{losses[-1]:.4f}), grad norms "
+          f"{', '.join(f'{x:.3f}' for x in norms)}; step ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)} (fenced; the first with "
+          f"the allocator's growth); peak {peak:.2f} GiB; weights made in "
+          f"{init_s:.1f} s")
+    del params, ostate, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "params_b": n_params / 1e9,
+            "losses": losses, "grad_norms": norms, "step_ms": ms,
+            "peak_gib": peak, "init_s": init_s}
+
+
+def train_smoke_card_vs_cpu(torch, dev, arch: str) -> dict:
+    """One step of the smoke config (4 x 32 tokens, the CPU tests'
+    accumulation and remat) on the card and on this host's CPU, from the
+    same params and batch: R14's tolerances."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    cfg = get_smoke_config(arch)
+    accum, remat = TRAIN_SMOKE[arch]
+    tol = {DEEPSEEK: R14_MOE, ZAMBA: R14_ZAMBA}.get(arch, R14_DENSE)
+    p0 = M.init_params(cfg, 0, device="cpu")
+    b = batches_for(cfg, n=1, batch=4, seq=32, split="train")[0]
+    step = make_train_step(cfg, opt.AdamWConfig(lr=3e-4, total_steps=1,
+                                                warmup_steps=1),
+                           accum=accum, remat=remat)
+    out = {}
+    for d in ("cpu", dev):
+        params = tree.tree_map(torch.clone, tree.to_device(p0, d))
+        ostate = opt.adamw_init(params)
+        params, ostate, m = step(params, ostate, b)
+        out["card" if d is dev else "cpu"] = (
+            float(m["loss"]), float(m["grad_norm"]),
+            tree.leaves(tree.to_device(params, "cpu")),
+            tree.leaves(tree.to_device(ostate.mu, "cpu"))
+            + tree.leaves(tree.to_device(ostate.nu, "cpu")))
+    (lc, gc_, pc, mc), (lh, gh, ph, mh) = out["card"], out["cpu"]
+    got = {"loss": abs(lc - lh) / abs(lh), "grad_norm": abs(gc_ - gh) / gh,
+           "params": _rel_norm(pc, ph),
+           "update": _rel_norm(pc, ph, tree.leaves(p0)),
+           "moments": _rel_norm(mc, mh)}
+    print(f"  {arch} smoke (accum {accum}, remat {remat}): card vs this "
+          f"host's CPU " + ", ".join(f"{k} {v:.2e} (tol {tol[k]:g})"
+                                     for k, v in got.items()))
+    for k, v in got.items():
+        check(v <= tol[k], f"{arch} smoke train step, card vs CPU: {k} "
+              f"{v:.3e} past {tol[k]}")
+    return got
+
+
+def phase_train_families(torch, dev, card: str) -> dict:
+    """Phase 16: see the module docstring."""
+    out = {arch: train_family_card(torch, dev, card, arch, layers)
+           for arch, layers in TRAIN_FAMILIES}
+    out["smoke"] = {arch: train_smoke_card_vs_cpu(torch, dev, arch)
+                    for arch, _ in TRAIN_FAMILIES}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6108,7 +6269,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/16] device")
+    print("[1/17] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -6120,7 +6281,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/16] build")
+    print("[2/17] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -6134,7 +6295,7 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/16] kernels against their plain versions [{card}]")
+    print(f"[3/17] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -6163,14 +6324,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/16] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/17] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/16] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/17] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -6178,7 +6339,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/16] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/17] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -6187,7 +6348,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/16] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/17] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -6195,7 +6356,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/16] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/17] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -6207,7 +6368,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/16] training: the launcher at full width, its resume, the "
+    print(f"[9/17] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -6216,7 +6377,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/16] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/17] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -6225,12 +6386,12 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/16] committed mask bank at smoke width, card vs CPU")
+    print("[11/17] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/16] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+    print(f"[12/17] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
           f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
           f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -6240,7 +6401,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/16] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/17] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -6253,7 +6414,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[14/16] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
+    print(f"[14/17] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
           f"layers: Mamba2 + the LoRA-shared attention, decode attention at "
           f"G 1, D 112) "
           f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
@@ -6265,7 +6426,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[15/16] the last two families: {WHISPER} whole (12 encoder "
+    print(f"[15/17] the last two families: {WHISPER} whole (12 encoder "
           f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, decode "
           f"attention at G 1, D 64 on its self ring and cross cache) and "
           f"{PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the 256-token vision "
@@ -6277,7 +6438,18 @@ def main() -> int:
     t_encdec = time.perf_counter() - t0
     print(f"  phase took {t_encdec:.1f} s")
 
-    print("[16/16] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[16/17] the train step at the published widths of gemma3-1b (6 "
+          f"of 26 layers), {DEEPSEEK} (2 of 27), {ZAMBA} (6 of 81), "
+          f"{XLSTM} and {WHISPER} whole, then each smoke config card vs CPU "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    trainf = phase_train_families(torch, dev, card)
+    t_trainf = time.perf_counter() - t0
+    print(f"  phase took {t_trainf:.1f} s")
+
+    print("[17/17] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
               DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM],
@@ -6412,7 +6584,7 @@ def main() -> int:
           f"{t_gemma:.1f} s, the deepseek phase {t_deep:.1f} s, the "
           f"recorder's phase {t_obs:.1f} s, the recurrent phase "
           f"{t_rec:.1f} s, the encoder-decoder and vision phase "
-          f"{t_encdec:.1f} s)")
+          f"{t_encdec:.1f} s, the train-families phase {t_trainf:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -6487,6 +6659,8 @@ def main() -> int:
             "pinned": {k: v for k, v in eng["pinned"].items()
                        if k != "free_by_depth"}},
         "smoke": {k: v for k, v in encdec["smoke"].items()}}}))
+    # phase 16's training, on a line of its own
+    print(json.dumps({"train_families": {**trainf, "s": t_trainf}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,14 @@
 
 A step takes and returns the reference's values; where the reference's
 launcher donates the params and optimizer state to a jitted step, the
-train step here updates them in place.  The reference's
-``ShapeDtypeStruct`` input specs (``token_specs``, ``cache_specs``,
-``input_specs``) serve its static analysis and come with ROADMAP A item 8.
+train step here updates them in place.
+
+The input specs of a (config, shape cell) - :func:`token_specs`,
+:func:`cache_specs`, :func:`input_specs` - are the reference's
+``ShapeDtypeStruct`` stand-ins as tensors on the ``meta`` device: shapes
+and dtypes, no storage.  The audio and vision frontends are stubs: the
+specs carry their precomputed ``frames`` / ``patches`` embeddings, and
+whisper splits a cell's sequence as encoder S/2 + decoder S/2.
 """
 from __future__ import annotations
 
@@ -27,8 +32,42 @@ from repro_torch.optim.losses import lm_loss
 PyTree = Any
 
 
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def token_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    B, S = cell.global_batch, cell.seq_len
+    if cfg.is_encoder_decoder:
+        return {"tokens": _spec((B, S // 2), torch.int32),
+                "frames": _spec((B, S // 2, cfg.d_model), torch.bfloat16)}
+    if cfg.vit_dim:
+        return {"tokens": _spec((B, S - cfg.num_image_tokens), torch.int32),
+                "patches": _spec((B, cfg.num_image_tokens, cfg.vit_dim),
+                                 torch.bfloat16)}
+    return {"tokens": _spec((B, S), torch.int32)}
+
+
 def cache_capacity(cfg: ModelConfig, cell: ShapeCell) -> int:
     return cell.seq_len // 2 if cfg.is_encoder_decoder else cell.seq_len
+
+
+def cache_specs(cfg: ModelConfig, cell: ShapeCell) -> list:
+    """The decode caches of the cell (``models.model.init_caches``) on the
+    meta device."""
+    enc_len = cell.seq_len // 2 if cfg.is_encoder_decoder else 0
+    return M.init_caches(cfg, cell.global_batch, cache_capacity(cfg, cell),
+                         device="meta", enc_len=enc_len)
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Every input of the cell's step function but the weights and the
+    optimizer state."""
+    if cell.kind in ("train", "prefill"):
+        return {"batch": token_specs(cfg, cell)}
+    return {"token": _spec((cell.global_batch,), torch.int32),
+            "caches": cache_specs(cfg, cell),
+            "t": _spec((), torch.int32)}
 
 
 def choose_accum(cfg: ModelConfig, cell: ShapeCell, dp: int,

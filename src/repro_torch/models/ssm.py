@@ -24,6 +24,7 @@ graph replays the update into the same buffers.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -157,7 +158,10 @@ def mamba2_apply_full(p: PyTree, x: torch.Tensor, *, d_inner: int,
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    M = torch.where(causal, torch.exp(diff), 0.0) * dtc[:, :, None, :, :]
+    # masked before the exp: the reference's where(causal, exp(diff), 0)
+    # gives the same values, but where exp(diff) overflows above the
+    # diagonal its gradient is 0 * inf = NaN (ROADMAP R24)
+    M = torch.exp(diff.masked_fill(~causal, -math.inf)) * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcls,bclsh,bcshp->bclhp", G, M, xh)
 
     # chunk states: S_c = sum_i exp(l_last - l_i) dt_i B_i x_i^T

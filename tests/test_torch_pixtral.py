@@ -20,16 +20,19 @@ Tolerances, and why:
   masked-dense exactly on the CPU;
 * the stats: ``stats_parity``, the reference's aggregate criterion,
   within 2**-8 of each leaf's norm on each side's own jit pass (measured
-  7.0e-4, the down projection; 1.6e-4 already at the first layer's
-  attention, whose input carries the bf16 flips of the ``vit_proj``
-  rows), and the port's tape against its jit pass within 2**-8
+  7.0e-4, the down projection; the first layer's stats within 1.2e-6,
+  the later ones carrying the bf16 matmuls' rare flips, which the
+  attention amplifies: R23), and the port's tape against its jit pass
+  within 2**-8
   (measured 4.6e-4: the jit pass keeps the gated product in f32 into the
   down projection's sums, as the jitted reference does; the eager tape
   sees it rounded);
 * a 5-step wanda 2:4 calibration through each package's
   ``calibrate_to_bank``, the port's on the reference's stats (R5; from
   its own stats 99 of the down projection's 131072 V entries fall
-  outside the bound): ``assert_calibration_matches``, its history's
+  outside the bound, where the reference's own tape stats put 5569 of
+  two leaves outside it; R23, tests/torch_port_evidence.py ``c3``):
+  ``assert_calibration_matches``, its history's
   ``mask_churn`` within one of the 589824 mask entries (one entry flips
   at step 4 and back at step 5, a near-tie the final masks do not show;
   every other figure of the history within the helper's rtol 2e-3);
