@@ -250,7 +250,28 @@ result line):
               memory; then each smoke config's step on the card against
               the same step on this host's CPU at the CPU tests'
               tolerances (ROADMAP R14).  No hand-written kernel runs here.
-17. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+17. analysis - the port's static analysis at llama3.2-1b's published
+              widths (2:4 packed2, ``ServeEngine(slots=4, capacity=256)``,
+              phase 4's configuration) at ``kv_shards`` None and 1: (a) the
+              decode surface audited and planned on the meta device
+              before anything is built (``analysis.audit`` /
+              ``memplan``: ``nm_matmul`` 112 launches a step, and
+              ``flash_decode`` 16 at ``kv_shards`` 1), held against the
+              profiler's count on one replay of the engine's CUDA-graph
+              step; (b) that step's warm-up and capture recorded on the
+              card: no host sync, and its one large upcast the logits'
+              (ROADMAP R25); (c) the planned bytes of params + caches
+              against ``memory_allocated`` after the engine is built,
+              exactly (the allocator's 512-byte blocks); (d) one eager
+              decode step's planned peak against ``max_memory_allocated``'s
+              rise, within 10%; (e) every kernel instantiation's planned
+              shared memory against the binary's (``cudaFuncGetAttributes``
+              and the launch's dynamic size, the sources' ``*_smem`` entry
+              points); (f) ``launch.dryrun`` of llama3.2-1b's four shape
+              cells on meta, a subprocess on this host's CPU started
+              before phase 15 (it runs beside phases 15-17's card work),
+              its fit table against the card's memory.
+18. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -264,6 +285,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -6255,6 +6277,263 @@ def phase_train_families(torch, dev, card: str) -> dict:
     return out
 
 
+ANALYSIS_SLOTS, ANALYSIS_CAPACITY = 4, 256     # phase 4's engine
+ANALYSIS_KV = (None, 1)
+PEAK_RTOL = 0.10     # the reference's planner bound (tests/test_memplan.py)
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT = 300    # s: the dry run waits this long after (a)-(e)
+
+
+def smem_calls() -> list:
+    """One synthetic call of every kernel instantiation the wrappers
+    launch (``analysis.audit.KernelCall``): the 2:4 kernels at each row
+    tile (bf16 mma.sp, f32 SIMT), decode attention at every (D, G, dtype)
+    whole and partial, the combine, the group-of-4 and saliency kernels at
+    every dtype (and metric, with and without the divisor)."""
+    from repro_torch.analysis.audit import KernelCall
+    from repro_torch.kernels.flash_decode import GROUPS, HEAD_DIMS
+    import torch
+
+    def call(name, shapes, dtypes, positional=(), kwargs=None, tk=()):
+        return KernelCall(name, 0, [list(x) for x in shapes], list(dtypes),
+                          list(positional), kwargs or {}, list(tk), True)
+    out = []
+    for M in (1, 2, 4, 8, 16, 32, 40, 64):
+        for dt in ("bfloat16", "float32"):
+            out.append(call("nm_matmul", [(M, 256), (128, 64), (32, 64)],
+                            [dt, dt, "uint8"]))
+    for D in HEAD_DIMS:
+        for G in GROUPS:
+            for dt in ("bfloat16", "float32"):
+                for name in ("flash_decode", "flash_decode_partial"):
+                    out.append(call(name, [(4, 8, G, D), (4, 256, 8, D)],
+                                    [dt, dt]))
+    for dt in (torch.bfloat16, torch.float32):
+        out.append(call("combine_partials", [(4, 4, 8, 4, 64)], ["float32"],
+                        positional=[dt]))
+    for dt in ("float32", "bfloat16", "float16"):
+        out.append(call("nm_mask24", [(64, 64)], [dt]))
+        out.append(call("prox24", [(64, 64)], [dt]))
+        for metric in ("wanda", "magnitude", "ria"):
+            for tk in ((), ("s_div",)):
+                out.append(call("saliency_fused_step", [(64, 64)], [dt],
+                                kwargs={"metric": metric}, tk=tk))
+    return out
+
+
+def analysis_capture(torch, fns, eng, dev) -> tuple:
+    """The engine's CUDA-graph decode step (``serve.engine._Graph``: an
+    eager warm-up, then the capture) recorded by the op auditor on the
+    card, then one replay under the profiler: (the audit of warm-up +
+    capture, the replay's launches)."""
+    import numpy as np
+    from repro_torch.analysis import audit
+    from repro_torch.kernels import observe
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+
+    def body(p, x, c, t):
+        return fns.decode(p, x, c, t)[0].argmax(-1).to(torch.int32)
+    inp = np.zeros((ANALYSIS_SLOTS,), np.int32)
+    rec = audit.OpRecorder("decode graph", device="cuda")
+    with observe.observing(rec), rec:
+        g = E._Graph(body, eng.params, eng.caches, inp, inp, dev,
+                     torch.cuda.graph_pool_handle(),
+                     state=M.state_leaves(eng.cfg, eng.caches))
+    rec.finish((eng.params, eng.caches), g.out)
+    for _ in range(PROFILE_TRIES):
+        launches = profiled_launches(torch, lambda: g.run(inp, inp))
+        if launches.pop("warm-up"):
+            break
+    return rec.rep, launches
+
+
+def start_dryrun(torch, dev):
+    """Phase 17's (f): ``launch.dryrun`` of llama3.2-1b's four cells, a
+    meta pass on this host's CPU, started as a subprocess before phase 15
+    so that it runs beside the card's work (its prefill cell plans for
+    ~36 s); :func:`stop_dryrun` ends it if the script fails first."""
+    from repro_torch.analysis.memplan import card_budget
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    total = card_budget(dev)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3.2-1b", "--all", "--out", str(DRYRUN_DIR), "--budget-gb",
+         str(total / 1e9)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def stop_dryrun(dry) -> None:
+    if dry.poll() is None:
+        dry.kill()
+        dry.wait()
+
+
+def phase_analysis(torch, dev, card: str, dry) -> dict:
+    """Phase 17: see the module docstring.  ``dry``: the running
+    :func:`start_dryrun`."""
+    from repro_torch.analysis.memplan import card_budget
+    from repro_torch.configs.base import get_config
+    cfg = get_config("llama3.2-1b")
+    out = analysis_card(torch, dev, card, cfg)
+    t0 = time.perf_counter()
+    text, _ = dry.communicate(timeout=DRYRUN_TIMEOUT)
+    out["dryrun_wait_s"] = time.perf_counter() - t0
+    check(dry.returncode == 0, f"launch.dryrun exited {dry.returncode}:\n"
+          f"{text}")
+    table = text[text.index("arch "):].rstrip()
+    print("  (f) launch.dryrun --arch llama3.2-1b --all on meta (this host's "
+          f"CPU, started before phase 15, waited {out['dryrun_wait_s']:.1f} "
+          f"s here; budget the card's {card_budget(dev) / 1e9:.2f} GB):")
+    print("\n".join("    " + line for line in table.splitlines()))
+    cells = {c: json.loads((DRYRUN_DIR / f"{cfg.name}__{c}__1card.json")
+                           .read_text())
+             for c in ("train_4k", "prefill_32k", "decode_32k", "long_500k")}
+    check(all(r.get("skipped") or r.get("planned_peak_bytes")
+              for r in cells.values()), f"dry-run cells {cells}")
+    out["dryrun"] = {c: {k: r.get(k) for k in (
+        "param_bytes_f32", "param_bytes_bf16", "param_bytes_24",
+        "cache_bytes", "optimizer_bytes", "planned_peak_bytes",
+        "total_bytes", "fits_card", "plan_s", "skipped")}
+        for c, r in cells.items()}
+    return out
+
+
+def analysis_card(torch, dev, card, cfg) -> dict:
+    """Phase 17's (a)-(e) on the card."""
+    from repro_torch.analysis import audit, memplan
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    S_, C_ = ANALYSIS_SLOTS, ANALYSIS_CAPACITY
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t0 = time.perf_counter()
+    # (a) the decode surface on meta, before anything is built on the card
+    meta = memplan.serving_params_meta(cfg)
+    mcaches = M.init_caches(cfg, S_, C_, device="meta")
+    mint = torch.zeros((S_,), dtype=torch.int32, device="meta")
+    static, plans = {}, {}
+    for S in ANALYSIS_KV:
+        fns = E.EngineFns(cfg, C_, torch.device("meta"), S)
+        args = (meta, mint, mcaches, mint)
+        static[S] = audit.audit_fn(fns.decode, *args, surface="decode",
+                                   device=None)
+        plans[S] = memplan.plan_fn(fns.decode, *args, surface="decode",
+                                   device=None, sm_count=sms)
+        want = {"nm_matmul": 7 * cfg.num_layers,
+                **({"flash_decode": cfg.num_layers} if S == 1 else {})}
+        check(static[S].kernel_launches == want,
+              f"kv_shards={S}: the static audit counts "
+              f"{static[S].kernel_launches} launches a decode step, want "
+              f"{want}")
+    planned_resident = (memplan.param_bytes(meta, memplan.ALLOC_ROUND)
+                        + memplan.param_bytes(mcaches, memplan.ALLOC_ROUND))
+    del meta, mcaches, mint
+    print("  (a) static audit on meta: " + "; ".join(
+        f"kv_shards={S}: {r.kernel_launches} a step, host syncs "
+        f"{len(r.host_callbacks)}, large upcasts {r.large_f32_upcasts} "
+        f"({[u['numel'] for u in r.upcasts if not u['accum']]}), "
+        f"accumulation operands {sum(u['accum'] for u in r.upcasts)}"
+        for S, r in static.items()))
+    for S, r in static.items():
+        # the one counted upcast is the logits' bf16 -> f32 cast (the
+        # reference's unembed makes it too, common.py:225; ROADMAP R25)
+        check(r.host_callbacks == [] and r.large_f32_upcasts == 1
+              and [u["numel"] for u in r.upcasts if not u["accum"]]
+              == [S_ * cfg.vocab_size], f"kv_shards={S}: host syncs "
+              f"{r.host_callbacks}, upcasts {r.upcasts}")
+    # (c) parameters + caches on the card against the plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    fns_ = _kernel_fns()
+    from repro_torch.kernels.flash_decode import flash_decode
+    fns_["flash_decode"] = flash_decode
+    for fn in fns_.values():
+        fn.launches = 0
+    w = weights_whole(torch, dev, cfg)
+    eng = E.ServeEngine(cfg, w["sparse"], slots=S_, capacity=C_, device=dev)
+    del w
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev) - base
+    print(f"  (c) params + caches: planned {planned_resident} B, "
+          f"memory_allocated rose {resident} B after the engine was built")
+    check(resident == planned_resident, f"params + caches took {resident} "
+          f"B on the card, the plan {planned_resident} B")
+    # (d) one eager decode step's peak against the plan; (b) the graph
+    # capture audited on the card; (a) its replay under the profiler
+    toks = torch.zeros((S_,), dtype=torch.int32, device=dev)
+    peaks, captured, replayed = {}, {}, {}
+    for S in ANALYSIS_KV:
+        fns = eng.fns if S is None else E.EngineFns(cfg, C_, dev, S)
+        r = memplan.crosscheck(fns.decode, eng.params, toks, eng.caches,
+                               toks, surface=f"decode kv_shards={S}")
+        peaks[S] = {k: r[k] for k in ("planned_peak", "measured_peak",
+                                      "rel_err")}
+        check(abs(r["rel_err"]) <= PEAK_RTOL, f"kv_shards={S}: one eager "
+              f"decode step's peak rose {r['measured_peak']} B, the plan "
+              f"{r['planned_peak']} B (rel {r['rel_err']:+.3f}, bound "
+              f"{PEAK_RTOL})")
+        rep, launches = analysis_capture(torch, fns, eng, dev)
+        captured[S], replayed[S] = rep, launches
+        st = static[S]
+        check(rep.kernel_launches == {k: 2 * v for k, v in
+                                      st.kernel_launches.items()}
+              and rep.host_callbacks == []
+              and rep.large_f32_upcasts == 2 * st.large_f32_upcasts,
+              f"kv_shards={S}: the warm-up + capture recorded "
+              f"{rep.kernel_launches}, host syncs {rep.host_callbacks}, "
+              f"large upcasts {rep.large_f32_upcasts}; the static audit "
+              f"{st.kernel_launches} a step, {st.large_f32_upcasts}")
+        want = {"nm_spmm": st.kernel_launches["nm_matmul"],
+                "flash_decode": st.kernel_launches.get("flash_decode", 0),
+                "combine_partials": 0}
+        check(launches == want, f"kv_shards={S}: the profiler saw {launches}"
+              f" on one replay of the captured step, the static audit {want}")
+    launched = {k: fn.launches for k, fn in fns_.items()}
+    print("  (d) one eager decode step's peak, plan vs max_memory_allocated: "
+          + "; ".join(f"kv_shards={S}: {p['planned_peak']} vs "
+                      f"{p['measured_peak']} B ({p['rel_err']:+.4f})"
+                      for S, p in peaks.items()))
+    print("  (b) the captured step (warm-up + capture, recorded on the card):"
+          + "; ".join(f" kv_shards={S}: {r.kernel_launches}, host syncs "
+                      f"{len(r.host_callbacks)}, large upcasts "
+                      f"{r.large_f32_upcasts}" for S, r in captured.items()))
+    print("  (a) one replay under the profiler: " + "; ".join(
+        f"kv_shards={S}: {v}" for S, v in replayed.items()))
+    # (e) each instantiation's shared memory: planned vs the binary's
+    smem, bad = [], []
+    for call in smem_calls():
+        launch = memplan.kernel_launch(call, sms)
+        got = _build.kernel_smem(*launch.query)
+        smem.append((launch.instantiation, got))
+        if got != (launch.static_smem, launch.dynamic_smem):
+            bad.append((launch.instantiation,
+                        (launch.static_smem, launch.dynamic_smem), got))
+    path = {lch.instantiation: lch.smem_bytes for S in ANALYSIS_KV
+            for lch in plans[S].kernels}
+    print(f"  (e) shared memory, plan == cudaFuncGetAttributes + the launch's "
+          f"dynamic size for {len(smem) - len(bad)} of {len(smem)} "
+          f"instantiations; this path's: {path}")
+    check(not bad, f"shared memory planned vs taken: {bad}")
+    del eng, fns_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"static": {str(S): {"launches": r.kernel_launches,
+                                "large_f32_upcasts": r.large_f32_upcasts,
+                                "host_syncs": len(r.host_callbacks)}
+                       for S, r in static.items()},
+            "resident_bytes": resident, "planned_resident": planned_resident,
+            "peaks": {str(S): p for S, p in peaks.items()},
+            "replayed": {str(S): v for S, v in replayed.items()},
+            "smem_checked": len(smem), "smem_path": path,
+            "launches": launched, "card": card,
+            "s_card": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6269,7 +6548,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/17] device")
+    print("[1/18] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -6281,7 +6560,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/17] build")
+    print("[2/18] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -6295,7 +6574,7 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/17] kernels against their plain versions [{card}]")
+    print(f"[3/18] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -6324,14 +6603,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/17] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/18] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/17] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/18] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -6339,7 +6618,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/17] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/18] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -6348,7 +6627,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/17] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/18] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -6356,7 +6635,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/17] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/18] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -6368,7 +6647,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/17] training: the launcher at full width, its resume, the "
+    print(f"[9/18] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -6377,7 +6656,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/17] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/18] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -6386,12 +6665,12 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/17] committed mask bank at smoke width, card vs CPU")
+    print("[11/18] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/17] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+    print(f"[12/18] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
           f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
           f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -6401,7 +6680,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/17] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/18] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -6414,7 +6693,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[14/17] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
+    print(f"[14/18] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
           f"layers: Mamba2 + the LoRA-shared attention, decode attention at "
           f"G 1, D 112) "
           f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
@@ -6426,30 +6705,48 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[15/17] the last two families: {WHISPER} whole (12 encoder "
-          f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, decode "
-          f"attention at G 1, D 64 on its self ring and cross cache) and "
-          f"{PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the 256-token vision "
-          f"prefix) 2:4 through the serve launcher and {PIXTRAL}'s engine "
-          f"at their published widths, the smoke configs card vs CPU "
-          f"[{card}]")
-    t0 = time.perf_counter()
-    encdec = phase_encdec_vision(torch, dev, card)
-    t_encdec = time.perf_counter() - t0
-    print(f"  phase took {t_encdec:.1f} s")
+    # phase 17's dry run on this host's CPU, beside phases 15-17's card work
+    dry = start_dryrun(torch, dev)
+    try:
+        print(f"[15/18] the last two families: {WHISPER} whole (12 encoder "
+              f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, "
+              f"decode attention at G 1, D 64 on its self ring and cross "
+              f"cache) and {PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the "
+              f"256-token vision prefix) 2:4 through the serve launcher and "
+              f"{PIXTRAL}'s engine at their published widths, the smoke "
+              f"configs card vs CPU [{card}]")
+        t0 = time.perf_counter()
+        encdec = phase_encdec_vision(torch, dev, card)
+        t_encdec = time.perf_counter() - t0
+        print(f"  phase took {t_encdec:.1f} s")
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"[16/17] the train step at the published widths of gemma3-1b (6 "
-          f"of 26 layers), {DEEPSEEK} (2 of 27), {ZAMBA} (6 of 81), "
-          f"{XLSTM} and {WHISPER} whole, then each smoke config card vs CPU "
-          f"[{card}]")
-    t0 = time.perf_counter()
-    trainf = phase_train_families(torch, dev, card)
-    t_trainf = time.perf_counter() - t0
-    print(f"  phase took {t_trainf:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[16/18] the train step at the published widths of gemma3-1b "
+              f"(6 of 26 layers), {DEEPSEEK} (2 of 27), {ZAMBA} (6 of 81), "
+              f"{XLSTM} and {WHISPER} whole, then each smoke config card vs "
+              f"CPU [{card}]")
+        t0 = time.perf_counter()
+        trainf = phase_train_families(torch, dev, card)
+        t_trainf = time.perf_counter() - t0
+        print(f"  phase took {t_trainf:.1f} s")
 
-    print("[17/17] summary")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[17/18] static analysis at llama3.2-1b's published widths: "
+              f"the decode surface audited and planned on meta, then held "
+              f"on the card (launches per step against the profiler, host "
+              f"syncs and upcasts of the captured step, params + caches, "
+              f"one step's peak, shared memory), launch.dryrun of its four "
+              f"cells [{card}]")
+        t0 = time.perf_counter()
+        ana = phase_analysis(torch, dev, card, dry)
+        t_ana = time.perf_counter() - t0
+        print(f"  phase took {t_ana:.1f} s")
+    finally:
+        stop_dryrun(dry)
+
+    print("[18/18] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
               DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM],
@@ -6466,6 +6763,10 @@ def main() -> int:
                 k: v for k, v in r["launches"].items() if v}
     for S, r in fleet["by_kv"].items():
         paths[f"fleet llama3.2-1b kv_shards={S}"] = r["launches"]
+    # phase 17's: the eager steps it measured, the captures' warm-ups and
+    # captures at kv_shards None and 1, and the mask export
+    paths["analysis llama3.2-1b"] = {k: v for k, v in
+                                     ana["launches"].items() if v}
     # phase 8's, 9's and 10's paths, each with the kernels it launched
     for name, launched in {**evalr["launches"], **trained["launches"],
                            **gemma["launches"],
@@ -6584,7 +6885,8 @@ def main() -> int:
           f"{t_gemma:.1f} s, the deepseek phase {t_deep:.1f} s, the "
           f"recorder's phase {t_obs:.1f} s, the recurrent phase "
           f"{t_rec:.1f} s, the encoder-decoder and vision phase "
-          f"{t_encdec:.1f} s, the train-families phase {t_trainf:.1f} s)")
+          f"{t_encdec:.1f} s, the train-families phase {t_trainf:.1f} s, "
+          f"the analysis phase {t_ana:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -6661,6 +6963,9 @@ def main() -> int:
         "smoke": {k: v for k, v in encdec["smoke"].items()}}}))
     # phase 16's training, on a line of its own
     print(json.dumps({"train_families": {**trainf, "s": t_trainf}}))
+    # phase 17's static analysis, on a line of its own
+    print(json.dumps({"analysis": {**{k: v for k, v in ana.items()
+                                      if k != "card"}, "s": t_ana}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

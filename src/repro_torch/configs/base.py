@@ -93,6 +93,14 @@ class ModelConfig:
         return self.encoder_layers > 0
 
 
+# the reference's ten config families, in its order
+ARCH_IDS = [
+    "zamba2-7b", "mixtral-8x22b", "deepseek-v2-lite-16b", "whisper-small",
+    "yi-6b", "gemma2-2b", "llama3.2-1b", "gemma3-1b", "pixtral-12b",
+    "xlstm-125m",
+]
+
+
 def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG

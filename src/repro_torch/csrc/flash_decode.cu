@@ -660,7 +660,85 @@ cudaError_t launch_d(int D, int G, bool partial, const void* q,
   return cudaErrorInvalidValue;
 }
 
+
+// The shared memory of one instantiation: *static_bytes as
+// cudaFuncGetAttributes reports it, *dynamic_bytes what its launch passes
+// (the static analysis, analysis/memplan.py, is held against these).
+template <typename Kern>
+int smem_of(Kern kern, int dynamic, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  *dynamic_bytes = dynamic;
+  return 0;
+}
+
+template <typename T, int D, int G>
+int fd_smem(bool partial, int* static_bytes, int* dynamic_bytes) {
+  using Sh = Shape<T, D, G>;
+  return partial ? smem_of(flash_decode_kernel<T, D, G, true>, Sh::SMEM,
+                           static_bytes, dynamic_bytes)
+                 : smem_of(flash_decode_kernel<T, D, G, false>, Sh::SMEM,
+                           static_bytes, dynamic_bytes);
+}
+
+template <typename T, int D>
+int fd_smem_g(int G, bool partial, int* static_bytes, int* dynamic_bytes) {
+  switch (G) {
+    case 1: return fd_smem<T, D, 1>(partial, static_bytes, dynamic_bytes);
+    case 2: return fd_smem<T, D, 2>(partial, static_bytes, dynamic_bytes);
+    case 4: return fd_smem<T, D, 4>(partial, static_bytes, dynamic_bytes);
+    case 6: return fd_smem<T, D, 6>(partial, static_bytes, dynamic_bytes);
+    case 8: return fd_smem<T, D, 8>(partial, static_bytes, dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int fd_smem_d(int D, int G, bool partial, int* static_bytes,
+              int* dynamic_bytes) {
+  switch (D) {
+    case 32: return fd_smem_g<T, 32>(G, partial, static_bytes, dynamic_bytes);
+    case 64: return fd_smem_g<T, 64>(G, partial, static_bytes, dynamic_bytes);
+    case 112:
+      return fd_smem_g<T, 112>(G, partial, static_bytes, dynamic_bytes);
+    case 128:
+      return fd_smem_g<T, 128>(G, partial, static_bytes, dynamic_bytes);
+    case 256:
+      return fd_smem_g<T, 256>(G, partial, static_bytes, dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The shared memory of the instantiation repro_flash_decode launches for
+// (D, G, dtype, partial), and of the combine kernel of a dtype (smem_of).
+extern "C" int repro_flash_decode_smem(int D, int G, int dtype, int partial,
+                                       int* static_bytes,
+                                       int* dynamic_bytes) {
+#if !defined(REPRO_FD_ONLY) || REPRO_FD_ONLY == 0
+  if (dtype == 0)
+    return fd_smem_d<float>(D, G, partial != 0, static_bytes, dynamic_bytes);
+#endif
+#if !defined(REPRO_FD_ONLY) || REPRO_FD_ONLY == 1
+  if (dtype == 1)
+    return fd_smem_d<__nv_bfloat16>(D, G, partial != 0, static_bytes,
+                                    dynamic_bytes);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int repro_flash_decode_combine_smem(int dtype, int* static_bytes,
+                                               int* dynamic_bytes) {
+  if (dtype == 0)
+    return smem_of(combine_kernel<float>, 0, static_bytes, dynamic_bytes);
+  if (dtype == 1)
+    return smem_of(combine_kernel<__nv_bfloat16>, 0, static_bytes,
+                   dynamic_bytes);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and out alike; built with
 // -DREPRO_FD_ONLY=0 or 1, the library takes that dtype alone: the two

@@ -53,7 +53,37 @@ __global__ void nm_mask24_kernel(const T* __restrict__ s,
   keep[base + 3 * (size_t)N] = r3 < 2;
 }
 
+
+// The shared memory of one instantiation: *static_bytes as
+// cudaFuncGetAttributes reports it, *dynamic_bytes what its launch passes
+// (the static analysis, analysis/memplan.py, is held against these).
+template <typename Kern>
+int smem_of(Kern kern, int dynamic, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  *dynamic_bytes = dynamic;
+  return 0;
+}
+
 }  // namespace
+
+// The shared memory of the dtype's instantiation (smem_of).
+extern "C" int repro_nm_mask24_smem(int dtype, int* static_bytes,
+                                    int* dynamic_bytes) {
+  switch (dtype) {
+    case 0:
+      return smem_of(nm_mask24_kernel<float>, 0, static_bytes, dynamic_bytes);
+    case 1:
+      return smem_of(nm_mask24_kernel<__nv_bfloat16>, 0, static_bytes,
+                     dynamic_bytes);
+    case 2:
+      return smem_of(nm_mask24_kernel<__half>, 0, static_bytes,
+                     dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16.  s and keep are contiguous (R, N)
 // arrays with R % 4 == 0; keep is a torch.bool (one byte per entry).

@@ -607,7 +607,56 @@ cudaError_t launch_simt_rows(const SimtArgs& a, cudaStream_t s) {
   return launch_simt<kPacked, kMaxBM>(a, s);
 }
 
+
+// The shared memory of one instantiation: *static_bytes as
+// cudaFuncGetAttributes reports it, *dynamic_bytes what its launch passes
+// (the static analysis, analysis/memplan.py, is held against these).
+template <typename Kern>
+int smem_of(Kern kern, int dynamic, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  *dynamic_bytes = dynamic;
+  return 0;
+}
+
+template <int TM, int WM>
+int mma_smem(int* static_bytes, int* dynamic_bytes) {
+  return smem_of(nm_mma_kernel<TM, WM>, Tile<TM, WM>::SMEM, static_bytes,
+                 dynamic_bytes);
+}
+
+template <bool kPacked>
+int simt_smem(int M, int* static_bytes, int* dynamic_bytes) {
+  if (M <= 1) return smem_of(nm_simt_kernel<kPacked, 1>, 0, static_bytes,
+                             dynamic_bytes);
+  if (M <= 2) return smem_of(nm_simt_kernel<kPacked, 2>, 0, static_bytes,
+                             dynamic_bytes);
+  if (M <= 4) return smem_of(nm_simt_kernel<kPacked, 4>, 0, static_bytes,
+                             dynamic_bytes);
+  if (M <= 8) return smem_of(nm_simt_kernel<kPacked, 8>, 0, static_bytes,
+                             dynamic_bytes);
+  return smem_of(nm_simt_kernel<kPacked, kMaxBM>, 0, static_bytes,
+                 dynamic_bytes);
+}
+
 }  // namespace
+
+// The shared memory of the instantiation repro_nm_matmul_expert launches
+// for M rows, in_bf16 and packed as it takes them (see smem_of).
+extern "C" int repro_nm_matmul_smem(int M, int in_bf16, int packed,
+                                    int* static_bytes, int* dynamic_bytes) {
+  if (in_bf16) {
+    if (M <= 8) return mma_smem<1, 1>(static_bytes, dynamic_bytes);
+    if (M <= 16) return mma_smem<2, 1>(static_bytes, dynamic_bytes);
+    if (M <= 32) return mma_smem<4, 1>(static_bytes, dynamic_bytes);
+    if (M <= 40) return mma_smem<5, 1>(static_bytes, dynamic_bytes);
+    return mma_smem<4, 2>(static_bytes, dynamic_bytes);
+  }
+  return packed ? simt_smem<true>(M, static_bytes, dynamic_bytes)
+                : simt_smem<false>(M, static_bytes, dynamic_bytes);
+}
 
 // out (E, M, N) = x (E, M, K) @ W (E, K, N), per expert, W given as vals
 // (E, K/2, N) and idx (E, K/8, N) packed or (E, K/2, N) int8; the 2-D

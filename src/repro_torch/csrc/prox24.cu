@@ -98,7 +98,36 @@ void launch(const void* w, void* out, long long cells, int N, float lam,
                                             lam, damping, keep, iters);
 }
 
+
+// The shared memory of one instantiation: *static_bytes as
+// cudaFuncGetAttributes reports it, *dynamic_bytes what its launch passes
+// (the static analysis, analysis/memplan.py, is held against these).
+template <typename Kern>
+int smem_of(Kern kern, int dynamic, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  *dynamic_bytes = dynamic;
+  return 0;
+}
+
 }  // namespace
+
+// The shared memory of the dtype's instantiation (smem_of).
+extern "C" int repro_prox24_smem(int dtype, int* static_bytes,
+                                 int* dynamic_bytes) {
+  switch (dtype) {
+    case 0:
+      return smem_of(prox24_kernel<float>, 0, static_bytes, dynamic_bytes);
+    case 1:
+      return smem_of(prox24_kernel<__nv_bfloat16>, 0, static_bytes,
+                     dynamic_bytes);
+    case 2:
+      return smem_of(prox24_kernel<__half>, 0, static_bytes, dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16 (w and out alike).  w and out are
 // contiguous (R, N) arrays with R % 4 == 0; out may be w.  keep is

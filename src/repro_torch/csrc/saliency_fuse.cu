@@ -116,7 +116,57 @@ int dispatch_metric(int metric, const void* w, const float* a,
   }
 }
 
+
+// The shared memory of one instantiation: *static_bytes as
+// cudaFuncGetAttributes reports it, *dynamic_bytes what its launch passes
+// (the static analysis, analysis/memplan.py, is held against these).
+template <typename Kern>
+int smem_of(Kern kern, int dynamic, int* static_bytes, int* dynamic_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return (int)err;
+  *static_bytes = (int)fa.sharedSizeBytes;
+  *dynamic_bytes = dynamic;
+  return 0;
+}
+
+template <typename T, int M>
+int metric_smem(bool div, int* static_bytes, int* dynamic_bytes) {
+  return div ? smem_of(saliency_fuse_kernel<T, M, true>, 0, static_bytes,
+                       dynamic_bytes)
+             : smem_of(saliency_fuse_kernel<T, M, false>, 0, static_bytes,
+                       dynamic_bytes);
+}
+
+template <typename T>
+int dtype_smem(int metric, bool div, int* static_bytes, int* dynamic_bytes) {
+  switch (metric) {
+    case kWanda: return metric_smem<T, kWanda>(div, static_bytes,
+                                               dynamic_bytes);
+    case kMagnitude: return metric_smem<T, kMagnitude>(div, static_bytes,
+                                                       dynamic_bytes);
+    case kRia: return metric_smem<T, kRia>(div, static_bytes, dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The shared memory of the (dtype, metric, s_div given) instantiation
+// (smem_of).
+extern "C" int repro_saliency_fused_step_smem(int dtype, int metric, int div,
+                                              int* static_bytes,
+                                              int* dynamic_bytes) {
+  switch (dtype) {
+    case 0: return dtype_smem<float>(metric, div != 0, static_bytes,
+                                     dynamic_bytes);
+    case 1: return dtype_smem<__nv_bfloat16>(metric, div != 0, static_bytes,
+                                             dynamic_bytes);
+    case 2: return dtype_smem<__half>(metric, div != 0, static_bytes,
+                                      dynamic_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // w: contiguous (R, N), dtype 0 = f32, 1 = bf16, 2 = f16; everything else
 // f32 and contiguous: a, rowsum (R,) (a unused for magnitude, rowsum and

@@ -35,24 +35,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-# C entry points of each source: name -> argtypes (every restype is int)
+_PI = ctypes.POINTER(ctypes.c_int)
+# C entry points of each source: name -> argtypes (every restype is int).
+# Each ``*_smem`` reports one instantiation's static and dynamic shared
+# memory (``kernel_smem``)
 ENTRY_POINTS = {
     "nm_spmm": {
         "repro_nm_matmul_expert": [_P] * 6 + [_I] * 9 + [_P],
+        "repro_nm_matmul_smem": [_I] * 3 + [_PI] * 2,
     },
     "nm_mask24": {
         "repro_nm_mask24": [_P, _P, _LL, _I, _I, _P],
+        "repro_nm_mask24_smem": [_I] + [_PI] * 2,
     },
     "prox24": {
         "repro_prox24": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P],
+        "repro_prox24_smem": [_I] + [_PI] * 2,
     },
     "saliency_fuse": {
         "repro_saliency_fused_step": [_P] * 9 + [_LL] + [_I] * 4
                                      + [_F, _F, _P],
+        "repro_saliency_fused_step_smem": [_I] * 3 + [_PI] * 2,
     },
     **{f"flash_decode_{dt}": {
         "repro_flash_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
         "repro_flash_decode_combine": [_P] * 4 + [_I] * 5 + [_P],
+        "repro_flash_decode_smem": [_I] * 4 + [_PI] * 2,
+        "repro_flash_decode_combine_smem": [_I] + [_PI] * 2,
     } for dt in ("f32", "bf16")},
 }
 # libraries built from another library's source with a define:
@@ -134,3 +143,16 @@ def library(name: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
     return lib
+
+
+def kernel_smem(name: str, fn: str, *selectors: int) -> tuple[int, int]:
+    """(static, dynamic) shared-memory bytes of the instantiation that the
+    launch entry ``fn`` of library ``name`` picks for ``selectors`` (the
+    ``*_smem`` entry points: ``cudaFuncGetAttributes``' static size and
+    the dynamic size the launch passes).  Needs the card."""
+    st, dyn = ctypes.c_int(-1), ctypes.c_int(-1)
+    err = getattr(library(name), fn)(*selectors, ctypes.byref(st),
+                                     ctypes.byref(dyn))
+    if err:
+        raise RuntimeError(f"{fn}{selectors}: CUDA error {err}")
+    return st.value, dyn.value

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.nm_spmm import _sm_count
+from repro_torch.kernels.observe import kernel, plain_devices
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the library of each dtype code: csrc/flash_decode.cu built once for each
@@ -131,6 +132,7 @@ def _launch(q, k, v, bias, out, acc, m, l, shards, partial, code, scale):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+@kernel("flash_decode")
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  bias: torch.Tensor, *, scale: float | None = None
                  ) -> torch.Tensor:
@@ -140,7 +142,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the kernel (``flash_decode.launches`` counts each
     launch) or raise."""
     _check_shapes("flash_decode", q, k, v, bias, 1)
-    if q.device.type == "cpu":
+    if q.device.type in plain_devices():
         return ref.flash_decode_ref(q, k, v, bias, scale=scale)
     code = _kernel_args("flash_decode", q, k, v, bias)
     out = torch.empty((*q.shape[:3], v.shape[-1]), dtype=q.dtype,
@@ -153,6 +155,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode.launches = 0
 
 
+@kernel("flash_decode_partial")
 def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor, *, scale: float | None = None,
                          shards: int = 1):
@@ -164,7 +167,7 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel once for all shards (``flash_decode_partial.launches``) or
     raise."""
     _check_shapes("flash_decode_partial", q, k, v, bias, shards)
-    if q.device.type == "cpu":
+    if q.device.type in plain_devices():
         return ref.flash_decode_shards_ref(q, k, v, bias, scale=scale,
                                            shards=shards)
     code = _kernel_args("flash_decode_partial", q, k, v, bias)
@@ -180,6 +183,7 @@ def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode_partial.launches = 0
 
 
+@kernel("combine_partials")
 def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                      out_dtype: torch.dtype) -> torch.Tensor:
     """Combine per-shard (acc, m, l) into the normalised output
@@ -194,7 +198,7 @@ def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
         raise ValueError(f"combine_partials takes acc (S,B,K,G,Dv), m and l "
                          f"(S,B,K,G,1), got {tuple(acc.shape)}, "
                          f"{tuple(m.shape)}, {tuple(l.shape)}")
-    if acc.device.type == "cpu":
+    if acc.device.type in plain_devices():
         return ref.combine_partials_ref(acc, m, l, out_dtype)
     if acc.device.type != "cuda":
         raise ValueError(f"combine_partials: no kernel for device "

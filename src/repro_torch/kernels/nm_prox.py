@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.observe import kernel, plain_devices
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -27,6 +28,7 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+@kernel("prox24")
 def prox24(w: torch.Tensor, *, lam: float, iters: int = 12,
            damping: float = 0.7, out: torch.Tensor | None = None
            ) -> torch.Tensor:
@@ -46,7 +48,7 @@ def prox24(w: torch.Tensor, *, lam: float, iters: int = 12,
                             or out.device != w.device):
         raise ValueError("prox24: out must match w in shape, dtype and "
                          "device")
-    if w.device.type == "cpu":
+    if w.device.type in plain_devices():
         res = ref.prox24_ref(w, lam, iters=iters, damping=damping)
         return res if out is None else out.copy_(res)
     if w.device.type != "cuda":
@@ -76,6 +78,7 @@ def prox24(w: torch.Tensor, *, lam: float, iters: int = 12,
 prox24.launches = 0
 
 
+@kernel("nm_mask24")
 def nm_mask24(s: torch.Tensor) -> torch.Tensor:
     """Top-2-of-4 keep-mask along K.  s: (K, N) scores -> bool (K, N).
 
@@ -87,7 +90,7 @@ def nm_mask24(s: torch.Tensor) -> torch.Tensor:
     if s.dim() != 2 or s.shape[0] % 4:
         raise ValueError(f"nm_mask24 takes (K, N) scores with K % 4 == 0, "
                          f"got {tuple(s.shape)}")
-    if s.device.type == "cpu":
+    if s.device.type in plain_devices():
         return ref.nm_mask_ref(s, 2, 4)
     if s.device.type != "cuda":
         raise ValueError(f"nm_mask24: no kernel for device {s.device}")

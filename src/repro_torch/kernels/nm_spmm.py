@@ -29,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.observe import kernel, plain_devices
 
 LAYOUT_INT8 = "int8"
 LAYOUT_PACKED2 = "packed2"
@@ -240,10 +241,11 @@ def _launch(name: str, x, vals, idx, E: int, M: int, K: int, N: int,
 
 
 def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
-    """True for CPU operands (the plain version); CUDA operands on one
-    device go to the kernel; anything else raises."""
+    """True for CPU operands (the plain version; meta ones too while
+    ``kernels.observe`` records); CUDA operands on one device go to the
+    kernel; anything else raises."""
     kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
+    if len(kinds) == 1 and kinds <= set(plain_devices()):
         return True
     if kinds != {"cuda"} or len({t.device for t in ts}) != 1:
         raise ValueError(f"{name}: x, vals and idx must lie on one device, "
@@ -251,6 +253,7 @@ def _on_cpu(name: str, *ts: torch.Tensor) -> bool:
     return False
 
 
+@kernel("nm_matmul")
 def nm_matmul(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, *,
               layout: str | None = None,
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -278,6 +281,7 @@ def nm_matmul(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, *,
 nm_matmul.launches = 0
 
 
+@kernel("nm_matmul_expert")
 def nm_matmul_expert(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                      *, layout: str | None = None,
                      out_dtype: torch.dtype | None = None) -> torch.Tensor:

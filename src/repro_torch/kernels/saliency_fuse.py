@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.observe import kernel, plain_devices
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 METRIC_CODES = {"wanda": 0, "magnitude": 1, "ria": 2, "stochria": 2}
@@ -52,6 +53,7 @@ def saliency_fused_step_plain(w, a, gamma, v, *, metric: str, v_lr: float,
     return v_new.reshape(R, N), g_new.reshape(R, N)
 
 
+@kernel("saliency_fused_step")
 def saliency_fused_step(w: torch.Tensor, a: torch.Tensor | None,
                         gamma: torch.Tensor, v: torch.Tensor, *,
                         metric: str = "wanda", v_lr: float = 0.1,
@@ -94,7 +96,7 @@ def saliency_fused_step(w: torch.Tensor, a: torch.Tensor | None,
         _check("s_div", s_div, (), dev)
     L = colsum.shape[0] if ria else 1
     K = R // L
-    if dev.type == "cpu":
+    if dev.type in plain_devices():
         v_new, g_new = saliency_fused_step_plain(
             w, a, gamma, v, metric=metric, v_lr=v_lr, lam=lam, rowsum=rowsum,
             colsum=colsum, s_div=s_div)

@@ -41,6 +41,7 @@ import time
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import observe
 from repro_torch.kernels.flash_decode import (combine_partials,
                                               flash_decode_partial)
 from repro_torch.kernels.ref import NEG_INF
@@ -50,13 +51,15 @@ _tls = threading.local()
 
 class _Trace:
     """One traced call of an engine surface: the call sites whose
-    collectives it has counted, and the site the layer loop is at."""
+    collectives it has counted, the site the layer loop is at and the
+    layer of its stage (None outside the layer loops)."""
 
-    __slots__ = ("seen", "at")
+    __slots__ = ("seen", "at", "layer")
 
     def __init__(self):
         self.seen: set = set()
         self.at = None
+        self.layer = None
 
 
 _QUIET = object()    # a surface call that is not its surface's trace
@@ -78,9 +81,19 @@ def surface_call(traced: bool):
 
 def trace_sites():
     """The active trace, for the layer loop to mark its call site
-    (``trace.at = (stage, pattern position)``), or None."""
+    (:func:`mark_site`), or None."""
     tr = getattr(_tls, "trace", None)
     return tr if isinstance(tr, _Trace) else None
+
+
+def mark_site(trace, at, layer=None) -> None:
+    """Mark where the layer loop is: ``at`` the call site ((stage, pattern
+    position), or None outside the loops), ``layer`` the layer of its
+    stage.  A scanned layer body is traced once, so a trace-time count
+    counts a site once (``dist.psum``) and ``analysis.audit`` counts a
+    kernel call per site at a stage's first layer."""
+    if trace is not None:
+        trace.at, trace.layer = at, layer
 
 
 def _count(site: str, payload_bytes: int, n_psum: int = 1) -> bool:
@@ -93,6 +106,9 @@ def _count(site: str, payload_bytes: int, n_psum: int = 1) -> bool:
         if tr.at in tr.seen:
             return False
         tr.seen.add(tr.at)
+    ob = observe.observer()
+    if ob is not None:
+        ob.collective("psum", site, n_psum)
     obs.inc("dist.psum", n_psum, site=site)
     obs.inc("dist.psum_bytes", payload_bytes, site=site)
     return tr is None

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.kernels import shard as ksh
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.observe import f32_accumulation
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
 
@@ -405,14 +406,19 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, attn_softcap=0.0,
             o = ksh.decode_attend_sharded(qg, cache_k, cache_v, ok,
                                           shards=kv_shards, scale=scale)
         return o.reshape(B, H, cache_v.shape[-1]).to(q.dtype)
-    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache_k.float()) * scale
+    # f32 operand copies: the reference's einsums accumulate bf16 in f32
+    # (preferred_element_type), which a torch product cannot ask for
+    with f32_accumulation():
+        s = torch.einsum("bkgd,bckd->bkgc", qg.float(),
+                         cache_k.float()) * scale
     s = cm.softcap(s, attn_softcap)
     s = torch.where(ok[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgc,bckd->bkgd", (p / l).to(cache_v.dtype).float(),
-                     cache_v.float())
+    with f32_accumulation():
+        o = torch.einsum("bkgc,bckd->bkgd",
+                         (p / l).to(cache_v.dtype).float(), cache_v.float())
     return o.reshape(B, H, D).to(q.dtype)
 
 

@@ -265,6 +265,7 @@ def _run_encoder(cfg: ModelConfig, params: PyTree, frames, *,
     pe = cm.sinusoidal_positions(S, cfg.d_model)
     x = x + torch.from_numpy(pe).to(x.device, x.dtype)
     ctx = Ctx(positions=torch.arange(S, device=x.device).expand(B, S))
+    trace = ksh.trace_sites()
     for s, ((pattern, repeats), sp) in enumerate(zip(
             encoder_stages(cfg), params["enc_stages"], strict=True)):
         prefix = f"['enc_stages'][{s}]"
@@ -273,9 +274,11 @@ def _run_encoder(cfg: ModelConfig, params: PyTree, frames, *,
                              prefix)
             continue
         for i, lp in enumerate(_unstack(sp, repeats)):
+            ksh.mark_site(trace, ("enc", s), i)
             if tape is not None:
                 tape.register_layer(lp, prefix, i)
             x, _, _ = _layer_apply(cfg, pattern, lp, x, ctx)
+    ksh.mark_site(trace, None)
     return blk._norm(cfg, params["enc_norm"], x)
 
 
@@ -331,10 +334,12 @@ def _trunk(cfg: ModelConfig, params: PyTree, batch: dict,
     shared = params.get("shared")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    trace = ksh.trace_sites()
     for s, ((pattern, repeats), sp) in enumerate(zip(
             make_stages(cfg), params["stages"], strict=True)):
         per_layer = []
         for i, lp in enumerate(_unstack(sp, repeats)):
+            ksh.mark_site(trace, (s,), i)
             if tape is not None:
                 tape.register_layer(lp, f"['stages'][{s}]", i)
             if remat:
@@ -346,6 +351,7 @@ def _trunk(cfg: ModelConfig, params: PyTree, batch: dict,
                 aux_total = aux_total + aux
             per_layer.append(out)
         caches.append(_stack(per_layer) if cache_capacity else None)
+    ksh.mark_site(trace, None)
     return x, aux_total, caches
 
 
@@ -469,7 +475,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
     if cfg.is_encoder_decoder:      # each row's learned position
         x = x + params["pos_embed"][t.long()][:, None].to(x.dtype)
     # an engine surface's trace counts each (stage, pattern position) once,
-    # as the reference's scanned layer body is traced once
+    # as the reference's scanned layer body is traced once (ksh.mark_site)
     trace = ksh.trace_sites()
     shared = params.get("shared")
     for si, ((pattern, repeats), sp, cache) in enumerate(zip(
@@ -477,14 +483,14 @@ def decode_step(cfg: ModelConfig, params: PyTree, token, caches: list, t, *,
         for i in range(repeats):
             lp, lc = _layer(sp, i), _layer(cache, i)
             for j, kind in enumerate(pattern):
-                if trace is not None:
-                    trace.at = (si, j)
+                ksh.mark_site(trace, (si, j), i)
                 x, _ = blk.block_apply_decode(kind, cfg, lp[str(j)], x,
                                               lc[str(j)], t,
                                               kv_shards=kv_shards,
                                               shared=shared)
             x = x.to(cm.COMPUTE_DTYPE)      # the layer's end (blocks.py
                                             # _stream)
+    ksh.mark_site(trace, None)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], caches
 
@@ -505,13 +511,15 @@ def verify_step(cfg: ModelConfig, params: PyTree, tokens, caches: list, t):
     tokens = _tokens(params, tokens)
     x = _embed(cfg, params, tokens)
     t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
-    for (pattern, repeats), sp, cache in zip(make_stages(cfg),
-                                             params["stages"], caches,
-                                             strict=True):
+    trace = ksh.trace_sites()
+    for si, ((pattern, repeats), sp, cache) in enumerate(zip(
+            make_stages(cfg), params["stages"], caches, strict=True)):
         for i in range(repeats):
             lp, lc = _layer(sp, i), _layer(cache, i)
             for j, kind in enumerate(pattern):
+                ksh.mark_site(trace, (si, j), i)
                 x, _ = blk.block_apply_verify(kind, cfg, lp[str(j)], x,
                                               lc[str(j)], t)
+    ksh.mark_site(trace, None)
     x = blk._norm(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x), caches

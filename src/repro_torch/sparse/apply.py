@@ -18,6 +18,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.kernels.observe import kernel_pair
 from repro_torch.kernels.nm_spmm import (LAYOUT_PACKED2, nm_matmul,
                                          nm_matmul_expert)
 from repro_torch.sparse import pack as pack_mod
@@ -81,9 +82,12 @@ def sparse_moe_dense(st: SparseTensor, buf: torch.Tensor) -> torch.Tensor:
 def sparse_dense2(st_a: SparseTensor, st_b: SparseTensor, x: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pair sharing the reduction dim (gated-MLP up + gate): two kernel
-    launches over the same x.  Concatenating the pair along N would re-copy
-    both weights on every call."""
-    return sparse_dense(st_a, x), sparse_dense(st_b, x)
+    launches over the same x, the reference's TPU route (its CPU route
+    concatenates the pair along N into one call, ``apply.py:160``).
+    Concatenating the pair along N would re-copy both weights on every
+    call."""
+    with kernel_pair():
+        return sparse_dense(st_a, x), sparse_dense(st_b, x)
 
 
 # ---------------------------------------------------------------------------
