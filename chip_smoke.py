@@ -220,7 +220,8 @@ result line):
               12 decoder layers; layernorm, gelu, no rope; d 768, 12 heads
               x 64, d_ff 3072, vocab 51865; 1536: the reference's
               flash_attention takes no 1500, ``attention.py:214``) and
-              pixtral-12b (d 5120, 32/8 heads x 128, d_ff 14336, vocab
+              pixtral-12b (8 of its 40 layers, by the script's time since
+              phase 18; d 5120, 32/8 heads x 128, d_ff 14336, vocab
               131072, the 256-token vision prefix through ``vit_proj``;
               its weights made, masked and packed a layer slice at a time),
               2:4, through the serve launcher's loop
@@ -271,7 +272,26 @@ result line):
               cells on meta, a subprocess on this host's CPU started
               before phase 15 (it runs beside phases 15-17's card work),
               its fit table against the card's memory.
-18. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+18. tp       - tensor-parallel serving over ``torch.distributed`` ranks:
+              llama3.2-1b (4 of 16 layers, by the script's time) and
+              mixtral-8x22b (phase 5's 2 of 56 layers) at their published
+              widths, 2:4 (phase 4's magnitude masks), 4 slots, capacity
+              256, phase 4's requests, served by 4 ranks on cuda:0 over
+              gloo (one card: NCCL takes one rank a card; every collective
+              goes through the host, so the engine runs eager) under
+              ``rules`` on meshes (1, 4) and (2, 2), llama also under
+              ``REPRO_FORCE_REPLICATED``; the params and the single-process
+              runs shared with the ranks by CUDA IPC.  Each case: every
+              rank's streams equal, rank 0's streams and decode logits
+              against the single-process engine at the same decode
+              attention arithmetic (``kv_shards`` 4, 2 or None; within 8
+              bf16 ulps), each rank's parameter bytes == the spec
+              derivation's blocks, ``dist.psum`` per decode trace == the
+              reference's static rule, the launches (summed over the ranks
+              into the ``kernels`` line) == 4 x one process's, every
+              distinct shard-local kernel call held against its plain
+              version; mixtral (1, 4) under the profiler too.
+19. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -1290,8 +1310,9 @@ def _routed_sets(ids) -> "torch.Tensor":
 
 @contextlib.contextmanager
 def first_call_per_signature(calls: dict):
-    """While open, every call that ``sparse/apply.py`` makes to a 2:4
-    kernel wrapper, and every call that ``models/attention.py`` and
+    """While open, every call that ``sparse/apply.py`` and
+    ``kernels/shard.py`` make to a 2:4 kernel wrapper, and every call that
+    ``models/attention.py`` and
     ``kernels/shard.py`` make to a decode attention wrapper
     (``kernels/flash_decode.py``, imported there by name), keeps, for the first call at each
     distinct signature (kernel, shapes, dtypes, layout or shards), its
@@ -1301,7 +1322,10 @@ def first_call_per_signature(calls: dict):
     from repro_torch.kernels import shard
     from repro_torch.models import attention
     from repro_torch.sparse import apply as sparse_apply
-    saved = {name: getattr(sparse_apply, name) for name in PATH_KERNELS}
+    # where the 2:4 path looks its wrappers up: sparse/apply.py, and
+    # kernels/shard.py's tensor-parallel wrappers (phase 18)
+    saved = {(mod, name): getattr(mod, name) for mod in (sparse_apply, shard)
+             for name in PATH_KERNELS}
     # where the decode attention path looks its wrappers up
     saved_fd = {(mod, name): getattr(mod, name) for mod, name in (
         (attention, "flash_decode"), (shard, "flash_decode_partial"),
@@ -1334,16 +1358,14 @@ def first_call_per_signature(calls: dict):
             return out
         return call
 
-    for name, fn in saved.items():
-        setattr(sparse_apply, name, recorder(name, fn))
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, recorder(name, fn))
     for (mod, name), fn in saved_fd.items():
         setattr(mod, name, flash_recorder(name, fn))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(sparse_apply, name, fn)
-        for (mod, name), fn in saved_fd.items():
+        for (mod, name), fn in {**saved, **saved_fd}.items():
             setattr(mod, name, fn)
 
 
@@ -5566,8 +5588,10 @@ WHISPER_PROMPT, WHISPER_GEN = 32, 32
 # (16 decode steps), capacity 64 + 17 + 256 = 337
 PIXTRAL_TEXT, PIXTRAL_GEN = 64, 17
 PIXTRAL_LAUNCHER_KV = (None, 1)
-# pixtral's decoder depth served (40: whole)
-PIXTRAL_LAYERS = 40
+# pixtral's decoder depth served: 8 of 40 by the script's time since the
+# tensor-parallel phase came (whole, 40 layers, phase 15's pixtral took
+# 110.4 s of a 1208.4 s script on an H100 80GB HBM3, 700 W)
+PIXTRAL_LAYERS = 8
 LAUNCHER_BY_LAYER_STEPS = 4
 # smoke streams card vs CPU: the launcher's (B 2, 16 prompt tokens)
 ENCDEC_SMOKE_GEN = 8
@@ -6534,6 +6558,421 @@ def analysis_card(torch, dev, card, cfg) -> dict:
             "s_card": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor-parallel serving over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# 4 ranks on cuda:0 over gloo: the card machine has one card, and NCCL takes
+# one rank a card, so every all-reduce and all-gather goes through the host
+TP_WORLD = 4
+TP_MESHES = ((1, 4), (2, 2))
+# llama3.2-1b cut from 16 to 4 layers here by the script's time: through
+# gloo on one card an eager decode step of the 16 layers took 323-616 ms
+# against 24-37 ms in one process, and the phase 191 s (H100 80GB HBM3,
+# 700 W)
+TP_LLAMA_LAYERS = 4
+TP_KERNELS = ("nm_matmul", "nm_matmul_expert", "flash_decode",
+              "flash_decode_partial", "combine_partials")
+TP_STEP_REPS = 3
+
+
+def tp_cases(cfg) -> list:
+    """(name, mesh shape, REPRO_FORCE_REPLICATED, the single-process
+    ``kv_shards`` whose decode attention the case's runs): (1, 4) and (2,
+    2), whose rings shard their capacity over "model"'s 4 or 2 ranks
+    (``flash_decode_partial`` on each rank's shard, combined across them),
+    and for the dense model (1, 4) forced replicated (no tag, caches
+    whole: the replicated attention)."""
+    cases = [(f"{a}x{b}", (a, b), False, b) for a, b in TP_MESHES]
+    if not cfg.num_experts:
+        cases.append(("1x4 forced", (1, 4), True, None))
+    return cases
+
+
+def tp_psum_rule(cfg, params, rules, slots: int, capacity: int) -> dict:
+    """The reference's static ``dist.psum`` count per decode trace
+    (tests/test_tp.py): at each (stage, pattern position) site, one a
+    K-sharded projection group (the gated pair and the up / gate banks one
+    together, every other tagged leaf one) and 2 a capacity-sharded
+    attention; read off the engine's placed tags."""
+    from repro_torch.kernels.shard import kv_shard_axes, pair_k_sharded
+    from repro_torch.dist.axes import use_rules
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    out = {"mlp": 0, "attn": 0, "attn_kv": 0, "moe": 0}
+    with use_rules(rules):
+        for (pattern, _), stage in zip(M.make_stages(cfg), params["stages"],
+                                       strict=True):
+            for j, kind in enumerate(pattern):
+                p = stage[str(j)]
+                tagged = lambda k: getattr(k["kernel"], "shard",  # noqa
+                                           None) is not None
+                out["attn"] += sum(tagged(p["attn"][n])
+                                   for n in ("wq", "wk", "wv", "wo"))
+                site = "moe" if "moe" in p else "mlp"
+                ffn = p[site]
+                pair = pair_k_sharded(ffn["up"]["kernel"],
+                                      ffn["gate"]["kernel"])
+                out[site] += (1 if pair else tagged(ffn["up"])
+                              + tagged(ffn["gate"])) + tagged(ffn["down"])
+                ring = blk.cache_length(kind, cfg, capacity)
+                out["attn_kv"] += 2 * bool(kv_shard_axes(slots, ring))
+    return out
+
+
+def tp_planned_bytes(cfg, params, mesh) -> int:
+    """This rank's parameter bytes by the spec derivation alone
+    (``dist.sharding.params_sharding`` on the whole leaves' shapes)."""
+    from repro_torch import tree
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.axes import make_rules
+    from repro_torch.models import model as M
+    from repro_torch.sparse.formats import SparseTensor
+    specs = dict(tree.flatten_with_path(shd.params_sharding(
+        M.param_axes(cfg), params, make_rules(mesh))))
+    total = 0
+    for path, w in tree.flatten_with_path(params):
+        parts = ([(w.vals, specs[path].vals), (w.idx, specs[path].idx)]
+                 if isinstance(w, SparseTensor) else [(w, specs[path])])
+        for t, spec in parts:
+            total += math.prod(shd.block_shape(tuple(t.shape), spec, mesh)) \
+                * t.element_size()
+    return total
+
+
+def tp_held_bytes(params) -> tuple[int, bool]:
+    """(the bytes of this rank's parameter leaves, whether every block is
+    storage of its own: no whole leaf kept alive under a block)."""
+    from repro_torch import tree
+    from repro_torch.dist.sharding import DenseBlock
+    from repro_torch.sparse.formats import SparseTensor
+    total, own = 0, True
+    for w in tree.leaves(params):
+        block = isinstance(w, DenseBlock) or (isinstance(w, SparseTensor)
+                                              and w.block is not None)
+        parts = ([w.vals, w.idx] if isinstance(w, SparseTensor) else
+                 [w.data] if isinstance(w, DenseBlock) else [w])
+        for t in parts:
+            n = t.numel() * t.element_size()
+            total += n
+            own &= not block or t.untyped_storage().nbytes() == n
+    return total, own
+
+
+def tp_eager_step_ms(torch, eng) -> float:
+    """The median host-clock ms of ``TP_STEP_REPS`` eager decode steps of
+    ``eng`` (every slot at its position; synchronised)."""
+    import numpy as np
+    from repro_torch.serve.engine import eager
+    toks = np.zeros((eng.slots,), np.int32)
+    times = []
+    with eager():
+        for _ in range(TP_STEP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.fns.step(eng.params, toks, eng.caches, eng.pos)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def tp_pack_steps(torch, steps: list) -> dict:
+    """:func:`record_decode`'s steps as a few stacked tensors (each tensor
+    sent to a rank is one CUDA IPC handle to open): the slots' rids, fed
+    tokens, positions, logits and, for MoE, each layer's routing."""
+    out = {"rids": [st[0] for st in steps],
+           **{k: torch.stack([st[i] for st in steps])
+              for k, i in (("toks", 1), ("t", 2), ("logits", 3))}}
+    if steps[0][4]:
+        for k, i in (("probs", 0), ("ids", 1)):
+            out[k] = torch.stack([torch.stack([r[i] for r in st[4]])
+                                  for st in steps])
+    return out
+
+
+def tp_unpack_steps(packed: dict) -> list:
+    """The steps :func:`tp_pack_steps` packed."""
+    return [(rids, packed["toks"][i], packed["t"][i], packed["logits"][i],
+             list(zip(packed["probs"][i], packed["ids"][i]))
+             if "probs" in packed else [])
+            for i, rids in enumerate(packed["rids"])]
+
+
+def tp_reference(torch, dev, cfg, params, prompts, kv_shards) -> dict:
+    """The single-process engine the ranks are held against, eager, at the
+    ``kv_shards`` whose decode attention arithmetic a case runs: its
+    streams, its recorded decode steps (kept on the card: the ranks map
+    them by CUDA IPC) and its times."""
+    from repro_torch.serve.engine import ServeEngine, eager
+    e = ServeEngine(cfg, params, slots=4, capacity=256, device=dev,
+                    kv_shards=kv_shards)
+    routes = []
+    steps = record_decode(e, routes)
+    rids = [e.submit(p, MAX_TOKENS) for p in prompts]
+    t0 = time.perf_counter()
+    with recording_routes(routes), eager():
+        out = e.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    del e.fns.decode
+    return {"out": [out[r] for r in rids],
+            "steps": tp_pack_steps(torch, steps), "run_s": run_s,
+            "step_ms": tp_eager_step_ms(torch, e)}
+
+
+def tp_case(torch, dev, rank, cfg, params, prompts, shape, ref,
+            profile: bool) -> dict:
+    """One case on one rank: the engine under rules (placement, the
+    ``dist.psum`` count of a decode trace, then phase 4's requests, eager,
+    counted; rank 0 records each distinct kernel call and the decode
+    steps, holds them against the plain versions and the single-process
+    run ``ref``)."""
+    from repro_torch import obs
+    from repro_torch.dist.axes import make_rules
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.nm_spmm import nm_matmul, nm_matmul_expert
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve.engine import ServeEngine, eager
+    import numpy as np
+    counted = {"nm_matmul": nm_matmul, "nm_matmul_expert": nm_matmul_expert,
+               **{n: getattr(fd, n) for n in FLASH_KERNELS}}
+    t_case = time.perf_counter()
+    mesh = Mesh(shape, ("data", "model"))
+    rules = make_rules(mesh)
+    t0 = time.perf_counter()
+    e = ServeEngine(cfg, params, slots=4, capacity=256, device=dev,
+                    rules=rules)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    held, own = tp_held_bytes(e.params)
+    planned = tp_planned_bytes(cfg, params, mesh)
+    check(held == planned and own, f"rank {rank} {cfg.name} {shape}: "
+          f"params hold {held} B (blocks their own storage: {own}), "
+          f"planned {planned} B")
+    # dist.psum over one decode trace, then a second decode of it
+    rule = tp_psum_rule(cfg, e.params, rules, 4, 256)
+    sites = tuple(rule)
+    obs.reset()
+    obs.configure()
+    try:
+        zeros = np.zeros((4,), np.int32)
+        snap = lambda: {s: obs.counter_value("dist.psum", site=s)  # noqa
+                        for s in sites}
+        c0 = snap()
+        with eager():
+            e.fns.step(e.params, zeros, e.caches, zeros)
+            c1 = snap()
+            e.fns.step(e.params, zeros, e.caches, zeros + 1)
+        c2 = snap()
+    finally:
+        obs.reset()
+    psum = {s: c1[s] - c0[s] for s in sites}
+    check(psum == rule and c2 == c1, f"rank {rank} {cfg.name} {shape}: "
+          f"dist.psum per decode trace {psum} (then {c2} after {c1}), the "
+          f"reference's rule {rule}")
+    for fn in counted.values():
+        fn.launches = 0
+    calls, routes = {}, []
+    steps = record_decode(e, routes)
+    rids = [e.submit(p, MAX_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (first_call_per_signature(calls) if rank == 0
+          else contextlib.nullcontext()), recording_routes(routes), eager():
+        out = e.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    del e.fns.decode
+    prof_out = {}
+    if profile:         # one eager decode step under the profiler
+        with eager():
+            prof_out = profiled_launches(torch, lambda: e.fns.step(
+                e.params, zeros, e.caches, e.pos))
+    counts = path_launches(cfg)
+    sharded_kv = bool(rule["attn_kv"])
+    want = {"flash_decode": 0,
+            "flash_decode_partial": attn_layers(cfg) * e.decode_steps
+            if sharded_kv else 0,
+            "combine_partials": attn_layers(cfg) * e.decode_steps
+            if sharded_kv else 0,
+            **{n: counts["prefill"][n] * e.prefill_calls
+               + counts["decode"][n] * e.decode_steps for n in PATH_KERNELS}}
+    check(launches == want, f"rank {rank} {cfg.name} {shape}: launches "
+          f"{launches}, want {want}")
+    res = {"streams": [out[r] for r in rids], "launches": launches,
+           "prefills": e.prefill_calls, "decode_steps": e.decode_steps,
+           "psum": psum, "bytes": held, "place_s": place_s, "run_s": run_s,
+           "step_ms": tp_eager_step_ms(torch, e), "profiled": prof_out,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if rank == 0:
+        res["calls"] = check_path_calls(torch, calls)
+        n_rows, worst, ties, rerouted = compare_decode_runs(
+            torch, tp_unpack_steps(ref["steps"]), steps,
+            coupled=bool(cfg.num_experts))
+        differ = [i for i, (a, b) in enumerate(zip(ref["out"],
+                                                   res["streams"]))
+                  if a != b]
+        explained = len(ties) + len(rerouted)
+        check(len(differ) == len(ties) if not cfg.num_experts
+              else (not differ or explained > 0),
+              f"{cfg.name} {shape}: streams of requests {differ} differ "
+              f"from the single-process engine's, {len(ties)} token and "
+              f"{len(rerouted)} routing near-ties")
+        res["compare"] = {"rows": n_rows, "worst": worst,
+                          "near_ties": explained, "differ": len(differ)}
+    del e, steps, routes, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["case_s"] = time.perf_counter() - t_case
+    return res
+
+
+def tp_rank(rank: int, world: int, dev, jobs: list) -> dict:
+    """One rank of phase 18 (``dist.ranks.run_ranks``: cuda:0, gloo):
+    each job's cases.  A job's params and reference runs stay in the
+    parent's memory, mapped here by CUDA IPC; each engine keeps this
+    rank's blocks."""
+    import torch
+    from repro_torch.kernels.shard import FORCE_REPLICATED_ENV
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    out = {"entered": time.time()}
+    for job in jobs:
+        cfg = job["cfg"]
+        for name, shape, forced, _ in tp_cases(cfg):
+            if forced:
+                os.environ[FORCE_REPLICATED_ENV] = "1"
+            try:
+                out[f"{cfg.name} {name}"] = tp_case(
+                    torch, dev, rank, cfg, job["params"], job["prompts"],
+                    shape, job["refs"][name],
+                    profile=name == "1x4" and bool(cfg.num_experts))
+            finally:
+                os.environ.pop(FORCE_REPLICATED_ENV, None)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tp(torch, dev, card: str) -> dict:
+    """Phase 18: llama3.2-1b cut to ``TP_LLAMA_LAYERS`` and mixtral-8x22b
+    to phase 5's 2 layers at their published widths, 2:4 (phase 4's
+    masks: ``weights_whole``), served by 4 ranks
+    under rules on (1, 4) and (2, 2) (llama also forced replicated), each
+    held against the single-process engine at the same decode attention
+    arithmetic."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    jobs = []
+    for cfg in (dataclasses.replace(get_config("llama3.2-1b"),
+                                    num_layers=TP_LLAMA_LAYERS),
+                dataclasses.replace(get_config("mixtral-8x22b"),
+                                    num_layers=MIXTRAL_LAYERS)):
+        t1 = time.perf_counter()
+        w = weights_whole(torch, dev, cfg)
+        params = M.serving_params(w.pop("sparse"))
+        del w
+        print(f"  {cfg.name}: {cfg.num_layers} layers made, masked and "
+              f"packed in {time.perf_counter() - t1:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompts = serving_prompts(cfg)
+        refs = {name: tp_reference(torch, dev, cfg, params, prompts, S)
+                for name, _, _, S in tp_cases(cfg)}
+        for name, _, _, S in tp_cases(cfg):
+            print(f"  {cfg.name} single process, kv_shards={S}: "
+                  f"{len(prompts)} requests x {MAX_TOKENS} tokens in "
+                  f"{refs[name]['run_s']:.3f} s eager, one eager decode step "
+                  f"{refs[name]['step_ms']:.2f} ms")
+        jobs.append({"cfg": cfg, "params": params, "prompts": prompts,
+                     "refs": refs})
+    t_ref = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {TP_WORLD} ranks on cuda:0 over gloo (one card; NCCL takes one "
+          "rank a card): every all-reduce and all-gather goes through the "
+          "host; eager steps (a CUDA graph captures collectives over NCCL "
+          "only); params and the single-process runs shared by CUDA IPC")
+    t1, spawned = time.perf_counter(), time.time()
+    ranks = run_ranks(tp_rank, TP_WORLD, args=(jobs,), device="cuda",
+                      backend="gloo", timeout=300.0, deadline=900.0)
+    t_ranks = time.perf_counter() - t1
+    summary = {"paths": {}, "profiled": {}, "cases": {}}
+    for job in jobs:
+        cfg = job["cfg"]
+        for name, shape, _, S in tp_cases(cfg):
+            key = f"{cfg.name} {name}"
+            rs = [r[key] for r in ranks]
+            ref = job["refs"][name]
+            check(all(r["streams"] == rs[0]["streams"] for r in rs),
+                  f"{key}: the ranks' streams differ")
+            same = sum(a == b for a, b in zip(ref["out"], rs[0]["streams"]))
+            launches = {n: sum(r["launches"][n] for r in rs)
+                        for n in TP_KERNELS}
+            summary["paths"][f"tp {key}"] = launches
+            if rs[0]["profiled"]:
+                summary["profiled"][f"tp {key}"] = {
+                    n: sum(r["profiled"][n] for r in rs)
+                    for n in rs[0]["profiled"]}
+            cmp = rs[0]["compare"]
+            print(f"  {key} (mesh {shape}) vs single process kv_shards={S}: "
+                  f"streams equal for {same} of {len(ref['out'])} requests "
+                  f"({cmp['near_ties']} counted near-ties); {cmp['rows']} "
+                  f"decode rows with the same history, logits worst "
+                  f"{cmp['worst']:.3f} of the tolerance ({LOGIT_ULPS_FULL} "
+                  f"bf16 ulps of the row's max); dist.psum per decode "
+                  f"trace {rs[0]['psum']}, the reference's rule; launches "
+                  f"summed over the ranks {launches} ({rs[0]['prefills']} "
+                  f"prefills + {rs[0]['decode_steps']} decode steps a "
+                  f"rank); params a rank {[r['bytes'] for r in rs]} B == "
+                  f"planned blocks; placed in "
+                  f"{max(r['place_s'] for r in rs):.2f} s; served in "
+                  f"{max(r['run_s'] for r in rs):.3f} s; one eager TP "
+                  f"decode step {statistics.median(r['step_ms'] for r in rs):.2f}"
+                  f" ms (host round trips through gloo: not a TP speed) "
+                  f"against {ref['step_ms']:.2f} ms single-process; peak "
+                  f"{max(r['peak_gib'] for r in rs):.2f} GiB a rank")
+            print("    rank 0: " + rs[0]["calls"])
+            summary["cases"][key] = {
+                "mesh": list(shape), "kv_shards": S, "same_streams": same,
+                "near_ties": cmp["near_ties"], "logit_worst": cmp["worst"],
+                "psum": rs[0]["psum"], "bytes": [r["bytes"] for r in rs],
+                "tp_step_ms": [r["step_ms"] for r in rs],
+                "single_step_ms": ref["step_ms"],
+                "run_s": max(r["run_s"] for r in rs),
+                "peak_gib": max(r["peak_gib"] for r in rs)}
+    for name, counts in summary["profiled"].items():
+        cfg = next(j["cfg"] for j in jobs if name.startswith(
+            f"tp {j['cfg'].name} "))
+        per = path_launches(cfg)["decode"]
+        want = {"nm_spmm": TP_WORLD * (per["nm_matmul"]
+                                       + per["nm_matmul_expert"]),
+                "flash_decode": TP_WORLD * attn_layers(cfg),
+                "combine_partials": TP_WORLD * attn_layers(cfg)}
+        seen = {k: v for k, v in counts.items() if k in want}
+        check(seen == want, f"{name}: the profiler saw {counts} kernels "
+              f"in one decode step on the {TP_WORLD} ranks, want {want}")
+        print(f"  {name}: one eager decode step under the profiler on each "
+              f"rank, kernels summed over the ranks {seen} == the wrappers' "
+              "count a step")
+    print(f"  the weights and the single-process runs {t_ref:.1f} s, the "
+          f"ranks {t_ranks:.1f} s: started and joined with their params by "
+          f"CUDA IPC in {max(r['entered'] for r in ranks) - spawned:.1f} s, "
+          f"their work {max(r['s'] for r in ranks):.1f} s (the cases "
+          + ", ".join(f"{k} {v['case_s']:.1f}" for k, v in ranks[0].items()
+                      if isinstance(v, dict)) + " s on rank 0)")
+    del jobs, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t0
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6548,7 +6987,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/18] device")
+    print("[1/19] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -6560,7 +6999,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/18] build")
+    print("[2/19] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -6574,7 +7013,7 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/18] kernels against their plain versions [{card}]")
+    print(f"[3/19] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -6603,14 +7042,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/18] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/19] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/18] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/19] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -6618,7 +7057,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/18] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/19] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -6627,7 +7066,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/18] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/19] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -6635,7 +7074,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/18] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/19] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -6647,7 +7086,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/18] training: the launcher at full width, its resume, the "
+    print(f"[9/19] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -6656,7 +7095,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/18] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/19] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -6665,12 +7104,12 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/18] committed mask bank at smoke width, card vs CPU")
+    print("[11/19] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/18] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+    print(f"[12/19] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
           f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
           f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -6680,7 +7119,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/18] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/19] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -6693,7 +7132,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[14/18] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
+    print(f"[14/19] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
           f"layers: Mamba2 + the LoRA-shared attention, decode attention at "
           f"G 1, D 112) "
           f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
@@ -6708,7 +7147,7 @@ def main() -> int:
     # phase 17's dry run on this host's CPU, beside phases 15-17's card work
     dry = start_dryrun(torch, dev)
     try:
-        print(f"[15/18] the last two families: {WHISPER} whole (12 encoder "
+        print(f"[15/19] the last two families: {WHISPER} whole (12 encoder "
               f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, "
               f"decode attention at G 1, D 64 on its self ring and cross "
               f"cache) and {PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the "
@@ -6722,7 +7161,7 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[16/18] the train step at the published widths of gemma3-1b "
+        print(f"[16/19] the train step at the published widths of gemma3-1b "
               f"(6 of 26 layers), {DEEPSEEK} (2 of 27), {ZAMBA} (6 of 81), "
               f"{XLSTM} and {WHISPER} whole, then each smoke config card vs "
               f"CPU [{card}]")
@@ -6733,7 +7172,7 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[17/18] static analysis at llama3.2-1b's published widths: "
+        print(f"[17/19] static analysis at llama3.2-1b's published widths: "
               f"the decode surface audited and planned on meta, then held "
               f"on the card (launches per step against the profiler, host "
               f"syncs and upcasts of the captured step, params + caches, "
@@ -6746,7 +7185,19 @@ def main() -> int:
     finally:
         stop_dryrun(dry)
 
-    print("[18/18] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[18/19] tensor parallelism: llama3.2-1b ({TP_LLAMA_LAYERS} of 16 "
+          f"layers) and mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) 2:4 at "
+          f"their published widths served by {TP_WORLD} ranks "
+          f"under rules on meshes {TP_MESHES} (llama also forced "
+          f"replicated), against the single-process engine [{card}]")
+    t0 = time.perf_counter()
+    tp = phase_tp(torch, dev, card)
+    t_tp = time.perf_counter() - t0
+    print(f"  phase took {t_tp:.1f} s")
+
+    print("[19/19] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
               DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM],
@@ -6767,6 +7218,8 @@ def main() -> int:
     # captures at kv_shards None and 1, and the mask export
     paths["analysis llama3.2-1b"] = {k: v for k, v in
                                      ana["launches"].items() if v}
+    # phase 18's: each tensor-parallel case, launches summed over the ranks
+    paths.update(tp["paths"])
     # phase 8's, 9's and 10's paths, each with the kernels it launched
     for name, launched in {**evalr["launches"], **trained["launches"],
                            **gemma["launches"],
@@ -6805,6 +7258,7 @@ def main() -> int:
 
     kernels = [
         {"name": "nm_matmul", "route": "cuda",
+         "tp_profiler_launches_per_step": tp["profiled"],
          "source": "src/repro_torch/csrc/nm_spmm.cu",
          "replaces": "src/repro/kernels/nm_spmm.py:126",
          **counts("nm_matmul"), **mm,
@@ -6819,6 +7273,7 @@ def main() -> int:
                  "encoder's 6144; pixtral-12b: a layer's 7 at M 4 and "
                  "1280)"},
         {"name": "nm_matmul_expert", "route": "cuda",
+         "tp_profiler_launches_per_step": tp["profiled"],
          "source": "src/repro_torch/csrc/nm_spmm.cu",
          "replaces": "src/repro/kernels/nm_spmm.py:202",
          **counts("nm_matmul_expert"), **expert,
@@ -6864,6 +7319,7 @@ def main() -> int:
                  "pixtral-12b's 8 kv heads x 4 of 128 included; library: "
                  "F.scaled_dot_product_attention (enable_gqa)"},
         {"name": "flash_decode_partial", "route": "cuda",
+         "tp_profiler_launches_per_step": tp["profiled"],
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:140",
          **counts("flash_decode_partial"),
@@ -6871,6 +7327,7 @@ def main() -> int:
          "work": "the same at kv_shards=4: (acc, m, l) of 4 capacity shards "
                  "in one launch"},
         {"name": "flash_decode_combine", "route": "cuda",
+         "tp_profiler_launches_per_step": tp["profiled"],
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/shard.py:327",
          **counts("combine_partials"),
@@ -6886,7 +7343,8 @@ def main() -> int:
           f"recorder's phase {t_obs:.1f} s, the recurrent phase "
           f"{t_rec:.1f} s, the encoder-decoder and vision phase "
           f"{t_encdec:.1f} s, the train-families phase {t_trainf:.1f} s, "
-          f"the analysis phase {t_ana:.1f} s)")
+          f"the analysis phase {t_ana:.1f} s, the tensor-parallel phase "
+          f"{t_tp:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -6966,6 +7424,9 @@ def main() -> int:
     # phase 17's static analysis, on a line of its own
     print(json.dumps({"analysis": {**{k: v for k, v in ana.items()
                                       if k != "card"}, "s": t_ana}}))
+    # phase 18's tensor parallelism, on a line of its own
+    print(json.dumps({"tensor_parallel": {"cases": tp["cases"],
+                                          "s": t_tp}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

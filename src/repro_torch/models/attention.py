@@ -36,6 +36,12 @@ materialised oracle, for tests):
     ``flash_decode_partial`` kernel over S capacity shards, then the
     combine kernel.
 
+  Under rules (tensor parallelism across ranks) a ring whose capacity is
+  sharded over "model" (``kernels.shard.ring_layout``, as
+  ``attention.py:355-372`` dispatches) holds this rank's slots only: the
+  decode step writes a row's new slot on the rank that holds it and runs
+  ``decode_attend_sharded`` across the ranks.
+
 bf16 einsums in torch return bf16, where JAX's
 ``preferred_element_type=float32`` returns f32, so operands are upcast to
 f32 wherever the reference keeps an f32 result.
@@ -375,7 +381,7 @@ def ring_positions(t: torch.Tensor, capacity: int) -> torch.Tensor:
 
 
 def decode_attend(q, cache_k, cache_v, kpos, t, *, attn_softcap=0.0,
-                  scale=None, window=0, kv_shards=None):
+                  scale=None, window=0, kv_shards=None, kv_axes=()):
     """One-token attention against a cache.
 
     q: (B, H, D); cache_k/v: (B, C, K, D); kpos: position of each slot,
@@ -385,6 +391,9 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, attn_softcap=0.0,
     (S capacity shards, ``flash_decode_partial`` + combine); see the
     module docstring.  Softcapped logits (``attn_softcap``) take the
     replicated path at any ``kv_shards``, as in the reference.
+    ``kv_axes``: the cache is this rank's capacity block, sharded over
+    those mesh axes (``kpos`` its slots' positions), attended across the
+    ranks.
     """
     B, H, D = q.shape
     K = cache_k.shape[2]
@@ -396,6 +405,15 @@ def decode_attend(q, cache_k, cache_v, kpos, t, *, attn_softcap=0.0,
     ok = kb <= tb
     if window:
         ok &= tb - kb < window
+    if kv_axes:
+        if attn_softcap:
+            raise NotImplementedError(
+                "softcapped decode attention over a capacity-sharded ring "
+                "(ROADMAP A item 3)")
+        o = ksh.decode_attend_sharded(qg, cache_k, cache_v,
+                                      ok.expand(B, cache_k.shape[1]),
+                                      axes=kv_axes, scale=scale)
+        return o.reshape(B, H, cache_v.shape[-1]).to(q.dtype)
     if kv_shards is not None and not attn_softcap:
         ksh.check_kv_shards(kv_shards, (cache_k.shape[1],))
         ok = ok.expand(B, cache_k.shape[1])
@@ -449,13 +467,26 @@ def attn_apply_decode(p: PyTree, x: torch.Tensor, cache: PyTree,
         q = cm.rope(q, t[:, None], theta=rope_theta)
         k = cm.rope(k, t[:, None], theta=rope_theta)
     rows = torch.arange(B, device=x.device)
-    slot = ring_slot(t, C).long()
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    kpos = ring_positions(t, C)
+    lay = ksh.ring_layout(B, C, window)
+    if lay is None:
+        slot = ring_slot(t, C).long()
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        kpos, kv_axes = ring_positions(t, C), ()
+    else:
+        # this rank holds slots [off, off + C) of the whole ring's
+        kv_axes, whole, off = lay
+        slot = ring_slot(t, whole).long() - off
+        mine = ((slot >= 0) & (slot < C))[:, None, None]
+        slot = slot.clamp(0, C - 1)
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c[rows, slot] = torch.where(mine, new[:, 0].to(c.dtype),
+                                        c[rows, slot])
+        kpos = ring_positions(t, whole)[:, off:off + C]
     o = decode_attend(q[:, 0], cache["k"], cache["v"], kpos, t,
                       attn_softcap=attn_softcap, scale=scale, window=window,
-                      kv_shards=kv_shards)
+                      kv_shards=kv_shards, kv_axes=kv_axes)
     y = cm.dense(p["wo"], o.reshape(B, 1, num_heads * head_dim))
     return y, cache
 
@@ -479,6 +510,10 @@ def attn_apply_verify(p: PyTree, x: torch.Tensor, cache: PyTree,
     """
     B, S, _ = x.shape
     C = cache["k"].shape[1]
+    if ksh.ring_layout(B, C) is not None:
+        raise NotImplementedError(
+            "spec verify over a capacity-sharded ring (tensor parallelism) "
+            "is not ported: ROADMAP A item 3")
     q = cm.dense(p["wq"], x).reshape(B, S, num_heads, head_dim)
     k = cm.dense(p["wk"], x).reshape(B, S, num_kv, head_dim)
     v = cm.dense(p["wv"], x).reshape(B, S, num_kv, head_dim)

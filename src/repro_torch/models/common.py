@@ -12,6 +12,15 @@ structure once through a :class:`Builder`, which runs in four modes:
 
 so values, axis metadata and artifact templates cannot drift apart.
 Compute runs in bf16 over f32 parameters, as in the reference.
+
+Under rules (tensor parallelism) a dense leaf the mesh shards is this
+rank's ``dist.sharding.DenseBlock``: :func:`dense` and
+:func:`expert_dense` sum its K-partials or gather its columns
+(``kernels.shard.dense_sharded``), :func:`embed_lookup` looks ids up in
+the rank's vocab block and sums the blocks exactly
+(``kernels.shard.lookup_sharded``), :func:`unembed` multiplies by the
+block and sums or gathers, and the MoE router is gathered whole where it
+is used; each rank stores only its block.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import DenseBlock
 from repro_torch.sparse.formats import SparseTensor
 
 PyTree = Any
@@ -123,6 +133,9 @@ def dense(params: PyTree, x: torch.Tensor, *,
         # 2:4-compressed kernel: the hand-written nm_matmul
         from repro_torch.sparse import apply as sparse_apply
         return sparse_apply.sparse_dense(k, x)
+    if isinstance(k, DenseBlock):
+        from repro_torch.kernels import shard as ksh
+        return ksh.dense_sharded(k.to(COMPUTE_DTYPE), x)
     from repro_torch.core import tape as _tape
     t = _tape.current_tape()
     if t is not None:
@@ -153,15 +166,27 @@ def expert_dense(params: PyTree, buf: torch.Tensor) -> torch.Tensor:
     k = params["kernel"]
     if isinstance(k, SparseTensor):
         return sparse_apply.sparse_moe_dense(k, buf)
-    y = torch.bmm(sparse_apply.per_expert(buf), k.to(COMPUTE_DTYPE))
+    x3 = sparse_apply.per_expert(buf)
+    if isinstance(k, DenseBlock):
+        from repro_torch.kernels import shard as ksh
+        y = ksh.dense_sharded(k.to(COMPUTE_DTYPE), x3, expert=True)
+    else:
+        y = torch.bmm(x3, k.to(COMPUTE_DTYPE))
     return sparse_apply.from_per_expert(y, buf.shape[0])
 
 
 def expert_dense_pair(p_up: PyTree, p_gate: PyTree, buf: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Up + gate expert banks over one dispatch buffer.  On one device the
-    reference runs them as two :func:`expert_dense` calls; so does this
-    (the fused K-sharded pair comes with tensor parallelism)."""
+    """Up + gate expert banks over one dispatch buffer.  Compressed banks
+    with matching K-shard tags run as one pair with one all-reduce
+    (``sparse.apply.sparse_moe_dense2``); otherwise two
+    :func:`expert_dense` calls, as the reference's."""
+    ku, kg = p_up["kernel"], p_gate["kernel"]
+    if isinstance(ku, SparseTensor) and isinstance(kg, SparseTensor):
+        from repro_torch.kernels.shard import pair_k_sharded
+        if pair_k_sharded(ku, kg):
+            from repro_torch.sparse import apply as sparse_apply
+            return sparse_apply.sparse_moe_dense2(ku, kg, buf)
     return expert_dense(p_up, buf), expert_dense(p_gate, buf)
 
 
@@ -314,7 +339,11 @@ def embed_init(b: Builder, vocab: int, dim: int) -> PyTree:
 
 
 def embed_lookup(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"].to(COMPUTE_DTYPE)[tokens]
+    t = params["table"]
+    if isinstance(t, DenseBlock):
+        from repro_torch.kernels import shard as ksh
+        return ksh.lookup_sharded(t, tokens, COMPUTE_DTYPE)
+    return t.to(COMPUTE_DTYPE)[tokens]
 
 
 def scale_embed(x: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -326,4 +355,9 @@ def scale_embed(x: torch.Tensor, d_model: int) -> torch.Tensor:
 def unembed(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: x @ table.T -> logits (fp32, rounded through the
     compute dtype as in the reference)."""
-    return (x @ params["table"].to(COMPUTE_DTYPE).T).float()
+    t = params["table"]
+    if isinstance(t, DenseBlock):
+        from repro_torch.kernels import shard as ksh
+        return ksh.dense_sharded(DenseBlock(t.data.T, t.spec[::-1])
+                                 .to(COMPUTE_DTYPE), x).float()
+    return (x @ t.to(COMPUTE_DTYPE).T).float()

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import DenseBlock
 from repro_torch.kernels import shard as ksh
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
@@ -55,6 +56,21 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported: {', '.join(missing)}")
+
+
+# the families served under rules (tensor parallelism across ranks); the
+# other eight wait for ROADMAP A item 3
+TP_FAMILIES = ("llama", "mixtral")
+
+
+def check_tp_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a family the port
+    serves under rules: no family drops quietly to a replicated model."""
+    if not cfg.name.startswith(TP_FAMILIES):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving (rules) is ported for "
+            f"{' and '.join(TP_FAMILIES)} only; the other families wait for "
+            "ROADMAP A item 3")
 
 
 def make_stages(cfg: ModelConfig, num_layers: int | None = None,
@@ -171,8 +187,8 @@ def serving_params(params: PyTree) -> PyTree:
 
 def _layer(stacked: PyTree, i: int) -> PyTree:
     return tree.tree_map(
-        lambda a: a.select(i) if isinstance(a, SparseTensor) else a[i],
-        stacked)
+        lambda a: a.select(i) if isinstance(a, (SparseTensor, DenseBlock))
+        else a[i], stacked)
 
 
 def _unstack(stacked: PyTree, repeats: int) -> list[PyTree]:
@@ -182,7 +198,8 @@ def _unstack(stacked: PyTree, repeats: int) -> list[PyTree]:
     full-size gradient per layer)."""
     cols = tree.tree_map(
         lambda a: tuple(a.select(i) for i in range(repeats))
-        if isinstance(a, SparseTensor) else a.unbind(0), stacked)
+        if isinstance(a, (SparseTensor, DenseBlock)) else a.unbind(0),
+        stacked)
     return [tree.tree_map(lambda c: c[i], cols) for i in range(repeats)]
 
 

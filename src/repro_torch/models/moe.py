@@ -1,8 +1,11 @@
 """Mixture-of-Experts FFN with scatter-based token dispatch.
 
-Port of ``repro.models.moe`` on one device (one dispatch group, G = 1; the
-data-parallel group split and its ``shard_map`` come with tensor
-parallelism).  Tokens route to their top-k experts by an f32 softmax
+Port of ``repro.models.moe``.  Dispatch is group-local: the tokens are
+viewed as G groups of T/G, with G the product of the installed rules'
+"batch" axes (``_dp_setup``; 1 without rules, or when T/G would be under
+8 or uneven), and each group fills its own expert capacity, as the
+reference's; the port's activations stay replicated, so every rank
+dispatches every group.  Tokens route to their top-k experts by an f32 softmax
 router; each expert takes at most C tokens (``capacity_factor``), placed by
 a cumulative count over the token order, and the overflow is dropped.  The
 dispatch buffer (G, E, C, d) runs through ``common.expert_dense_pair`` and
@@ -22,6 +25,8 @@ from typing import Any
 import torch
 
 from repro_torch.core import tape as _tape
+from repro_torch.dist.axes import current_rules
+from repro_torch.dist.sharding import DenseBlock
 from repro_torch.models import common as cm
 from repro_torch.models.common import Builder
 from repro_torch.models.mlp import mlp_apply, mlp_init
@@ -49,6 +54,22 @@ def moe_init(b: Builder, *, d_model: int, d_ff: int, num_experts: int,
     if num_shared:
         p["shared"] = mlp_init(b, d_model, num_shared * d_ff)
     return p
+
+
+def _dp_setup() -> int:
+    """Dispatch groups from the installed rules: the product of the mesh
+    sizes of the "batch" rule's axes (1 without rules)."""
+    rules = current_rules()
+    if rules is None:
+        return 1
+    batch_axes = rules.rules.get("batch") or ()
+    if isinstance(batch_axes, str):
+        batch_axes = (batch_axes,)
+    n = 1
+    for a in batch_axes:
+        if a in rules.mesh.axis_names:
+            n *= rules.mesh.shape[a]
+    return n
 
 
 def capacity(tokens: int, top_k: int, num_experts: int,
@@ -90,7 +111,11 @@ def _top_k(probs: torch.Tensor, k: int):
 def route(router: PyTree, x: torch.Tensor, top_k: int):
     """(probs (..., E), renormalised top-k gates (..., k), expert ids
     (..., k)) from f32 router logits, as the reference computes them."""
-    probs = torch.softmax(x.float() @ router["kernel"].float(), dim=-1)
+    k = router["kernel"]
+    if isinstance(k, DenseBlock):       # small: gathered whole, exact
+        from repro_torch.kernels.shard import gathered
+        k = gathered(k)
+    probs = torch.softmax(x.float() @ k.float(), dim=-1)
     gate_vals, idx = _top_k(probs, top_k)
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), idx
 
@@ -102,7 +127,10 @@ def moe_apply(p: PyTree, x: torch.Tensor, *, top_k: int,
     orig_shape = x.shape
     d = x.shape[-1]
     T = x.numel() // d
-    G, Tl = 1, T
+    G = _dp_setup()
+    if T % G or T // G < 8:
+        G = 1
+    Tl = T // G
     xg = x.reshape(G, Tl, d)
     E = p["router"]["kernel"].shape[-1]
     probs, gate_vals, idx = route(p["router"], xg, top_k)

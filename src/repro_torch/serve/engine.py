@@ -52,6 +52,19 @@ eager.  :func:`eager` runs every step eagerly on the card as well, the
 graphs' oracle (the analogue of ``jax.disable_jit``); on the CPU
 everything is eager.
 
+``rules`` (a ``dist.axes.ShardingRules`` over a ``launch.mesh.Mesh`` of
+ranks, one engine a rank, every rank submitting the same requests):
+tensor-parallel serving, as the reference's ``EngineFns(rules=)``.  The
+engine tags the compressed leaves and keeps each rank's block of every
+leaf (``dist.sharding.place_params``) and of every KV ring
+(``place_caches``), and every surface runs with the rules and the
+capacity installed (``dist.axes.use_rules``,
+``kernels.shard.serving_capacity``); activations and greedy tokens are
+replicated.  llama and mixtral only (``model.check_tp_supported``);
+``kv_shards`` with rules raises.  A CUDA graph captures collectives over
+NCCL only: over another backend on the card a graph surface raises unless
+it runs under :func:`eager`.
+
 The flight recorder (``repro_torch.obs``) sees what the reference's sees:
 ``serve.requests_submitted`` / ``_retired``, ``serve.queue_depth``, a
 ``serve.prefill`` span and ``serve.prefill_ms`` per admission,
@@ -77,12 +90,16 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs, tree
 from repro_torch.analysis import recompile
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.shard import check_kv_shards, surface_call
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.axes import use_rules
+from repro_torch.kernels.shard import (check_kv_shards, serving_capacity,
+                                       surface_call)
 from repro_torch.models import model as M
 
 # layer kinds whose prompt padding is invisible: position-masked attention
@@ -176,7 +193,7 @@ class _Graph:
 
 class EngineFns:
     """Step functions + the blank-slot template for one (cfg, capacity,
-    device, kv_shards, decode_mode).
+    device, kv_shards, decode_mode, rules).
 
     ``ServeEngine`` builds one per instance by default; a multi-engine
     owner (``serve.fleet.SparsityFleet``) builds ONE and hands it to every
@@ -186,11 +203,15 @@ class EngineFns:
     capturing it at first use, with every graph of this instance in one
     memory pool (they never run concurrently).  ``decode_mode="vmap"``
     decodes eagerly, slot by slot; its draft and verify are the fused ones,
-    as in the reference.
+    as in the reference.  ``rules``: tensor parallelism (module
+    docstring); the placed blocks of leaves that several engines on this
+    instance share (a fleet's untouched leaves) are placed once
+    (``placed``).
     """
 
     def __init__(self, cfg: ModelConfig, capacity: int, device,
-                 kv_shards: int | None = None, decode_mode: str = "fused"):
+                 kv_shards: int | None = None, decode_mode: str = "fused",
+                 rules=None):
         if decode_mode not in ("fused", "vmap"):
             raise ValueError(f"decode_mode {decode_mode!r}: 'fused' or "
                              "'vmap'")
@@ -199,6 +220,13 @@ class EngineFns:
                 f"{cfg.name}: the engine is decoder-only, as the "
                 "reference's: an encoder-decoder model serves through "
                 "launch.serve's generate (its prefill runs the encoder)")
+        if rules is not None:
+            M.check_tp_supported(cfg)
+            if kv_shards is not None:
+                raise ValueError(
+                    f"kv_shards={kv_shards} with rules: kv_shards splits the "
+                    "capacity inside one launch on one card; under rules the "
+                    "mesh's 'model' ranks shard it")
         check_kv_shards(kv_shards, M.cache_lengths(cfg, capacity),
                         cfg.layer_kinds)
         self.cfg = cfg
@@ -206,6 +234,9 @@ class EngineFns:
         self.device = device
         self.kv_shards = kv_shards
         self.decode_mode = decode_mode
+        self.rules = rules
+        # id(leaf) -> (weak reference to the leaf, this rank's block of it)
+        self.placed: dict[int, tuple] = {}
         self.verify_fns: dict[int, Callable] = {}   # k -> verify pass
         self.draft_fns: dict[int, Callable] = {}    # k -> draft loop
         self.prefill_buckets: set[int] = set()      # buckets used
@@ -217,6 +248,16 @@ class EngineFns:
         self._graphs: dict[tuple, _Graph] = {}
         self._pool = None
         self._blank_row = None
+
+    @contextlib.contextmanager
+    def ruled(self):
+        """The rules and the capacity installed for one model call (nothing
+        without rules)."""
+        if self.rules is None:
+            yield
+            return
+        with use_rules(self.rules), serving_capacity(self.capacity):
+            yield
 
     # -- model calls (eager) -------------------------------------------------
 
@@ -261,15 +302,28 @@ class EngineFns:
         if bucket not in self.prefill_buckets:
             self.prefill_buckets.add(bucket)
             obs.inc("serve.jit_entries", surface="prefill", bucket=bucket)
-        self._new_signature(f"prefill_{bucket}", (params, toks),
-                            (id(params), bucket))
-        return M.prefill(self.cfg, params, {"tokens": toks},
-                         cache_capacity=self.capacity)[1]
+        traced = self._new_signature(f"prefill_{bucket}", (params, toks),
+                                     (id(params), bucket))
+        # under rules a bucket's first call is its trace: the reference's
+        # jitted prefill counts its collectives once a bucket
+        with self.ruled(), (surface_call(traced) if self.rules is not None
+                            else contextlib.nullcontext()):
+            return M.prefill(self.cfg, params, {"tokens": toks},
+                             cache_capacity=self.capacity)[1]
 
     def write_slot(self, full: list, row: list, s: int) -> list:
-        """Replace slot s's cache rows with a 1-slot row, in place."""
+        """Replace slot s's cache rows with a 1-slot row, in place (under
+        rules, the row's slots of this rank's ring block)."""
         self._new_signature("write_slot", (full, row, np.int32(s)))
-        tree.tree_map(lambda f, n: f[:, s].copy_(n[:, 0]), full, row)
+
+        def put(f, n):
+            if f.dim() >= 3 and f.shape[2] != n.shape[2]:
+                # a capacity-sharded ring (dist.sharding.place_caches)
+                i = self.rules.mesh.index("model")
+                n = n.narrow(2, i * f.shape[2], f.shape[2])
+            f[:, s].copy_(n[:, 0])
+
+        tree.tree_map(put, full, row)
         return full
 
     def blank_row(self) -> list:
@@ -345,6 +399,8 @@ class EngineFns:
         inp = np.asarray(inp)
         pos = np.asarray(pos, np.int32)
         args = (params, inp, caches, pos)
+        if self.rules is not None:
+            body = self._ruled_body(body)
         if self.device.type != "cuda" or _eager_depth or not graph:
             traced = self._new_signature(
                 surface, args, (id(params), id(caches), inp.shape,
@@ -358,6 +414,14 @@ class EngineFns:
         key = (surface, id(params), id(caches))
         g = self._graphs.get(key)
         if g is None:
+            if self.rules is not None:
+                backend = dist.get_backend()
+                if backend != "nccl":
+                    raise ValueError(
+                        f"the {surface} surface under rules on the card: a "
+                        "CUDA graph captures collectives over NCCL only, and "
+                        f"the process group's backend is {backend!r}; run "
+                        "the engine under serve.engine.eager()")
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             g = self._graphs[key] = _Graph(
@@ -365,6 +429,18 @@ class EngineFns:
                 traced=self._new_signature(surface, args),
                 state=M.state_leaves(self.cfg, caches))
         return g.run(inp, pos)
+
+    def _ruled_body(self, body: Callable) -> Callable:
+        def ruled(*args):
+            with self.ruled():
+                return body(*args)
+        return ruled
+
+    def place(self, params):
+        """This rank's blocks of ``params`` (``dist.sharding.place_params``),
+        each shared leaf placed once on this instance."""
+        return shd.place_params(M.param_axes(self.cfg), params, self.rules,
+                                memo=self.placed)
 
     def capture_counts(self) -> dict[str, int]:
         """CUDA graphs captured per surface (``decode``, ``draft_k``,
@@ -402,26 +478,30 @@ class ServeEngine:
     capacity, decode mode, device and ``kv_shards`` (else ``ValueError``).
     ``labels``: metric labels stamped on every span, counter and
     histogram this engine records (a fleet labels its members by budget).
+    ``rules``: tensor-parallel serving (module docstring); a shared
+    ``fns`` must carry the same rules object.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  capacity: int = 512, decode_mode: str = "fused",
                  eos_id: int | None = None, device=None,
                  kv_shards: int | None = None, fns: EngineFns | None = None,
-                 labels: dict | None = None):
+                 labels: dict | None = None, rules=None):
         M.check_supported(cfg)
         device = resolve_device(device)
         if fns is None:
-            fns = EngineFns(cfg, capacity, device, kv_shards, decode_mode)
+            fns = EngineFns(cfg, capacity, device, kv_shards, decode_mode,
+                            rules=rules)
         elif (fns.cfg, fns.capacity, fns.decode_mode, fns.device,
               fns.kv_shards) != (cfg, capacity, decode_mode, device,
-                                 kv_shards):
+                                 kv_shards) or fns.rules is not rules:
             raise ValueError(
                 "shared EngineFns was built for "
                 f"(capacity={fns.capacity}, decode_mode={fns.decode_mode}, "
                 f"device={fns.device}, kv_shards={fns.kv_shards}) and cannot "
                 f"serve (capacity={capacity}, decode_mode={decode_mode}, "
-                f"device={device}, kv_shards={kv_shards}) or a different cfg")
+                f"device={device}, kv_shards={kv_shards}) or a different "
+                "cfg or rules")
         self.fns = fns
         self.cfg = cfg
         self.slots = slots
@@ -429,8 +509,12 @@ class ServeEngine:
         self.decode_mode = decode_mode
         self.device = device
         self.eos_id = cfg.eos_id if eos_id is None else eos_id
+        self.rules = rules
         self.params = M.serving_params(tree.to_device(params, device))
         self.caches = M.init_caches(cfg, slots, capacity, device=device)
+        if rules is not None:
+            self.params = fns.place(self.params)
+            self.caches = shd.place_caches(self.caches, rules)
         self.pos = np.zeros((slots,), np.int32)       # next position per slot
         self.active: list[Request | None] = [None] * slots
         self.queue: collections.deque[Request] = collections.deque()
@@ -452,7 +536,8 @@ class ServeEngine:
                       slots: int = 4, capacity: int = 512,
                       decode_mode: str = "fused",
                       eos_id: int | None = None, device=None,
-                      kv_shards: int | None = None) -> "ServeEngine":
+                      kv_shards: int | None = None,
+                      rules=None) -> "ServeEngine":
         """Engine over bank-derived sparse weights (no re-calibration)."""
         from repro_torch.sparse.bank import MaskBank
         device = resolve_device(device)
@@ -462,7 +547,7 @@ class ServeEngine:
                                     compressed=compressed)
         return cls(bank.cfg, params, slots=slots, capacity=capacity,
                    decode_mode=decode_mode, eos_id=eos_id, device=device,
-                   kv_shards=kv_shards)
+                   kv_shards=kv_shards, rules=rules)
 
     # -- client API ----------------------------------------------------------
 

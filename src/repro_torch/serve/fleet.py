@@ -128,13 +128,16 @@ class SparsityFleet:
 
     Runs on the card unless ``device`` names another (the bank must live
     there).  ``kv_shards`` picks every member's decode attention path.
+    ``rules``: every member serves tensor-parallel over the rules' mesh
+    (``serve.engine``), as the reference's ``SparsityFleet(rules=)``; the
+    members' shared leaves are placed once.
     """
 
     def __init__(self, bank, params0: PyTree, budgets: Iterable, *,
                  slots: int | None = None, capacity: int = 512,
                  decode_mode: str = "fused", eos_id: int | None = None,
                  idx_bits: int = 2, spec: Any = None, device=None,
-                 kv_shards: int | None = None):
+                 kv_shards: int | None = None, rules: Any = None):
         device = resolve_device(device)
         self.bank = bank
         self.cfg = bank.cfg
@@ -156,7 +159,7 @@ class SparsityFleet:
         # is materialized: the members share its untouched leaves
         self.params0 = M.serving_params(tree.to_device(params0, device))
         self.fns = EngineFns(self.cfg, capacity, device, kv_shards,
-                             decode_mode)
+                             decode_mode, rules=rules)
         self.engines: dict[str, ServeEngine] = {}
         self.reports: dict[str, dict] = {}
         for b, s in zip(budgets, _partition_slots(slots, len(budgets))):
@@ -165,7 +168,7 @@ class SparsityFleet:
                 self.cfg, params, slots=s, capacity=capacity,
                 decode_mode=decode_mode, eos_id=eos_id, device=device,
                 kv_shards=kv_shards, fns=self.fns,
-                labels={"budget": b.name})
+                labels={"budget": b.name}, rules=rules)
             self.reports[b.name] = report
         # densest member = the quality reference A/B agreement is scored
         # against (ties break toward earlier budget order)

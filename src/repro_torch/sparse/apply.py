@@ -1,7 +1,7 @@
 """Sparse execution: route ``SparseTensor`` kernels through ``nm_matmul``.
 
-Port of ``repro.sparse.apply`` (single device; the tensor-parallel routes
-come with that slice).  ``models.common.dense`` dispatches on leaf type, so
+Port of ``repro.sparse.apply``.  ``models.common.dense`` dispatches on leaf
+type, so
 a params tree whose prunable kernels :func:`sparsify_params` replaced
 serves through the compressed kernel while every dense leaf keeps its
 matmul.  MoE expert banks (E, d_in, d_out) dispatch the same way through
@@ -10,6 +10,12 @@ dispatch buffer through ``nm_matmul_expert``, one launch for every expert.
 The leaf's ``kernel_layout`` decides what the kernel reads: packed 2-bit
 planes (K % 8 == 0) as stored, padded or int8 storage as an int8 plane
 unpacked at dispatch.
+
+Under rules (tensor parallelism, ``kernels/shard.py``) a leaf is this
+rank's block: a K-shard-tagged leaf (``kernels.shard.k_sharded``; a pair
+first through ``pair_k_sharded``) runs the K-sharded wrappers, one
+all-reduce a projection group; an untagged leaf whose block splits N or
+the experts computes its local columns and gathers them.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.dist.axes import current_rules
+from repro_torch.dist.sharding import sharded
+from repro_torch.kernels import shard as ksh
 from repro_torch.kernels.observe import kernel_pair
 from repro_torch.kernels.nm_spmm import (LAYOUT_PACKED2, nm_matmul,
                                          nm_matmul_expert)
@@ -35,15 +44,36 @@ def _kernel_operand(st: SparseTensor) -> tuple[torch.Tensor, str]:
     return st.unpacked_idx(), layout
 
 
+def _tp(st: SparseTensor) -> bool:
+    """Route through the K-sharded wrappers?  True when the leaf carries a
+    K-shard tag (``dist.sharding.tag_compressed``) and rules are
+    installed (``serve.engine.EngineFns(rules=...)``)."""
+    return ksh.k_sharded(st)
+
+
+def _gathers(st: SparseTensor) -> bool:
+    """An untagged leaf whose block is a proper part of it (N or the
+    experts split), under installed rules."""
+    rules = current_rules()
+    return rules is not None and st.block is not None \
+        and sharded(st.block, rules.mesh)
+
+
 def sparse_dense(st: SparseTensor, x: torch.Tensor) -> torch.Tensor:
     """x: (..., K) @ compressed (K, N) -> (..., N) in x.dtype."""
     if st.ndim != 2:
         raise ValueError("per-layer kernels only; slice stacked leaves "
                          f"with SparseTensor.select (got {st.shape})")
     *lead, k = x.shape
-    idx, layout = _kernel_operand(st)
-    y = nm_matmul(x.reshape(-1, k), st.vals.to(x.dtype), idx, layout=layout)
-    return y.reshape(*lead, st.shape[-1])
+    x2 = x.reshape(-1, k)
+    if _tp(st):
+        y = ksh.nm_dense_sharded(st, x2, site=st.shard_site)
+    elif _gathers(st):
+        y = ksh.nm_gathered(st, x2)
+    else:
+        idx, layout = _kernel_operand(st)
+        y = nm_matmul(x2, st.vals.to(x.dtype), idx, layout=layout)
+    return y.reshape(*lead, y.shape[-1])
 
 
 def per_expert(buf: torch.Tensor) -> torch.Tensor:
@@ -70,24 +100,47 @@ def sparse_moe_dense(st: SparseTensor, buf: torch.Tensor) -> torch.Tensor:
         raise ValueError("expert banks are (E, K, N); slice stacked "
                          f"(layers, E, K, N) leaves first (got {st.shape})")
     G, E, C, d = buf.shape
-    if st.shape[:2] != (E, d):
+    if st.block is None and st.shape[:2] != (E, d):
         raise ValueError(f"expert bank {st.shape} does not match the "
                          f"dispatch buffer {tuple(buf.shape)}")
-    idx, layout = _kernel_operand(st)
-    y = nm_matmul_expert(per_expert(buf), st.vals.to(buf.dtype), idx,
-                         layout=layout)
+    x3 = per_expert(buf)
+    if _tp(st):
+        y = ksh.nm_moe_sharded(st, x3, site=st.shard_site)
+    elif _gathers(st):
+        y = ksh.nm_gathered(st, x3, expert=True)
+    else:
+        idx, layout = _kernel_operand(st)
+        y = nm_matmul_expert(x3, st.vals.to(buf.dtype), idx, layout=layout)
     return from_per_expert(y, G)
 
 
 def sparse_dense2(st_a: SparseTensor, st_b: SparseTensor, x: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pair sharing the reduction dim (gated-MLP up + gate): two kernel
+    """Pair sharing the reduction dim (gated-MLP up + gate).  A
+    K-shard-tagged pair (``kernels.shard.pair_k_sharded``): two local
+    kernels and ONE all-reduce for the group.  Otherwise two kernel
     launches over the same x, the reference's TPU route (its CPU route
-    concatenates the pair along N into one call, ``apply.py:160``).
-    Concatenating the pair along N would re-copy both weights on every
-    call."""
+    concatenates the pair along N into one call, ``apply.py:160``, which
+    would re-copy both weights on every call)."""
+    if ksh.pair_k_sharded(st_a, st_b):
+        *lead, k = x.shape
+        ya, yb = ksh.nm_dense2_sharded(st_a, st_b, x.reshape(-1, k),
+                                       site=st_a.shard_site)
+        return ya.reshape(*lead, -1), yb.reshape(*lead, -1)
     with kernel_pair():
         return sparse_dense(st_a, x), sparse_dense(st_b, x)
+
+
+def sparse_moe_dense2(st_up: SparseTensor, st_gate: SparseTensor,
+                      buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Up + gate expert banks over one dispatch buffer (a K-shard-tagged
+    pair only: callers check ``kernels.shard.pair_k_sharded`` first): two
+    local expert-grid kernels, one all-reduce across the pair and the
+    expert grid."""
+    h, g = ksh.nm_moe2_sharded(st_up, st_gate, per_expert(buf),
+                               site=st_up.shard_site)
+    G = buf.shape[0]
+    return from_per_expert(h, G), from_per_expert(g, G)
 
 
 # ---------------------------------------------------------------------------

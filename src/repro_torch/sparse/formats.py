@@ -1,9 +1,8 @@
 """Compressed weight format: ``SparseTensor``, the 2:4 layout ``nm_matmul``
 executes.
 
-Port of ``repro.sparse.formats`` (the tensor-parallel tags are not ported
-yet), with ``BitMask``, the unstructured keep-mask storage, 8 masks per
-byte.  For a dense
+Port of ``repro.sparse.formats``, with ``BitMask``, the unstructured
+keep-mask storage, 8 masks per byte.  For a dense
 kernel (..., K, N) pruned 2:4 along K it stores ``vals`` (..., K/2, N) in
 the serving compute dtype plus the in-group positions, either int8
 (``idx_bits=8``: (..., K/2, N)) or packed 4 per byte (``idx_bits=2``:
@@ -43,15 +42,50 @@ def _pack_idx2(idx: torch.Tensor) -> torch.Tensor:
 
 
 class SparseTensor:
-    """2:4-compressed weight standing in for a dense (..., K, N) kernel."""
+    """2:4-compressed weight standing in for a dense (..., K, N) kernel.
+
+    ``shard`` is the optional tensor-parallel tag stamped by
+    ``dist.sharding.tag_compressed``: ``(site, *dim_entries)`` where
+    ``site`` labels the projection group ("mlp" / "attn" / "moe" /
+    "dense") and ``dim_entries`` name the mesh axes of the leaf's
+    *executed* dense dims - ``(k, n)`` for a 2-D kernel, ``(e, k, n)`` for
+    an expert bank (a stacked leaf's leading "layers" axis is excluded, so
+    :meth:`select` keeps the tag as it is).  Each entry is None, a
+    mesh-axis name, or a tuple of names.  A non-None K entry routes
+    dispatch through the K-sharded wrappers in ``kernels/shard.py``.
+
+    ``block`` (the port's placement, ``dist.sharding.place_params``): the
+    spec of the components' dims when ``vals`` and ``idx`` are one rank's
+    blocks of the leaf, None when they are the whole leaf.  ``shape`` is
+    then the block's.  Both survive :meth:`select` (which drops the
+    block's first entry with the layer axis), :meth:`to` and the port's
+    tree flatten and unflatten (a SparseTensor is one leaf there).
+    """
 
     def __init__(self, vals: torch.Tensor, idx: torch.Tensor,
-                 idx_bits: int = 8):
+                 idx_bits: int = 8, shard: tuple | None = None,
+                 block: tuple | None = None):
         if idx_bits not in (2, 8):
             raise ValueError(f"idx_bits must be 2 or 8, got {idx_bits}")
         self.vals = vals
         self.idx = idx
         self.idx_bits = idx_bits
+        self.shard = None if shard is None else tuple(shard)
+        self.block = None if block is None else tuple(block)
+
+    def with_shard(self, shard: tuple | None) -> "SparseTensor":
+        """Same components, new tensor-parallel tag."""
+        return SparseTensor(self.vals, self.idx, idx_bits=self.idx_bits,
+                            shard=shard, block=self.block)
+
+    @property
+    def shard_site(self) -> str | None:
+        return None if self.shard is None else self.shard[0]
+
+    @property
+    def k_shard(self):
+        """Mesh axes of the contraction dim, or None (replicated K)."""
+        return None if self.shard is None else self.shard[-2]
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -86,11 +120,15 @@ class SparseTensor:
 
     def select(self, i: int) -> "SparseTensor":
         """Leading-axis slice (one layer of a stacked kernel), as views."""
-        return SparseTensor(self.vals[i], self.idx[i], self.idx_bits)
+        return SparseTensor(self.vals[i], self.idx[i], self.idx_bits,
+                            shard=self.shard,
+                            block=None if self.block is None
+                            else self.block[1:])
 
     def to(self, *args, **kwargs) -> "SparseTensor":
         return SparseTensor(self.vals.to(*args, **kwargs),
-                            self.idx.to(*args, **kwargs), self.idx_bits)
+                            self.idx.to(*args, **kwargs), self.idx_bits,
+                            shard=self.shard, block=self.block)
 
     def unpacked_idx(self) -> torch.Tensor:
         """int8 (..., K/2, N) positions regardless of storage packing."""
@@ -104,8 +142,9 @@ class SparseTensor:
         return ref.decompress_24(self.vals, self.unpacked_idx())
 
     def __repr__(self):
+        tag = f", shard={self.shard}" if self.shard is not None else ""
         return (f"SparseTensor(shape={self.shape}, dtype={self.dtype}, "
-                f"idx_bits={self.idx_bits})")
+                f"idx_bits={self.idx_bits}{tag})")
 
 
 class BitMask:

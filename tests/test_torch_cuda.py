@@ -1380,3 +1380,121 @@ def test_encdec_and_vision_decode_card_matches_cpu(cuda_device, case):
         graph.replay()
         torch.cuda.synchronize()
     assert torch.equal(got_l, want_l)
+
+
+# Tensor parallelism (dist, kernels/shard.py): the kernels at the
+# shard-local shapes a rank launches.  (M, K, N, out): llama3.2-1b at its
+# published widths on (1, 4): wq / wk / wv and up / gate N-split (whole K,
+# bf16 out), wo K 512 and down K 2048 K-split (f32 partials); on (2, 2):
+# wq / wk / wv / up / gate K 1024 and N halved, wo K 1024, down K 4096
+# (f32 partials); decode (M 4) and a prefill's rows (M 127)
+_TP_SHAPES = [(4, 2048, 512, "bf16"), (4, 2048, 128, "bf16"),
+              (4, 2048, 2048, "bf16"), (4, 512, 2048, "f32"),
+              (4, 2048, 2048, "f32"), (4, 1024, 1024, "f32"),
+              (4, 1024, 256, "f32"), (4, 1024, 4096, "f32"),
+              (4, 4096, 1024, "f32"), (127, 512, 2048, "f32"),
+              (127, 1024, 4096, "f32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", _TP_SHAPES, ids=str)
+def test_nm_matmul_at_shard_local_shapes(cuda_device, mkn):
+    """bf16 x and vals, packed2, into the bf16 result of an N-split block
+    or the f32 partial of a K-split one, against the plain version."""
+    M, K, N, out = mkn
+    g = torch.Generator().manual_seed(M + K + N)
+    vals, idx = ref.compress_24(torch.randn((K, N), generator=g))
+    plane = _pack_idx2(idx)
+    x = (0.1 * torch.randn((M, K), generator=g)).to(torch.bfloat16)
+    v = vals.to(torch.bfloat16)
+    out_dtype = torch.float32 if out == "f32" else None
+    want = nm_matmul_plain(x, v, plane, layout=LAYOUT_PACKED2,
+                           out_dtype=out_dtype)
+    got = nm_matmul(x.to(cuda_device), v.to(cuda_device),
+                    plane.to(cuda_device), layout=LAYOUT_PACKED2,
+                    out_dtype=out_dtype).cpu()
+    tol = 1e-4 if out == "f32" else 2e-2
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+# (E, M, K, N): mixtral-8x22b's banks on (1, 4): up / gate N-split (K
+# 6144, N 4096), down K-split (K 4096, N 6144); on (2, 2): up / gate K 3072
+# N 8192, down K 8192 N 3072; all f32 partials but the N-split pair's
+@pytest.mark.cuda
+@pytest.mark.parametrize("emkn", [(8, 4, 6144, 4096, "bf16"),
+                                  (8, 4, 4096, 6144, "f32"),
+                                  (8, 4, 3072, 8192, "f32"),
+                                  (8, 4, 8192, 3072, "f32")], ids=str)
+def test_nm_matmul_expert_at_shard_local_shapes(cuda_device, emkn):
+    E, M, K, N, out = emkn
+    g = torch.Generator().manual_seed(E + M + K + N)
+    w = torch.randn((E, K, N), generator=g)
+    parts = [ref.compress_24(w[e]) for e in range(E)]
+    vals = torch.stack([p[0] for p in parts]).to(torch.bfloat16)
+    plane = _pack_idx2(torch.stack([p[1] for p in parts]))
+    x = (0.1 * torch.randn((E, M, K), generator=g)).to(torch.bfloat16)
+    out_dtype = torch.float32 if out == "f32" else None
+    want = nm_matmul_expert_plain(x, vals, plane, layout=LAYOUT_PACKED2,
+                                  out_dtype=out_dtype)
+    got = nm_matmul_expert(x.to(cuda_device), vals.to(cuda_device),
+                           plane.to(cuda_device), layout=LAYOUT_PACKED2,
+                           out_dtype=out_dtype).cpu()
+    tol = 1e-4 if out == "f32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_partial_per_rank_then_combine(cuda_device, ranks,
+                                                    dtype):
+    """Each rank's capacity shard (llama serving: B 4, 8 kv x 4 of 64, C
+    256) through ``flash_decode_partial`` alone, the ranks' max and
+    rescaled sums (the all-reduces), then the combine kernel on the one
+    combined state (its rescale exp(0) = 1): within the decode tolerance
+    of the plain attention over the whole ring."""
+    from repro_torch.kernels.flash_decode import (combine_partials,
+                                                  flash_decode_partial)
+    B, K, G, D, C = 4, 8, 4, 64, 256
+    q, k, v, bias = _decode_operands(ranks, B, K, G, D, C, dtype,
+                                     cuda_device, [C - 1, 20, 130, 0])
+    n = C // ranks
+    parts = [flash_decode_partial(q, k[:, r * n:(r + 1) * n].contiguous(),
+                                  v[:, r * n:(r + 1) * n].contiguous(),
+                                  bias[:, r * n:(r + 1) * n].contiguous())
+             for r in range(ranks)]
+    mg = torch.stack([m for _, m, _ in parts]).amax(0)
+    l = sum(l * torch.exp(m - mg) for _, m, l in parts)
+    acc = sum(a * torch.exp(m - mg) for a, m, _ in parts)
+    got = combine_partials(acc, mg, l, dtype)
+    want = ref.flash_decode_ref(q, k, v, bias).float()
+    terms = ref.flash_decode_ref(q, k, v.abs(), bias).float()
+    assert got.dtype == dtype and got.shape == (B, K, G, D)
+    assert bool(((got.float() - want).abs()
+                 <= _decode_tol(want, terms, dtype)).all())
+
+
+@pytest.mark.cuda
+def test_tp_engine_over_gloo_on_one_card(cuda_device):
+    """2 ranks on this card over gloo, smoke llama 2:4 on (1, 2): eager,
+    the streams of the single-process engine at kv_shards 2; a graph
+    surface refused, naming the backend."""
+    import _torch_tp_ranks as R
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.serve.engine import ServeEngine, eager
+    cfg, sp = R.sparse_smoke("llama3.2-1b")
+    ps = R.prompts("llama", cfg.vocab_size)
+    e = ServeEngine(cfg, sp, slots=R.SLOTS, capacity=R.CAPACITY,
+                    device=cuda_device, kv_shards=2)
+    rids = [e.submit(p, R.GEN) for p in ps]
+    with eager():
+        out = e.run()
+    want = [out[r] for r in rids]
+    got = run_ranks(R.gloo_card_rank, 2, device="cuda", backend="gloo",
+                    timeout=120.0, deadline=300.0)
+    for streams, refused in got:
+        assert streams == want
+        assert "gloo" in refused and "eager()" in refused
