@@ -291,7 +291,27 @@ result line):
               into the ``kernels`` line) == 4 x one process's, every
               distinct shard-local kernel call held against its plain
               version; mixtral (1, 4) under the profiler too.
-19. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+19. calib_tp - the UniPruning search over ``torch.distributed`` ranks:
+              llama3.2-1b at its published widths (phase 18's 4 of 16
+              layers), the calibrate launcher's search (wanda, 2:4, median
+              scores) for 3 steps over 2 calibration batches of 4 x 64, on
+              phase 18's 4 ranks under rules on meshes (1, 4) and (2, 2)
+              (stats, search, the 2:4 export) and through the launcher's
+              ``--mesh host`` path ((4, 1): ``calibrate_to_bank`` under
+              ``host_rules``, rank 0 writing the bank); the params and the
+              single-process card search shared by CUDA IPC.  Each case:
+              Gamma and V gathered to rank 0 within the CPU tests' bound
+              (rtol 1e-5, atol 1e-7) of the single-process search, the 2:4
+              masks equal but for counted near-ties, the history's loss and
+              counts equal, each rank's state bytes ==
+              ``search_state_sharding``'s blocks, ``saliency_fused_step``,
+              ``prox24`` and ``nm_mask24`` launched at the shard-local
+              shapes (the wrappers' counts == the profiler's, summed over
+              the ranks into the ``kernels`` line), rank 0's every distinct
+              call held against its plain version bit for bit, the bank the
+              ranks wrote reloaded with the single process's masks, peak
+              memory a rank.
+20. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -6973,6 +6993,414 @@ def phase_tp(torch, dev, card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the UniPruning search over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# phase 18's 4 ranks on cuda:0 over gloo and its llama3.2-1b cut (4 of 16
+# layers); the launcher's search defaults (wanda, 2:4, median scores)
+CALIB_TP_MESHES = ((1, 4), (2, 2))
+CALIB_TP_STEPS = 3
+CALIB_TP_KERNELS = ("saliency_fused_step", "prox24", "nm_mask24")
+CALIB_TP_PROFILED = {"saliency_fused_step": ("saliency_fuse_kernel",),
+                     "prox24": ("prox24_kernel",),
+                     "nm_mask24": ("nm_mask24_kernel",)}
+CALIB_TP_DIR = ROOT / "build" / "chip_smoke_calib_tp"
+CALIB_TP_RTOL, CALIB_TP_ATOL = 1e-5, 1e-7   # tests/test_torch_calib_tp.py's
+
+
+@contextlib.contextmanager
+def mask_calls_checked(torch, seen: dict):
+    """While open, the first ``nm_mask24`` call at every distinct signature
+    that ``core/masks.py`` makes is held against the plain ranking on the
+    same scores, exactly; every call still launches and counts."""
+    from repro_torch.core import masks
+    from repro_torch.kernels import ref
+    saved = masks.nm_mask24
+
+    def call(s):
+        got = saved(s)
+        key = ("nm_mask24", tuple(s.shape), s.dtype)
+        if key not in seen:
+            want = ref.nm_mask_ref(s, 2, 4)
+            seen[key] = int((got != want).sum())
+            check(torch.equal(got, want), f"nm_mask24 at {key} on the "
+                  f"sharded export differs from its plain version in "
+                  f"{seen[key]} entries")
+        return got
+
+    masks.nm_mask24 = call
+    try:
+        yield seen
+    finally:
+        masks.nm_mask24 = saved
+
+
+def calib_tp_planned_bytes(cfg, params, rules) -> int:
+    """This rank's W / Gamma / V bytes by ``search_state_sharding``'s
+    spec tree alone (from shapes: no state is made)."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.core.mirror import SearchState
+    from repro_torch.core.prunable import prunable_map
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import model as M
+    shapes = tree.tree_map(lambda p: tuple(p.shape), params)
+    gv = tree.tree_map(lambda s, p: s if p else None, shapes,
+                       prunable_map(params))
+    specs = shd.search_state_sharding(
+        M.param_axes(cfg), SearchState(W=shapes, Gamma=gv, V=gv, step=0,
+                                       rng=None), rules)
+    total = 0
+    for name in ("W", "Gamma", "V"):
+        want = shapes if name == "W" else gv
+        for x, spec in zip(tree.leaves(want),
+                           tree.leaves(getattr(specs, name)), strict=True):
+            if x is not None:
+                total += 4 * int(np.prod(shd.block_shape(x, spec,
+                                                         rules.mesh)))
+    return total
+
+
+def calib_tp_held_bytes(state) -> int:
+    """The bytes of this rank's W / Gamma / V storages."""
+    from repro_torch import tree
+    from repro_torch.dist.sharding import block_data
+    return sum(block_data(x).untyped_storage().nbytes()
+               for t in (state.W, state.Gamma, state.V)
+               for x in tree.leaves(t) if x is not None)
+
+
+def calib_tp_compare(torch, ref: dict, gamma, v, masks, mesh=None) -> dict:
+    """Trees from the ranks against the single-process search (whole, or
+    with ``mesh`` this rank's ``DenseBlock``s against the same blocks of
+    the single process's leaves): the worst |err| / (atol + rtol |want|)
+    of Gamma and V (<= 1 holds), and the 2:4 mask entries that differ,
+    each group of them a near-tie of the single process's scores (its
+    kept / dropped gap within twice the bound)."""
+    from repro_torch import tree
+    from repro_torch.dist.sharding import DenseBlock, local_block
+
+    def pairs(want, got):
+        for w, g in zip(tree.leaves(want), tree.leaves(got), strict=True):
+            if w is not None:
+                yield ((local_block(w, g.spec, mesh), g.data, g.spec)
+                       if isinstance(g, DenseBlock) else (w, g, ()))
+
+    worst = 0.0
+    for name, got in (("Gamma", gamma), ("V", v)):
+        for w, g, _ in pairs(ref[name], got):
+            worst = max(worst, float(((g - w).abs() / (
+                CALIB_TP_ATOL + CALIB_TP_RTOL * w.abs())).max()))
+    eps = 1e-6 * max(float(g.abs().max()) for g in tree.leaves(ref["Gamma"])
+                     if g is not None) / max(
+        float(x.abs().max()) for x in tree.leaves(ref["V"]) if x is not None)
+    differ = ties = 0
+    for (w, g, spec), gm, vv in zip(
+            pairs(ref["masks"], masks),
+            (x for x in tree.leaves(ref["Gamma"]) if x is not None),
+            (x for x in tree.leaves(ref["V"]) if x is not None),
+            strict=True):
+        bad = (w != g.bool())
+        n = int(bad.sum())
+        if not n:
+            continue
+        differ += n
+        if spec:
+            gm, vv = (local_block(x, spec, mesh) for x in (gm, vv))
+        N = w.shape[-1]
+        score = (gm.abs() + eps * vv.abs()).reshape(-1, 4, N)
+        srt = score.sort(dim=1).values
+        gap = srt[:, 2] - srt[:, 1]
+        tol = (CALIB_TP_ATOL + CALIB_TP_RTOL * score).amax(dim=1)
+        groups = bad.reshape(-1, 4, N).any(dim=1)
+        ties += int((groups & (gap <= 2 * tol)).sum())
+        check(bool(((gap <= 2 * tol) | ~groups).all()),
+              "a 2:4 mask group differs from the single process's where "
+              "its scores are not near-tied")
+    return {"worst": worst, "mask_entries_differ": differ,
+            "near_tied_groups": ties}
+
+
+def calib_tp_run(torch, dev, rank: int, fn, profiled: bool) -> dict:
+    """``fn()`` counted (each search kernel's wrapper count set to 0 just
+    before, read just after), rank 0 holding every distinct kernel call
+    against its plain version; with ``profiled``, under the profiler on
+    every rank (the device's activity, after :func:`profiler_window`'s spin
+    kernels), whose kernel counts must equal the wrappers'."""
+    fns = _kernel_fns()
+    seen = {}
+    for name in CALIB_TP_KERNELS:
+        fns[name].launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    from torch.profiler import ProfilerActivity, profile
+    with (search_calls_checked(torch, seen) if rank == 0
+          else contextlib.nullcontext()), \
+            (mask_calls_checked(torch, seen) if rank == 0
+             else contextlib.nullcontext()), \
+            (profile(activities=[ProfilerActivity.CUDA]) if profiled
+             else contextlib.nullcontext()) as prof:
+        if profiled:
+            for _ in range(PROFILER_WARMUP):
+                torch.cuda._sleep(1000)
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    launches = {name: fns[name].launches for name in CALIB_TP_KERNELS}
+    t0 = time.perf_counter()
+    seen_prof = None
+    if profiled:
+        evs = device_events(prof)
+        seen_prof = {name: sum(e.count for e in evs
+                               if any(k in e.key for k in keys))
+                     for name, keys in CALIB_TP_PROFILED.items()}
+        check(seen_prof == launches, f"rank {rank}: the profiler saw "
+              f"{seen_prof} search kernels, the wrappers counted "
+              f"{launches}")
+    return {"out": out, "launches": launches, "profiled": seen_prof,
+            "calls": sorted(f"{k[0]} {k[1]}" for k in seen), "s": s,
+            "profile_s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def calib_tp_case(torch, dev, rank: int, job: dict, shape) -> dict:
+    """One mesh: stats, the 3-step search and the 2:4 export under rules,
+    counted and profiled; each rank holds its Gamma, V and mask blocks
+    against the same blocks of the single-process search, and its history
+    against that search's."""
+    from repro_torch.core import calibrate as C
+    from repro_torch.core import mirror
+    from repro_torch.dist.axes import make_rules
+    from repro_torch.launch.mesh import Mesh
+    cfg, pcfg, params, calib = (job[k] for k in ("cfg", "pcfg", "params",
+                                                 "calib"))
+    mesh = Mesh(shape, ("data", "model"))
+    rules = make_rules(mesh)
+
+    def path():
+        stats = C.collect_stats(cfg, params, calib, pcfg=pcfg, rules=rules)
+        state, hist = C.run_search(cfg, pcfg, params, calib, stats,
+                                   rules=rules, log_every=1)
+        masks = mirror.export_masks(pcfg, state.Gamma, 0.5, V=state.V,
+                                    rules=rules)
+        torch.cuda.synchronize()
+        return state, stats, hist, masks
+
+    res = calib_tp_run(torch, dev, rank, path, profiled=False)
+    state, stats, hist, masks = res.pop("out")
+    held = calib_tp_held_bytes(state)
+    planned = calib_tp_planned_bytes(cfg, params, rules)
+    check(held == planned, f"rank {rank} mesh {shape}: the search state "
+          f"holds {held} B, search_state_sharding's blocks {planned} B")
+    res["bytes"] = held
+    t0 = time.perf_counter()
+    res["compare"] = calib_tp_compare(torch, job["ref"], state.Gamma,
+                                      state.V, masks, mesh)
+    want = job["ref"]["history"]
+    check(len(hist) == len(want) and all(
+        a[k] == b[k] for a, b in zip(want, hist)
+        for k in ("loss", "gamma_nonzero_frac", "mask_churn")),
+        f"rank {rank} mesh {shape}: the search history differs from the "
+        f"single process's: {hist} vs {want}")
+    del state, masks
+    if shape == CALIB_TP_MESHES[0]:
+        # the profiler over one more search (1 step from the stats) and
+        # its export, not over the case: with it on, the case took ~9 s
+        # more, and the table of its ~20 s window ~7 s to build
+        one = dataclasses.replace(pcfg, steps=1)
+
+        def step():
+            st, _ = C.run_search(cfg, one, params, calib, stats, rules=rules)
+            mirror.export_masks(one, st.Gamma, 0.5, V=st.V, rules=rules)
+
+        prof = calib_tp_run(torch, dev, rank, step, profiled=True)
+        res.update(profiled=prof["profiled"],
+                   profiled_launches=prof["launches"],
+                   profile_s=prof["s"] + prof["profile_s"])
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gather_s"] = time.perf_counter() - t0
+    return res
+
+
+def calib_tp_launcher(torch, dev, rank: int, job: dict) -> dict:
+    """The calibrate launcher's ``--mesh host`` path over the 4 ranks
+    ((4, 1)): ``launch.calibrate.host_rules`` over this process group,
+    then ``calibrate_to_bank`` under them, counted and profiled; rank 0
+    writes the bank, loads it and holds it against the single-process
+    search."""
+    from repro_torch.launch.calibrate import calibrate_to_bank, host_rules
+    from repro_torch.sparse.bank import MaskBank
+    cfg, pcfg, params, calib = (job[k] for k in ("cfg", "pcfg", "params",
+                                                 "calib"))
+    rules, _, _ = host_rules(str(dev))
+    res = calib_tp_run(torch, dev, rank, lambda: calibrate_to_bank(
+        job["bank"], cfg=cfg, pcfg=pcfg, params=params,
+        calib=calib, arch=cfg.name, smoke=False, log_every=1, rules=rules),
+        profiled=False)
+    bank = res.pop("out")
+    check((bank is None) == (rank != 0), f"rank {rank}: MaskBank.save "
+          f"returned {type(bank).__name__}")
+    res["mesh"] = dict(rules.mesh.shape)
+    t0 = time.perf_counter()
+    if rank == 0:
+        loaded = MaskBank.load(job["bank"], cfg=cfg, device=dev)
+        res["compare"] = calib_tp_compare(torch, job["ref"], loaded.Gamma,
+                                          loaded.V, loaded.masks_at())
+        res["checksum"] = loaded.meta["checksum"]
+        del loaded
+    del bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gather_s"] = time.perf_counter() - t0
+    return res
+
+
+def calib_tp_rank(rank: int, world: int, dev, job: dict) -> dict:
+    """One rank of phase 19 (``dist.ranks.run_ranks``: cuda:0, gloo): the
+    params and the single-process run stay in the parent's memory, mapped
+    here by CUDA IPC."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    out = {"entered": time.time()}
+    for shape in CALIB_TP_MESHES:
+        out[f"{shape[0]}x{shape[1]}"] = calib_tp_case(torch, dev, rank, job,
+                                                     shape)
+    out["launcher 4x1"] = calib_tp_launcher(torch, dev, rank, job)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_calib_tp(torch, dev, card: str) -> dict:
+    """Phase 19: llama3.2-1b at its published widths (phase 18's 4 of 16
+    layers), the launcher's search (wanda, 2:4, median scores) for 3 steps
+    over 2 calibration batches of 4 x 64, on 4 ranks under rules on (1,
+    4), (2, 2) and the launcher's ``--mesh host`` (4, 1), each held
+    against the single-process card search."""
+    from repro_torch import tree
+    from repro_torch.configs.base import PruneConfig, get_config
+    from repro_torch.core import calibrate as C
+    from repro_torch.core import mirror
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              num_layers=TP_LLAMA_LAYERS)
+    pcfg = PruneConfig(local_metric="wanda", mode="nm",
+                       steps=CALIB_TP_STEPS, stats_batches=4)
+    calib = batches_for(cfg, n=2, batch=4, seq=64, split="calib")
+    params = M.init_params(cfg, 0, device=dev)
+    shutil.rmtree(CALIB_TP_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    stats = C.collect_stats(cfg, params, calib, pcfg=pcfg)
+    state, hist = C.run_search(cfg, pcfg, params, calib, stats, log_every=1)
+    masks = mirror.export_masks(pcfg, state.Gamma, 0.5, V=state.V)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t1
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = {"Gamma": state.Gamma, "V": state.V, "masks": masks,
+           "history": hist}
+    del stats, state
+    print(f"  {cfg.name} ({cfg.num_layers} layers): "
+          f"{sum(x.numel() for x in tree.leaves(params))} params; "
+          f"{pcfg.local_metric} {pcfg.mode}, score_norm {pcfg.score_norm}, "
+          f"{pcfg.steps} steps, calib 2 x 4 x 64; one process: stats + "
+          f"search + 2:4 export {single_s:.2f} s, peak {single_peak:.2f} GiB")
+    job = {"cfg": cfg, "pcfg": pcfg, "params": params, "calib": calib,
+           "ref": ref, "bank": CALIB_TP_DIR / "ranked"}
+    print(f"  {TP_WORLD} ranks on cuda:0 over gloo (phase 18's), each kernel "
+          "gathered whole where the model uses it, the search state and "
+          "its kernels on each rank's blocks; params and the single-process "
+          "search shared by CUDA IPC")
+    t1, spawned = time.perf_counter(), time.time()
+    ranks = run_ranks(calib_tp_rank, TP_WORLD, args=(job,), device="cuda",
+                      backend="gloo", timeout=300.0, deadline=600.0)
+    t_ranks = time.perf_counter() - t1
+    summary = {"paths": {}, "profiled": {}, "calls": {}, "cases": {}}
+    for case in [f"{a}x{b}" for a, b in CALIB_TP_MESHES] + ["launcher 4x1"]:
+        rs = [r[case] for r in ranks]
+        # the meshes' ranks hold distinct blocks of every prunable leaf;
+        # the launcher's bank is compared whole on rank 0
+        cmps = [r["compare"] for r in rs if "compare" in r]
+        cmp = {"worst": max(c["worst"] for c in cmps),
+               **{k: sum(c[k] for c in cmps)
+                  for k in ("mask_entries_differ", "near_tied_groups")}}
+        check(cmp["worst"] <= 1.0, f"calib_tp {case}: Gamma / V "
+              f"{cmp['worst']:.3f} of the bound from the single process's")
+        launches = {n: sum(r["launches"][n] for r in rs)
+                    for n in CALIB_TP_KERNELS}
+        want = {"saliency_fused_step": TP_WORLD * CALIB_TP_STEPS * 7,
+                "prox24": TP_WORLD * CALIB_TP_STEPS * 7,
+                "nm_mask24": 0 if case.startswith("launcher")
+                else TP_WORLD * 7}
+        check(launches == want, f"calib_tp {case}: launches summed over the "
+              f"ranks {launches}, want {want}")
+        summary["paths"][f"calib_tp {case}"] = launches
+        if rs[0]["profiled"]:
+            summary["profiled"][f"calib_tp {case}, 1 step + export"] = {
+                n: sum(r["profiled"][n] for r in rs)
+                for n in CALIB_TP_KERNELS}
+            want1 = {"saliency_fused_step": TP_WORLD * 7,
+                     "prox24": TP_WORLD * 7, "nm_mask24": TP_WORLD * 7}
+            check(summary["profiled"][f"calib_tp {case}, 1 step + export"]
+                  == want1, f"calib_tp {case}: the profiler's launches "
+                  f"over one step and its export {rs[0]['profiled']} a "
+                  f"rank, want {want1} summed")
+        summary["calls"][case] = rs[0]["calls"]
+        summary["cases"][case] = {
+            "worst": cmp["worst"],
+            "mask_entries_differ": cmp["mask_entries_differ"],
+            "near_tied_groups": cmp["near_tied_groups"],
+            "bytes": [r.get("bytes") for r in rs],
+            "peak_gib": [r["peak_gib"] for r in rs],
+            "s": max(r["s"] for r in rs),
+            "check_s": max(r["gather_s"] for r in rs)}
+        print(f"  {case}: Gamma / V worst {cmp['worst']:.3f} of the bound "
+              f"(rtol {CALIB_TP_RTOL}, atol {CALIB_TP_ATOL}) from the single "
+              f"process's, 2:4 masks: {cmp['mask_entries_differ']} entries "
+              f"differ ({cmp['near_tied_groups']} near-tied groups); launches "
+              f"summed over the ranks {launches}"
+              + (f" (one more step and export under the profiler: "
+                 f"{rs[0]['profiled']} a rank, == the wrappers')"
+                 if rs[0]["profiled"] else "")
+              + (f"; state bytes a rank {[r['bytes'] for r in rs]} == "
+                 "search_state_sharding's blocks" if "bytes" in rs[0]
+                 else "")
+              + f"; {max(r['s'] for r in rs):.2f} s (gloo through the host on "
+              f"one card: not a TP speed; then the checks "
+              f"{max(r['gather_s'] for r in rs):.2f} s"
+              + (f", the profiled step of them "
+                 f"{max(r['profile_s'] for r in rs):.2f} s"
+                 if rs[0]["profiled"] else "") + "); peak "
+              f"{max(r['peak_gib'] for r in rs):.2f} GiB a rank")
+        print(f"    rank 0's shard-local kernel calls, each bit for bit with "
+              f"its plain version: {'; '.join(rs[0]['calls'])}")
+    print(f"  the bank rank 0 wrote loads (checksum "
+          f"{ranks[0]['launcher 4x1']['checksum']}); its masks differ from "
+          f"the single process's in "
+          f"{summary['cases']['launcher 4x1']['mask_entries_differ']} "
+          f"entries")
+    print(f"  the single process {t1 - t0:.1f} s, the ranks {t_ranks:.1f} s "
+          f"(started and joined in "
+          f"{max(r['entered'] for r in ranks) - spawned:.1f} s, their work "
+          f"{max(r['s'] for r in ranks):.1f} s)")
+    del job, ref, masks, params, ranks
+    shutil.rmtree(CALIB_TP_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t0
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6987,7 +7415,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/19] device")
+    print("[1/20] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -6999,7 +7427,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/19] build")
+    print("[2/20] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -7013,7 +7441,7 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/19] kernels against their plain versions [{card}]")
+    print(f"[3/20] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -7042,14 +7470,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/19] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/20] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/19] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/20] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -7057,7 +7485,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/19] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/20] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -7066,7 +7494,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/19] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/20] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -7074,7 +7502,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/19] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/20] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -7086,7 +7514,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/19] training: the launcher at full width, its resume, the "
+    print(f"[9/20] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -7095,7 +7523,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/19] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/20] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -7104,12 +7532,12 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/19] committed mask bank at smoke width, card vs CPU")
+    print("[11/20] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/19] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+    print(f"[12/20] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
           f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
           f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -7119,7 +7547,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/19] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/20] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -7132,7 +7560,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[14/19] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
+    print(f"[14/20] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
           f"layers: Mamba2 + the LoRA-shared attention, decode attention at "
           f"G 1, D 112) "
           f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
@@ -7147,7 +7575,7 @@ def main() -> int:
     # phase 17's dry run on this host's CPU, beside phases 15-17's card work
     dry = start_dryrun(torch, dev)
     try:
-        print(f"[15/19] the last two families: {WHISPER} whole (12 encoder "
+        print(f"[15/20] the last two families: {WHISPER} whole (12 encoder "
               f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, "
               f"decode attention at G 1, D 64 on its self ring and cross "
               f"cache) and {PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the "
@@ -7161,7 +7589,7 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[16/19] the train step at the published widths of gemma3-1b "
+        print(f"[16/20] the train step at the published widths of gemma3-1b "
               f"(6 of 26 layers), {DEEPSEEK} (2 of 27), {ZAMBA} (6 of 81), "
               f"{XLSTM} and {WHISPER} whole, then each smoke config card vs "
               f"CPU [{card}]")
@@ -7172,7 +7600,7 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[17/19] static analysis at llama3.2-1b's published widths: "
+        print(f"[17/20] static analysis at llama3.2-1b's published widths: "
               f"the decode surface audited and planned on meta, then held "
               f"on the card (launches per step against the profiler, host "
               f"syncs and upcasts of the captured step, params + caches, "
@@ -7187,7 +7615,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[18/19] tensor parallelism: llama3.2-1b ({TP_LLAMA_LAYERS} of 16 "
+    print(f"[18/20] tensor parallelism: llama3.2-1b ({TP_LLAMA_LAYERS} of 16 "
           f"layers) and mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) 2:4 at "
           f"their published widths served by {TP_WORLD} ranks "
           f"under rules on meshes {TP_MESHES} (llama also forced "
@@ -7197,7 +7625,19 @@ def main() -> int:
     t_tp = time.perf_counter() - t0
     print(f"  phase took {t_tp:.1f} s")
 
-    print("[19/19] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[19/20] the UniPruning search over ranks: llama3.2-1b "
+          f"({TP_LLAMA_LAYERS} of 16 layers) at its published widths, wanda "
+          f"2:4, {CALIB_TP_STEPS} steps, on {TP_WORLD} ranks under rules on "
+          f"meshes {CALIB_TP_MESHES} and the calibrate launcher's --mesh "
+          f"host (4, 1), against the single-process search [{card}]")
+    t0 = time.perf_counter()
+    ctp = phase_calib_tp(torch, dev, card)
+    t_ctp = time.perf_counter() - t0
+    print(f"  phase took {t_ctp:.1f} s")
+
+    print("[20/20] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
               DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM],
@@ -7220,6 +7660,8 @@ def main() -> int:
                                      ana["launches"].items() if v}
     # phase 18's: each tensor-parallel case, launches summed over the ranks
     paths.update(tp["paths"])
+    # phase 19's: each sharded search case, launches summed over the ranks
+    paths.update(ctp["paths"])
     # phase 8's, 9's and 10's paths, each with the kernels it launched
     for name, launched in {**evalr["launches"], **trained["launches"],
                            **gemma["launches"],
@@ -7281,11 +7723,15 @@ def main() -> int:
                  "M=C=4 (4 slots), packed2, bf16; by_path: one "
                  "deepseek-v2-lite-16b layer's banks at E=64, C 4 and 16"},
         {"name": "nm_mask24", "route": "cuda",
+         "calib_tp_profiler_launches": ctp["profiled"],
+         "calib_tp_shard_local_calls": ctp["calls"],
          "source": "src/repro_torch/csrc/nm_mask24.cu",
          "replaces": "src/repro/kernels/nm_prox.py:82",
          **counts("nm_mask24"), **mask,
          "work": "f32 scores (16*2048, 8192) -> bool keep-mask"},
         {"name": "prox24", "route": "cuda",
+         "calib_tp_profiler_launches": ctp["profiled"],
+         "calib_tp_shard_local_calls": ctp["calls"],
          "source": "src/repro_torch/csrc/prox24.cu",
          "replaces": "src/repro/kernels/nm_prox.py:46",
          **counts("prox24"), **prox,
@@ -7293,6 +7739,8 @@ def main() -> int:
                  "leaves as (16*K, N) f32 views, in place, lam 1e-2, 12 "
                  "iterations; by_path: one step on each calibration path"},
         {"name": "saliency_fused_step", "route": "cuda",
+         "calib_tp_profiler_launches": ctp["profiled"],
+         "calib_tp_shard_local_calls": ctp["calls"],
          "source": "src/repro_torch/csrc/saliency_fuse.cu",
          "replaces": "src/repro/kernels/saliency_fuse.py:49",
          **counts("saliency_fused_step"), **fused,
@@ -7344,7 +7792,7 @@ def main() -> int:
           f"{t_rec:.1f} s, the encoder-decoder and vision phase "
           f"{t_encdec:.1f} s, the train-families phase {t_trainf:.1f} s, "
           f"the analysis phase {t_ana:.1f} s, the tensor-parallel phase "
-          f"{t_tp:.1f} s)")
+          f"{t_tp:.1f} s, the sharded search phase {t_ctp:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -7427,6 +7875,8 @@ def main() -> int:
     # phase 18's tensor parallelism, on a line of its own
     print(json.dumps({"tensor_parallel": {"cases": tp["cases"],
                                           "s": t_tp}}))
+    # phase 19's sharded search, on a line of its own
+    print(json.dumps({"calib_tp": {"cases": ctp["cases"], "s": t_ctp}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

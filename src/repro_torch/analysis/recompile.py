@@ -31,6 +31,8 @@ and the calibration search_chunk / search_step (core/calibrate.py).
 """
 from __future__ import annotations
 
+import contextlib
+
 import dataclasses
 import threading
 from typing import Any, Hashable
@@ -72,6 +74,18 @@ def enable(budgets: dict[str, int] | None = None, *,
 def disable() -> None:
     global _enabled
     _enabled = False
+
+
+@contextlib.contextmanager
+def paused():
+    """The sentinel off for the block, its budgets and signatures kept (a
+    rank other than 0 of a launcher over ranks)."""
+    global _enabled
+    prev, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = prev
 
 
 def reset() -> None:

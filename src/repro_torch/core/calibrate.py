@@ -16,8 +16,24 @@ baseline_masks   - one-shot local-metric baselines sharing the same stats
                    and mask machinery.
 
 Process-level entry point: ``repro_torch.launch.calibrate`` runs stats ->
-search once and writes a ``sparse.bank.MaskBank`` artifact.  The reference
-runs the search as jitted ``lax.scan`` chunks of ``pcfg.scan_chunk`` steps;
+search once and writes a ``sparse.bank.MaskBank`` artifact.
+
+``rules`` (``dist.axes.ShardingRules`` over a ``launch.mesh.Mesh`` of
+ranks; llama and mixtral, ``models.model.check_tp_supported``): the stats
+pass runs on each rank's parameter blocks with the whole batch
+(activations are replicated) and keeps each kernel's stats block; the
+search state lives as each rank's W / Gamma / V blocks
+(``dist.sharding.place_state``, on ``dist.sharding.search_specs``) for the
+whole search, and the masks come out as blocks.  The model runs with each
+kernel gathered whole where it is used (``kernels.shard.whole_weights``):
+every rank computes the single process's activations, loss and task
+gradient bit for bit and keeps its block of the gradient, and the
+per-leaf step runs on the blocks (``core.mirror``).  The serving path's
+K-partial sums would change bf16 roundings, which the attention
+amplifies (ROADMAP R27).  Every rank calls with the same arguments.
+``rules=None`` is the single-process path, unchanged.
+
+The reference runs the search as jitted ``lax.scan`` chunks of ``pcfg.scan_chunk`` steps;
 eager torch has no such dispatch, and the chunking does not change the
 result (the reference's own test holds scanned against eager).  The port
 steps eagerly in the same chunks, so its flight-recorder events are the
@@ -28,6 +44,7 @@ recompile sentinel's ``search_chunk`` / ``search_step`` notes.
 """
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Any, Callable, Iterable
 
@@ -40,6 +57,9 @@ from repro_torch.core import masks as masks_mod
 from repro_torch.core import metrics as metrics_mod
 from repro_torch.core import mirror
 from repro_torch.core.prunable import prunable_map
+from repro_torch.dist import sharding
+from repro_torch.dist.axes import use_rules
+from repro_torch.kernels.shard import whole_weights
 from repro_torch.optim.losses import lm_loss
 
 PyTree = Any
@@ -50,18 +70,34 @@ def _device_batch(b: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
 
 
+def _ranked(cfg: ModelConfig, params: PyTree, rules, quiet: bool):
+    """(the search specs, the params placed by them) under ``rules``."""
+    from repro_torch.models import model as M
+    M.check_tp_supported(cfg, "calibration")
+    specs = sharding.search_specs(M.param_axes(cfg), params, rules,
+                                  quiet=quiet)
+    return specs, sharding.place_by(params, specs, rules)
+
+
 @torch.no_grad()
 def collect_stats(cfg: ModelConfig, params: PyTree, batches: Iterable[dict],
-                  *, impl: str = "jit",
-                  pcfg: PruneConfig | None = None) -> PyTree:
+                  *, impl: str = "jit", pcfg: PruneConfig | None = None,
+                  rules=None) -> PyTree:
     """Per-input-feature ||X_j||_2 over the calibration set.
 
     impl="jit": ``models.model.stats_sumsq`` per batch (f32 sums of squares
     on the device, summed over batches, then square-rooted).  impl="tape":
     the eager oracle, the unrolled forward under a ``tape.StatsTape`` (f64
     sums on the host).  pcfg: when given, only the first
-    ``pcfg.stats_batches`` batches feed the pass.
+    ``pcfg.stats_batches`` batches feed the pass.  ``rules``: the pass
+    runs on this rank's parameter blocks and returns each stats leaf as
+    the block of its W leaf along K (module docstring).
     """
+    if rules is not None:
+        specs, placed = _ranked(cfg, params, rules, quiet=True)
+        with use_rules(rules), whole_weights():
+            whole = collect_stats(cfg, placed, batches, impl=impl, pcfg=pcfg)
+        return sharding.place_stats(whole, specs, rules)
     from repro_torch.core import tape as tape_mod
     from repro_torch.models import model as M
     batches = list(batches)
@@ -141,7 +177,7 @@ def _trace_chunk(ms: list[dict], start: int) -> list[dict]:
 def run_search(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
                batches: list[dict], stats: PyTree, *,
                log_every: int = 0, loss_fn: Callable | None = None,
-               seed: int = SEARCH_SEED):
+               seed: int = SEARCH_SEED, rules=None):
     """Returns (final state, history): ``pcfg.steps`` steps over the
     batches in turn; history holds every ``log_every``-th step's metrics.
 
@@ -149,10 +185,22 @@ def run_search(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
     one step a chunk, traced as ``calibrate.search_step`` spans).  With the flight recorder on, each
     chunk's metrics are read to the host once, after the chunk, for its
     trace and its history rows; with it off nothing is read until the
-    last step, when the logged steps' metrics are."""
+    last step, when the logged steps' metrics are.
+
+    ``rules``: the state is this rank's blocks for the whole search
+    (``dist.sharding.place_state``; whole ``stats`` are placed too) and
+    the steps run under the rules; the history is the whole trees'."""
     prunable = prunable_map(params0)
     loss_fn = loss_fn or partial(lm_loss, cfg)
-    state = mirror.init_search(params0, seed)
+    if rules is None:
+        state = mirror.init_search(params0, seed)
+    else:
+        from repro_torch.models import model as M
+        M.check_tp_supported(cfg, "calibration")
+        specs = sharding.search_specs(M.param_axes(cfg), params0, rules)
+        state = sharding.place_state(M.param_axes(cfg), params0, rules,
+                                     seed=seed, specs=specs)
+        stats = sharding.place_stats(stats, specs, rules)
     dev = tree.device_of(params0)
     batches = [_device_batch(b, dev) for b in batches]
     chunk = max(int(pcfg.scan_chunk), 0)
@@ -168,7 +216,8 @@ def run_search(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
             recompile.note("search_chunk", (state, chunk_batches))
             sp = obs.span("calibrate.search_chunk", start=n, steps=c)
         ms = []
-        with sp:
+        with sp, use_rules(rules), (whole_weights() if rules is not None
+                                    else contextlib.nullcontext()):
             for b in chunk_batches:
                 state, m = mirror.search_step(pcfg, loss_fn, state, b, stats,
                                               prunable)
@@ -187,16 +236,21 @@ def unipruning_prune(cfg: ModelConfig, pcfg: PruneConfig, params0: PyTree,
                      calib_batches: list[dict],
                      sparsities: Iterable[float] = (0.5,),
                      loss_fn: Callable | None = None, *,
-                     stats_impl: str = "jit"):
-    """Full pipeline.  Returns ({sparsity: pruned_params}, state, history)."""
+                     stats_impl: str = "jit", rules=None):
+    """Full pipeline.  Returns ({sparsity: pruned_params}, state, history);
+    ``rules``: the pruned params, the state and the masks as each rank's
+    blocks."""
     stats = collect_stats(cfg, params0, calib_batches, pcfg=pcfg,
-                          impl=stats_impl)
+                          impl=stats_impl, rules=rules)
     state, history = run_search(cfg, pcfg, params0, calib_batches, stats,
-                                log_every=10, loss_fn=loss_fn)
+                                log_every=10, loss_fn=loss_fn, rules=rules)
+    params = params0 if rules is None else _ranked(cfg, params0, rules,
+                                                    quiet=True)[1]
     out = {}
     for s in sparsities:
-        masks = mirror.export_masks(pcfg, state.Gamma, s, V=state.V)
-        out[s] = masks_mod.apply_masks(params0, masks)
+        masks = mirror.export_masks(pcfg, state.Gamma, s, V=state.V,
+                                    rules=rules)
+        out[s] = masks_mod.apply_masks(params, masks)
     return out, state, history
 
 

@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from repro_torch import tree
+from repro_torch.dist import sharding
 from repro_torch.kernels import ref
 from repro_torch.kernels.nm_prox import nm_mask24
 
@@ -66,17 +67,32 @@ def threshold_bisect(score_tree: Any, sparsity: float, *, iters: int = 40,
 
 
 def unstructured_masks(score_tree: Any, sparsity: float, *,
-                       scope: str = "global", exact: bool = True) -> Any:
+                       scope: str = "global", exact: bool = True,
+                       mesh=None) -> Any:
     """Boolean keep-masks matching score_tree (None leaves stay None).
 
     scope: 'global' (one budget, UniPruning), 'layer' (per-tensor budget),
     'row' (per-output-column budget along d_in - Wanda's comparison group).
+    ``mesh`` (global scope only): a leaf may be this rank's block
+    (``dist.sharding.DenseBlock``); the threshold comes from every leaf
+    gathered whole, so it is the single process's bit for bit, and each
+    block is masked by it.
     """
     if scope == "global":
-        tau = (global_threshold(score_tree, sparsity) if exact
-               else threshold_bisect(score_tree, sparsity))
+        whole = score_tree if mesh is None else tree.tree_map(
+            lambda s: None if s is None else sharding.whole(s, mesh),
+            score_tree)
+        tau = (global_threshold(whole, sparsity) if exact
+               else threshold_bisect(whole, sparsity))
+        del whole
         return tree.tree_map(
-            lambda s: None if s is None else s.abs() >= tau, score_tree)
+            lambda s: None if s is None else (
+                sharding.DenseBlock(s.data.abs() >= tau, s.spec)
+                if isinstance(s, sharding.DenseBlock) else s.abs() >= tau),
+            score_tree)
+    if mesh is not None:
+        raise NotImplementedError(f"scope {scope!r} on a mesh: only the "
+                                  "global threshold takes blocks")
 
     def layer_mask(s):
         if s is None:
@@ -104,11 +120,15 @@ def nm_masks(score_tree: Any, n: int = 2, m: int = 4) -> Any:
     leaf (*lead, d_in, d_out) is ranked as its (prod(lead)*d_in, d_out)
     view: with d_in % m == 0 no group crosses a leading index.  2:4 goes
     through ``nm_mask24`` (the CUDA kernel for CUDA tensors); other N:M
-    patterns have no kernel and take the plain ranking.
+    patterns have no kernel and take the plain ranking.  A
+    ``dist.sharding.DenseBlock`` leaf (a rank's block, whole groups along
+    d_in: ``dist.sharding.search_specs``) gives its block's masks.
     """
     def leaf(s):
         if s is None:
             return None
+        if isinstance(s, sharding.DenseBlock):   # this rank's block
+            return sharding.DenseBlock(leaf(s.data), s.spec)
         d_in, d_out = s.shape[-2:]
         if d_in % m:
             raise ValueError(f"d_in={d_in} is not a multiple of m={m}")
@@ -123,9 +143,16 @@ def nm_masks(score_tree: Any, n: int = 2, m: int = 4) -> Any:
 
 
 def apply_masks(params: Any, masks: Any) -> Any:
-    """W0 * M, with None masks passing weights through untouched."""
-    return tree.tree_map(
-        lambda w, m: w if m is None else w * m.to(w.dtype), params, masks)
+    """W0 * M, with None masks passing weights through untouched (a
+    ``dist.sharding.DenseBlock`` leaf and its mask block: the block's)."""
+    def leaf(w, m):
+        if m is None:
+            return w
+        if isinstance(m, sharding.DenseBlock):
+            return sharding.DenseBlock(w.data * m.data.to(w.dtype), w.spec)
+        return w * m.to(w.dtype)
+
+    return tree.tree_map(leaf, params, masks)
 
 
 def sparsity_of(masks: Any) -> float:

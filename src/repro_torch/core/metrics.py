@@ -56,9 +56,24 @@ def ria_sums(w, row_w=None, col_w=None):
             (aw * col_w).sum(dim=-2, keepdim=True) / col_w.mean())
 
 
-def _ria_core(w, a, row_w=None, col_w=None, eps=1e-12):
+def ria_sums_block(w, lay, row_w=None, col_w=None):
+    """:func:`ria_sums` of the whole leaf, on this rank's block ``w``
+    (``lay`` its ``dist.sharding.LeafLayout``): the block's partial sums
+    summed over the ranks that split the summed dim; ``row_w`` / ``col_w``
+    are the whole leaf's weights (their mean is the whole vector's)."""
     aw = w.float().abs()
-    rowsum, colsum = ria_sums(w, row_w, col_w)
+    if row_w is None:
+        return (lay.sum_n(aw.sum(dim=-1, keepdim=True)),
+                lay.sum_k(aw.sum(dim=-2, keepdim=True)))
+    rb, cb = lay.slice(row_w, -1), lay.slice(col_w, -2)
+    return (lay.sum_n((aw * rb).sum(dim=-1, keepdim=True)) / row_w.mean(),
+            lay.sum_k((aw * cb).sum(dim=-2, keepdim=True)) / col_w.mean())
+
+
+def _ria_core(w, a, row_w=None, col_w=None, eps=1e-12, lay=None):
+    aw = w.float().abs()
+    rowsum, colsum = (ria_sums(w, row_w, col_w) if lay is None else
+                      ria_sums_block(w, lay, row_w, col_w))
     s = aw / (rowsum + eps) + aw / (colsum + eps)
     if a is not None:
         s = s * sqrt_f32(torch.clamp_min(a, 1e-12))[..., None]
@@ -101,6 +116,24 @@ def get_metric(name: str, stoch_frac: float = 0.9):
     raise ValueError(f"unknown metric {name!r}; options: {METRICS}")
 
 
+def block_metric(name: str, w: torch.Tensor, a, *, key, lay,
+                 stoch_frac: float = 0.9) -> torch.Tensor:
+    """S of this rank's block ``w`` of a leaf (``a`` its stats block,
+    ``lay`` its ``dist.sharding.LeafLayout``), equal to the whole leaf's S
+    on the block: RIA's row and column sums are the whole leaf's, and
+    stochria draws the whole leaf's weights (the key's, as
+    :func:`stochria` draws them) and takes the block's slices."""
+    if name in ("magnitude", "wanda"):
+        return get_metric(name)(w, a)
+    if name not in ("ria", "stochria"):
+        raise ValueError(f"unknown metric {name!r}; options: {METRICS}")
+    weights = ()
+    if name == "stochria" and key is not None:
+        weights = stoch_weights(key, lay.whole_shape(w), stoch_frac,
+                                w.device)
+    return _ria_core(w, a, *weights, lay=lay)
+
+
 def median_element(s: torch.Tensor) -> torch.Tensor:
     """``sort(s.flatten())[s.numel() // 2]``, exactly, as a device scalar.
 
@@ -114,16 +147,35 @@ def median_element(s: torch.Tensor) -> torch.Tensor:
     return torch.topk(flat, n - n // 2, sorted=False).values.min()
 
 
-def normalize_scores(s: torch.Tensor, how: str) -> torch.Tensor:
+def normalize_scores(s: torch.Tensor, how: str, lay=None) -> torch.Tensor:
     """Per-tensor scale normalization: makes saliency cross-layer comparable
     so one global budget can redistribute sparsity across layers.  The
-    normaliser is a constant (detached, as ``stop_gradient`` in JAX)."""
+    normaliser is a constant (detached, as ``stop_gradient`` in JAX).
+    ``lay``: ``s`` is this rank's block of the leaf
+    (``dist.sharding.LeafLayout``), normalised by the whole leaf's
+    :func:`score_divisor`."""
     if how == "none":
         return s
+    if lay is not None:
+        return s / score_divisor(s, how, lay)
     if how == "mean":
         return s / (s.detach().mean() + 1e-12)
     if how == "median":
         return s / (median_element(s) + 1e-12)
+    raise ValueError(how)
+
+
+def score_divisor(s: torch.Tensor, how: str, lay) -> torch.Tensor:
+    """The whole leaf's normaliser (+ 1e-12) from this rank's block ``s``:
+    the median of the leaf's scores (``LeafLayout.median``: exact, without
+    gathering them), or their sum over the leaf's ranks over its element
+    count."""
+    if how == "median":
+        return lay.median(s) + 1e-12
+    if how == "mean":
+        n = torch.full((), float(lay.numel(s)), dtype=torch.float32,
+                       device=s.device)
+        return lay.total(s.detach().sum()) / n + 1e-12
     raise ValueError(how)
 
 

@@ -22,6 +22,19 @@ gradient one leaf at a time, so no second copy of a full tree is held.
 
 :func:`no_mirror_step` is the paper's Eq. 8 ablation: the direct
 objective, without Gamma, V or mirror descent.
+
+**Under rules** (``dist.axes.use_rules``, one process a rank; the state
+placed by ``dist.sharding.place_state``) a sharded leaf of W, Gamma, V and
+the stats is this rank's ``DenseBlock``.  The task gradient comes from
+the model run on each weight gathered whole where it is used
+(``kernels.shard.whole_weights``: each rank keeps its block of it), and
+each block runs the same per-leaf step, ``saliency_fused_step`` and
+``prox24`` included, on the block, with what the whole leaf decides:
+RIA's row and column sums and stochria's draws (``metrics.block_metric``),
+the median or mean normaliser (``metrics.score_divisor``), the
+observables summed over the leaf's ranks, and the masks' global
+magnitudes and threshold (:func:`export_masks`).  A replicated leaf runs
+whole on every rank and counts once.
 """
 from __future__ import annotations
 
@@ -36,6 +49,9 @@ from repro_torch.core import masks as masks_mod
 from repro_torch.core import metrics as metrics_mod
 from repro_torch.core import prng
 from repro_torch.core.prunable import prunable_map
+from repro_torch.dist.axes import current_rules
+from repro_torch.dist.sharding import DenseBlock, LeafLayout
+from repro_torch.dist.sharding import block_data as _data
 from repro_torch.kernels.nm_prox import prox24
 from repro_torch.kernels.saliency_fuse import saliency_fused_step
 
@@ -71,18 +87,26 @@ def _scalar(x: float, device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
-def _leaf_score(pcfg: PruneConfig, w, a, key):
-    """S(w) of one leaf, normalised (the reference's metric_tree leaf)."""
+def _leaf_score(pcfg: PruneConfig, w, a, key, lay=None):
+    """S(w) of one leaf, normalised (the reference's metric_tree leaf);
+    ``lay``: ``w`` is this rank's block of the leaf."""
+    if lay is not None:
+        return metrics_mod.normalize_scores(metrics_mod.block_metric(
+            pcfg.local_metric, w, a, key=key, lay=lay,
+            stoch_frac=pcfg.stoch_frac), pcfg.score_norm, lay)
     fn = metrics_mod.get_metric(pcfg.local_metric, pcfg.stoch_frac)
     return metrics_mod.normalize_scores(fn(w, a, key=key), pcfg.score_norm)
 
 
-def _align_leaf(pcfg: PruneConfig, w, gamma, a, key):
+def _align_leaf(pcfg: PruneConfig, w, gamma, a, key, lay=None):
     """One leaf's term of 0.5*rho*sum ||Gamma - S(W)||_F^2: (its
-    sum ||Gamma - S||^2, the W-gradient of 0.5*rho times it)."""
+    sum ||Gamma - S||^2, the W-gradient of 0.5*rho times it).  ``lay``:
+    this rank's block's part of the sum, and the gradient of the sum over
+    the ranks' parts (RIA's sums carry the other blocks' terms)."""
     with torch.enable_grad():
         wg = w.detach().requires_grad_(True)
-        sq = torch.sum(torch.square(gamma - _leaf_score(pcfg, wg, a, key)))
+        sq = torch.sum(torch.square(gamma - _leaf_score(pcfg, wg, a, key,
+                                                        lay)))
         grad, = torch.autograd.grad((0.5 * pcfg.rho) * sq, wg)
     return sq.detach(), grad
 
@@ -123,8 +147,9 @@ def _task_value_and_grad(pcfg: PruneConfig, loss_fn: Callable, W: PyTree,
     microbatch while the averaged gradient matches the full batch.
     """
     accum = max(1, int(pcfg.grad_accum))
-    leaves = [w.detach().requires_grad_(True) for w in tree.leaves(W)]
-    Wg = tree.unflatten_like(W, leaves)
+    flat = tree.leaves(W)
+    leaves = [_data(w).detach().requires_grad_(True) for w in flat]
+    Wg = tree.unflatten_like(W, [_like(w, x) for w, x in zip(flat, leaves)])
 
     def one(b):
         with torch.enable_grad():
@@ -154,8 +179,15 @@ def _task_value_and_grad(pcfg: PruneConfig, loss_fn: Callable, W: PyTree,
             tree.unflatten_like(W, [div(g) for g in tot[2]]))
 
 
-def _fused_leaf(pcfg: PruneConfig, w, gamma, v, a, key) -> None:
-    """V, Gamma <- the fused metric + dual + prox step, in place."""
+def _like(leaf, t):
+    """``t`` in ``leaf``'s form: a ``DenseBlock`` of the same spec."""
+    return DenseBlock(t, leaf.spec) if isinstance(leaf, DenseBlock) else t
+
+
+def _fused_leaf(pcfg: PruneConfig, w, gamma, v, a, key, lay=None) -> None:
+    """V, Gamma <- the fused metric + dual + prox step, in place (``lay``:
+    on this rank's block of the leaf, with the whole leaf's divisor and
+    RIA sums)."""
     lead = w.shape[:-2]
     K, N = w.shape[-2:]
     R = K * (lead.numel() if lead else 1)
@@ -166,7 +198,12 @@ def _fused_leaf(pcfg: PruneConfig, w, gamma, v, a, key) -> None:
     if ria and a is None:
         a = torch.ones(w.shape[:-1], dtype=torch.float32, device=w.device)
     s_div = None
-    if pcfg.score_norm != "none":
+    if pcfg.score_norm != "none" and lay is not None:
+        raw = metrics_mod.block_metric(pcfg.local_metric, w, a, key=key,
+                                       lay=lay, stoch_frac=pcfg.stoch_frac)
+        s_div = metrics_mod.score_divisor(raw, pcfg.score_norm, lay)
+        del raw
+    elif pcfg.score_norm != "none":
         raw = metrics_mod.get_metric(pcfg.local_metric, pcfg.stoch_frac)(
             w, a, key=key)
         s_div = (metrics_mod.median_element(raw) if pcfg.score_norm ==
@@ -174,16 +211,32 @@ def _fused_leaf(pcfg: PruneConfig, w, gamma, v, a, key) -> None:
         del raw
     rowsum = colsum = None
     if ria:   # the RIA normalisers, with stochria's draws for this step
-        weights = (metrics_mod.stoch_weights(key, tuple(w.shape),
-                                             pcfg.stoch_frac, w.device)
+        weights = (metrics_mod.stoch_weights(
+            key, tuple(w.shape) if lay is None else lay.whole_shape(w),
+            pcfg.stoch_frac, w.device)
                    if pcfg.local_metric == "stochria" else ())
-        rowsum, colsum = metrics_mod.ria_sums(w.reshape(-1, K, N), *weights)
+        rowsum, colsum = (
+            metrics_mod.ria_sums(w.reshape(-1, K, N), *weights)
+            if lay is None else metrics_mod.ria_sums_block(w, lay, *weights))
         rowsum, colsum = rowsum.reshape(R), colsum.reshape(-1, N)
     saliency_fused_step(
         w.reshape(R, N), None if a is None else a.reshape(R),
         gamma.reshape(R, N), v.reshape(R, N), metric=metric,
         v_lr=pcfg.v_lr, lam=pcfg.lam, rowsum=rowsum, colsum=colsum,
         s_div=s_div, inplace=True)
+
+
+def _observables(sq, gamma, was_nz) -> torch.Tensor:
+    """One block's (||Gamma - S||^2, nonzeros, flips, sum |Gamma|,
+    sum |Gamma| log |Gamma|), f64 to be summed over the leaf's ranks."""
+    now_nz = gamma != 0
+    ab = gamma.abs()
+    pos = ab > 0
+    return torch.stack([
+        sq.double(), now_nz.sum().double(),
+        (was_nz != now_nz).sum().double(), ab.sum().double(),
+        torch.where(pos, ab * torch.log(torch.where(pos, ab, 1.0)),
+                    0.0).sum().double()])
 
 
 @torch.no_grad()
@@ -198,6 +251,7 @@ def search_step(pcfg: PruneConfig, loss_fn: Callable, state: SearchState,
         pcfg, loss_fn, state.W, batch)
     flat_w = tree.leaves(state.W)
     dev = flat_w[0].device
+    rules = current_rules()
     klr = pcfg.kappa * pcfg.lr
     acc = _scalar(0.0, dev)
     nz, flips, absum, abslogsum = (_scalar(0.0, dev) for _ in range(4))
@@ -206,19 +260,36 @@ def search_step(pcfg: PruneConfig, loss_fn: Callable, state: SearchState,
             flat_w, tree.leaves(g_task), tree.leaves(state.Gamma),
             tree.leaves(state.V), tree.leaves(stats), tree.leaves(prunable),
             strict=True)):
+        lay = None
+        if isinstance(w, DenseBlock):     # this rank's block of the leaf
+            lay = LeafLayout(w.spec, rules.mesh, w.data.dim())
+            w, gamma, v, a = w.data, _data(gamma), _data(v), _data(a)
         if not p:
             w.sub_(klr * gt)              # its alignment gradient is zero
             continue
         k_i = _leaf_key(pcfg, key, i)
-        sq, ga = _align_leaf(pcfg, w, gamma, a, k_i)
-        acc = acc + sq
+        sq, ga = _align_leaf(pcfg, w, gamma, a, k_i, lay)
+        if lay is None:
+            acc = acc + sq
         w.sub_(klr * (gt + ga))
         del ga
         if pcfg.mode == "nm" and w.shape[-2] % 4 == 0:
             w2 = w.view(-1, w.shape[-1])
             prox24(w2, lam=pcfg.nm_prox_weight, out=w2)
         was_nz = gamma != 0
-        _fused_leaf(pcfg, w, gamma, v, a, k_i)
+        _fused_leaf(pcfg, w, gamma, v, a, k_i, lay)
+        if lay is not None:   # the whole leaf's observables
+            # the leaf's totals, added as the single process adds a
+            # leaf's (the counts as integers, the sums as f32)
+            part = lay.total(_observables(sq, gamma, was_nz))
+            acc = acc + part[0].float()
+            nz += part[1].long()
+            flips += part[2].long()
+            absum += part[3].float()
+            abslogsum += part[4].float()
+            tot += lay.numel(gamma)
+            del was_nz, part
+            continue
         # convergence observables (reference: search_step's loop)
         now_nz = gamma != 0
         nz += now_nz.sum()
@@ -286,31 +357,42 @@ def _absmax(leaves: list[torch.Tensor]) -> torch.Tensor:
 
 
 def export_masks(pcfg, Gamma: Any, sparsity: float, *, V: Any = None,
-                 exact: bool = True) -> Any:
+                 exact: bool = True, rules=None) -> Any:
     """One-shot mask extraction from the final Gamma (any sparsity level).
 
     Soft-thresholded-to-zero entries tie at |Gamma| = 0; the dual V keeps
     their sub-threshold saliency, so it breaks ties at an epsilon scale
     that cannot reorder any nonzero Gamma entries.  The arithmetic is the
     reference's, op for op in f32, so the masks are bit-identical.
+
+    ``rules``: Gamma and V hold this rank's blocks (``DenseBlock``); the
+    largest magnitudes are the whole trees' (an all-reduce MAX), the 2:4
+    masks come from ``nm_mask24`` on each block, the global threshold
+    from every leaf's scores gathered, and each mask leaf is the rank's
+    block.
     """
     scores = Gamma
     if V is not None:
-        gl = [g for g in tree.leaves(Gamma) if g is not None]
-        vl = [v for v in tree.leaves(V) if v is not None]
+        gl = [_data(g) for g in tree.leaves(Gamma) if g is not None]
+        vl = [_data(v) for v in tree.leaves(V) if v is not None]
         dev = (gl or vl)[0].device
         gmax = (_absmax(gl) if gl
                 else torch.tensor(0.0, dtype=torch.float32, device=dev))
         vmax = (_absmax(vl) if vl
                 else torch.tensor(1.0, dtype=torch.float32, device=dev))
+        if rules is not None:   # the whole trees' (MAX is idempotent)
+            every = tuple(rules.mesh.axis_names)
+            gmax = rules.mesh.all_reduce(gmax, every, "max")
+            vmax = rules.mesh.all_reduce(vmax, every, "max")
         vsafe = torch.clamp_min(vmax, 1e-30)
         eps = torch.where(gmax > 0,
                           1e-6 * torch.clamp_min(gmax, 1e-30) / vsafe,
                           1.0 / vsafe)
         scores = tree.tree_map(
-            lambda g, v: None if g is None else g.abs() + eps * v.abs(),
-            Gamma, V)
+            lambda g, v: None if g is None else _like(
+                g, _data(g).abs() + eps * _data(v).abs()), Gamma, V)
     if pcfg.mode == "nm":
         return masks_mod.nm_masks(scores, pcfg.nm_n, pcfg.nm_m)
-    return masks_mod.unstructured_masks(scores, sparsity, scope="global",
-                                        exact=exact)
+    return masks_mod.unstructured_masks(
+        scores, sparsity, scope="global", exact=exact,
+        mesh=None if rules is None else rules.mesh)

@@ -6,7 +6,10 @@ While a tape is installed (:func:`recording`), ``models.common.dense``
 hands it every kernel and its input, and ``models.moe.moe_apply`` hands it
 the expert banks with their dispatch buffers; the tape keeps, for each
 registered kernel, the f32 sum of squares of the input over every axis but
-the leading (layer, expert) and feature axes.
+the leading (layer, expert) and feature axes.  Under rules a kernel is
+this rank's ``DenseBlock`` and its input is whole (activations are
+replicated), so each kernel's sums are the whole leaf's on every rank
+(``core.calibrate.collect_stats`` then keeps the rank's block).
 
 Two tapes, as in the reference:
 
@@ -35,7 +38,7 @@ _local = threading.local()
 def _sumsq(kernel, x: torch.Tensor) -> torch.Tensor:
     """The f32 sum of squares of x over every axis but the kernel's leading
     (expert) axes and the feature axis."""
-    nlead = kernel.dim() - 2
+    nlead = len(kernel.shape) - 2
     axes = tuple(range(nlead, x.dim() - 1))
     return torch.square(x.float()).sum(dim=axes)
 
@@ -55,8 +58,9 @@ class StatsTape:
         self.sumsq: dict[tuple[str, int], np.ndarray] = {}
 
     def register_layer(self, t: Any, prefix: str, layer_idx: int) -> None:
+        from repro_torch.dist.sharding import DenseBlock
         for path, leaf in tree.flatten_with_path(t):
-            if isinstance(leaf, torch.Tensor):
+            if isinstance(leaf, (torch.Tensor, DenseBlock)):
                 self.registry[id(leaf)] = (prefix + path, layer_idx)
 
     def record(self, kernel: torch.Tensor, x: torch.Tensor, *, count=None,

@@ -33,6 +33,14 @@ tag and ``block`` spec, a dense leaf that the mesh shards as a
 shards each KV ring's capacity over "model" exactly where the decode
 attention runs across ranks (``kernels.shard.kv_shard_axes``) and keeps
 the batch whole (ROADMAP R26).
+
+The search state (``core.calibrate.run_search(rules=)``):
+:func:`search_specs` (``search_state_sharding``'s specs, with a prunable
+leaf's K kept whole where its blocks would split the groups of 4 of
+``prox24`` and the 2:4 masks), :func:`place_state` (each rank's W / Gamma
+/ V blocks), :func:`place_stats`, :func:`gather_state` (the whole trees on
+rank 0, for the bank) and :class:`LeafLayout` (one leaf's whole-leaf sums,
+draws, sizes and median from a block).
 """
 from __future__ import annotations
 
@@ -44,8 +52,8 @@ import torch
 from repro_torch import obs, tree
 from repro_torch.dist.axes import (P, PartitionSpec, ShardingRules,
                                    make_rules, spec_for_shape)
-from repro_torch.kernels.shard import (axes_size, kv_shard_axes,
-                                       replicated_forced)
+from repro_torch.kernels.shard import (_ax_tuple, axes_size,
+                                       kv_shard_axes, replicated_forced)
 from repro_torch.sparse.formats import BitMask, SparseTensor
 
 PyTree = Any
@@ -430,3 +438,213 @@ def place_caches(caches: PyTree, rules: ShardingRules) -> PyTree:
         return _own(c, P(None, None, "model"), rules.mesh)
 
     return tree.tree_map(leaf, caches)
+
+
+# ---------------------------------------------------------------------------
+# The search state on the mesh: each rank's W / Gamma / V / stats blocks
+# ---------------------------------------------------------------------------
+
+# prox24 and the 2:4 masks take groups of 4 along a kernel's K
+PROX_GROUP = 4
+
+
+def search_specs(axes_tree: PyTree, params: PyTree, rules: ShardingRules,
+                 *, quiet: bool = False) -> PyTree:
+    """The spec of each W leaf of the search state on the mesh:
+    :func:`search_state_sharding`'s, except that a prunable leaf whose K
+    block would split the groups of 4 along K that ``prox24`` and the 2:4
+    masks take (K % (4 * ranks) != 0) replicates K, with a warning naming
+    the leaf and axis (the reference's loud fallback, as
+    :func:`sparse_component_layout` gives a compressed leaf; ``quiet``:
+    none, for a second pass over the same leaves)."""
+    from repro_torch.core.prunable import prunable_map
+    mesh = rules.mesh
+    base = params_sharding(axes_tree, params, rules)
+
+    def leaf(path, spec, w, p):
+        if not p or w is None:
+            return spec
+        K = w.shape[-2]
+        entries = list(spec) + [None] * (len(w.shape) - len(spec))
+        k_e = entries[-2]
+        d = axes_size(mesh, k_e)
+        if d > 1 and K % (PROX_GROUP * d):
+            if not quiet:
+                obs.log("dist.search_k_replicated", level="warn", leaf=path,
+                        axis=str(k_e), dim=K, devices=d,
+                        warn=(f"search state leaf {path}: K={K} over mesh "
+                              f"axis {k_e!r} ({d} devices) leaves blocks of "
+                              f"{K // d} rows, which split the groups of "
+                              f"{PROX_GROUP} along K of prox24 and the 2:4 "
+                              "masks; the leaf replicates along K"))
+            entries[-2] = None
+            return P(*entries)
+        return spec
+
+    lookup = {path: (w, p) for (path, w), p in zip(
+        tree.flatten_with_path(params), tree.leaves(prunable_map(params)))}
+    return tree.map_with_path(
+        lambda path, spec: leaf(path, spec, *lookup[path]), base)
+
+
+def _place(t, spec, mesh):
+    """A tensor's block under ``spec``: a :class:`DenseBlock` of storage of
+    its own where the spec shards it, else the tensor (a block placed
+    already stays as it is)."""
+    if t is None or isinstance(t, DenseBlock) or not sharded(spec, mesh):
+        return t
+    return DenseBlock(local_block(t, spec, mesh).clone(), spec)
+
+
+def place_by(params: PyTree, specs: PyTree, rules: ShardingRules) -> PyTree:
+    """Each leaf of ``params`` as its block under its spec in ``specs``
+    (:func:`search_specs`): the stats pass's and the pruned weights'
+    placement."""
+    return tree.tree_map(lambda w, spec: _place(w, spec, rules.mesh),
+                         params, specs)
+
+
+def place_state(axes_tree: PyTree, params0: PyTree, rules: ShardingRules,
+                *, seed: int, specs: PyTree | None = None):
+    """This rank's :class:`~repro_torch.core.mirror.SearchState` from
+    ``params0``: ``core.mirror.init_search`` made block by block, W an f32
+    copy of the rank's block of each leaf, Gamma and V zeros of the
+    prunable leaves' blocks, each a :class:`DenseBlock` (whose ``data`` the
+    step updates in place) where :func:`search_specs` shards the leaf, the
+    whole leaf elsewhere; the whole f32 tree is never made."""
+    from repro_torch.core import prng
+    from repro_torch.core.mirror import SearchState
+    from repro_torch.core.prunable import prunable_map
+    mesh = rules.mesh
+    specs = search_specs(axes_tree, params0, rules) if specs is None \
+        else specs
+
+    def w_leaf(w, spec):
+        blk = local_block(w.detach(), spec, mesh).to(torch.float32,
+                                                       copy=True)
+        return DenseBlock(blk, spec) if sharded(spec, mesh) else blk
+
+    W = tree.tree_map(w_leaf, params0, specs)
+
+    def zeros(w, p):
+        if not p:
+            return None
+        z = torch.zeros(block_data(w).shape, dtype=torch.float32,
+                        device=block_data(w).device)
+        return DenseBlock(z, w.spec) if isinstance(w, DenseBlock) else z
+
+    pr = prunable_map(params0)
+    return SearchState(W=W, Gamma=tree.tree_map(zeros, W, pr),
+                       V=tree.tree_map(zeros, W, pr), step=0,
+                       rng=prng.key(seed))
+
+
+def place_stats(stats: PyTree, specs: PyTree, rules: ShardingRules
+                ) -> PyTree:
+    """Each stats leaf (a kernel's per-input-feature norms, whole on every
+    rank) as the block of its W leaf's spec without the N entry (a block
+    placed already stays as it is)."""
+    return tree.tree_map(
+        lambda a, spec: None if a is None else _place(
+            a, P(*(tuple(spec) + (None,) * (len(a.shape) + 1
+                                            - len(spec)))[:-1]),
+            rules.mesh), stats, specs)
+
+
+def block_data(x):
+    """A leaf's tensor: a :class:`DenseBlock`'s block, or the leaf."""
+    return x.data if isinstance(x, DenseBlock) else x
+
+
+def whole(x, mesh) -> torch.Tensor:
+    """The whole leaf of a :class:`DenseBlock` (its blocks gathered along
+    every sharded dim, on every rank), or the tensor itself."""
+    if not isinstance(x, DenseBlock):
+        return x
+    t = x.data
+    for dim, e in enumerate(x.spec):
+        t = mesh.all_gather(t, e, dim)
+    return t
+
+
+def gather_state(state, stats: PyTree, rules: ShardingRules):
+    """(Gamma, V, stats) whole on rank 0 (None on the others), for the
+    bank: each leaf gathered in turn, so another rank holds one whole leaf
+    at a time."""
+    mesh = rules.mesh
+
+    def one(x):
+        t = whole(x, mesh)
+        return t if mesh.rank == 0 else None
+
+    out = tuple(tree.tree_map(lambda x: None if x is None else one(x), t)
+                for t in (state.Gamma, state.V, stats))
+    return out if mesh.rank == 0 else None
+
+
+class LeafLayout:
+    """One search-state leaf's block on the mesh (``spec`` the leaf's, one
+    entry a dim): the whole leaf's reductions, draws and sizes from this
+    rank's block (``core.metrics``, ``core.mirror``).  Under autograd the
+    row and column sums are differentiable with the alignment term's
+    backward (``kernels.shard.sum_terms``)."""
+
+    def __init__(self, spec, mesh, ndim: int):
+        self.entries = tuple(spec) + (None,) * (ndim - len(spec))
+        self.mesh = mesh
+        used = {a for e in self.entries for a in _ax_tuple(e)}
+        # every axis the leaf is split over, in the mesh's order
+        self.axes = tuple(a for a in mesh.axis_names if a in used)
+
+    def sum_n(self, t: torch.Tensor) -> torch.Tensor:
+        """Sums over N (the last dim), whole."""
+        from repro_torch.kernels.shard import sum_terms
+        return sum_terms(t, self.mesh, self.entries[-1])
+
+    def sum_k(self, t: torch.Tensor) -> torch.Tensor:
+        """Sums over K (the second-to-last dim), whole."""
+        from repro_torch.kernels.shard import sum_terms
+        return sum_terms(t, self.mesh, self.entries[-2])
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-block partial summed over the leaf's ranks (a replicated
+        copy counted once)."""
+        return self.mesh.all_reduce(t, self.axes) if self.axes else t
+
+    def whole_shape(self, block: torch.Tensor) -> tuple[int, ...]:
+        """The whole leaf's shape."""
+        return tuple(d * axes_size(self.mesh, e)
+                     for d, e in zip(block.shape, self.entries))
+
+    def numel(self, block: torch.Tensor) -> int:
+        """The whole leaf's element count."""
+        n = block.numel()
+        for e in self.entries:
+            n *= axes_size(self.mesh, e)
+        return n
+
+    def slice(self, v: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of a whole vector ``v`` along the leaf's
+        ``dim`` (dim 0 of ``v``)."""
+        return local_block(v, P(self.entries[dim]), self.mesh)
+
+    def median(self, t: torch.Tensor) -> torch.Tensor:
+        """``sort(whole.flatten())[n // 2]`` of the whole leaf whose block
+        is ``t`` (f32), exactly, as a device scalar, without gathering the
+        leaf: a bisection over the floats' order (their bit patterns
+        mapped to ordered int32 keys), each of its 32 rounds counting the
+        keys at or below the midpoint in every block (an all-reduce of one
+        count over the leaf's ranks)."""
+        bits = t.detach().reshape(-1).view(torch.int32)
+        key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+        target = self.numel(t) // 2 + 1
+        # the bounds in int64, so hi - lo cannot overflow; mid fits int32
+        lo = torch.full((), -2 ** 31, dtype=torch.int64, device=t.device)
+        hi = torch.full((), 2 ** 31 - 1, dtype=torch.int64, device=t.device)
+        for _ in range(32):
+            mid = lo + (hi - lo) // 2
+            below = self.total((key <= mid.to(torch.int32)).sum())
+            lo = torch.where(below >= target, lo, mid + 1)
+            hi = torch.where(below >= target, mid, hi)
+        k = lo.to(torch.int32)
+        return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)

@@ -54,6 +54,13 @@ collective's place in it.  A call outside any engine surface is the
 reference's eager call: it counts every time and observes
 ``dist.collective_ms``.
 
+**The calibration under rules** (``core.calibrate``, ``core.mirror``)
+runs the model with each dense block gathered whole where it is used
+(:func:`whole_weights`), so every rank computes one process's activations
+and task gradient bit for bit, and keeps its block of the gradient
+(:func:`gather_ranks`); RIA's row and column sums over a block's ranks are
+differentiable sums of per-rank terms (:func:`sum_terms`).
+
 ``REPRO_FORCE_REPLICATED=1`` disables every K-sharded path (tags are not
 stamped, caches stay whole) - the escape hatch when a mesh or collective
 bug needs bisecting.
@@ -222,6 +229,102 @@ def _block(x: torch.Tensor, entry, mesh, dim: int) -> torch.Tensor:
     return x.narrow(dim, mesh.index(entry) * size, size).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# Across ranks, under autograd (the calibration search)
+# ---------------------------------------------------------------------------
+#
+# The search differentiates two kinds of loss through cross-rank
+# collectives, and they need different backwards:
+#
+# * the task loss is replicated: every rank computes the same ``lm_loss``
+#   from replicated activations, through each kernel gathered whole
+#   (:func:`whole_weights`), so every rank holds the whole gradient of a
+#   gathered tensor and keeps its block of it (:class:`_Gather`);
+# * the alignment term is a sum of per-rank terms (each rank's block of
+#   0.5 rho ||Gamma - S||^2), and RIA's row and column sums are sums over
+#   ranks: the gradient of such a sum is the sum of the ranks' gradients,
+#   an all-reduce (:class:`_Sum`).
+#
+# Either wrong backward still runs, with other gradients.
+
+def grad_on(*ts: torch.Tensor) -> bool:
+    """Does autograd record a graph through ``ts`` here?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce SUM over ``entry`` of per-rank terms of a loss that is
+    the sum of the ranks' losses; backward an all-reduce SUM of the
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, entry):
+        ctx.mesh, ctx.entry = mesh, entry
+        return mesh.all_reduce(t.clone(), entry)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.entry), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``entry`` under a replicated loss;
+    backward this rank's block of the (whole, replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, entry, dim):
+        ctx.mesh, ctx.entry, ctx.dim = mesh, entry, dim
+        return mesh.all_gather(t, entry, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.entry, ctx.mesh, ctx.dim), None, None, None
+
+
+def sum_terms(t: torch.Tensor, mesh, entry) -> torch.Tensor:
+    """``t`` summed over the ranks along ``entry`` (every rank the same
+    bits), each rank's ``t`` a term of a loss summed over the ranks
+    (:class:`_Sum` under autograd; outside it the all-reduce runs in
+    place)."""
+    if axes_size(mesh, entry) == 1:
+        return t
+    if grad_on(t):
+        return _Sum.apply(t, mesh, entry)
+    return mesh.all_reduce(t, entry)
+
+
+def gather_ranks(t: torch.Tensor, mesh, entry, dim: int) -> torch.Tensor:
+    """The ranks' blocks along ``entry`` concatenated along ``dim``,
+    differentiable under autograd (a replicated loss: :class:`_Gather`)."""
+    if axes_size(mesh, entry) == 1:
+        return t
+    if grad_on(t):
+        return _Gather.apply(t, mesh, entry, dim)
+    return mesh.all_gather(t, entry, dim)
+
+
+@contextlib.contextmanager
+def whole_weights():
+    """While open, a dense leaf held as a block (``DenseBlock``) is
+    gathered whole where the model uses it (:func:`gathered`, its bf16
+    cast: the bits the model computes with) and used as one process uses
+    it, so every rank computes the single process's
+    activations and gradients bit for bit (the calibration's stats pass
+    and search, ``core.calibrate``); outside, the serving path's K-partial
+    sums and column gathers run (:func:`dense_sharded`)."""
+    prev = getattr(_tls, "whole", False)
+    _tls.whole = True
+    try:
+        yield
+    finally:
+        _tls.whole = prev
+
+
+def weights_whole() -> bool:
+    """Is :func:`whole_weights` open?"""
+    return getattr(_tls, "whole", False)
+
+
 def _plane(st) -> torch.Tensor:
     """The index plane as the kernel streams it."""
     return st.idx if st.kernel_layout == LAYOUT_PACKED2 \
@@ -367,11 +470,13 @@ def lookup_sharded(w, ids: torch.Tensor, dtype: torch.dtype
 
 def gathered(w) -> torch.Tensor:
     """The whole leaf of a ``DenseBlock``: its blocks gathered along every
-    sharded dim (a small leaf used whole: the MoE router)."""
+    sharded dim (a small leaf used whole: the MoE router; every leaf under
+    :func:`whole_weights`); differentiable, each rank's gradient its
+    block's."""
     mesh = _mesh()
     t = w.data
     for dim, e in enumerate(w.spec):
-        t = mesh.all_gather(t, e, dim)
+        t = gather_ranks(t, mesh, e, dim)
     return t
 
 

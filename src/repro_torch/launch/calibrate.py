@@ -26,8 +26,22 @@ oracle instead of the production pass (recorded as the bank's
 writes ``D/events.jsonl`` (the stage timers, the per-chunk search series,
 ``calibrate.done``) and ``D/metrics.prom``; ``--xprof-dir X`` writes a
 ``torch.profiler`` Chrome trace (CPU and, on the card, CUDA activities)
-into X, each stage under a ``record_function`` of its name.  The
-reference's ``--mesh`` comes with the multi-card slice.
+into X, each stage under a ``record_function`` of its name.
+
+``--mesh host`` (the reference's): the stats and the search state shard
+over the host mesh, ``launch.mesh.make_host_mesh()``'s (world, 1) over
+("data", "model") of the default process group, with
+``dist.sharding.make_production_rules`` (llama and mixtral).  Every rank
+runs this launcher with the same arguments: the group is the caller's
+(ranks already joined, as ``dist.ranks.run_ranks`` joins them) or made
+here from ``torchrun``'s environment, each rank on ``cuda:{LOCAL_RANK}``
+(or the CPU with ``--device cpu``) with ``dist.ranks.pick_backend``'s
+backend.  Rank 0 alone gathers and writes the bank, prints, and runs the
+flight recorder and the recompile sentinel; without a process group the
+mesh is one rank.  On the CPU, 4 ranks:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.calibrate \
+      --arch llama3.2-1b --smoke --out /tmp/bank --mesh host --device cpu
 """
 from __future__ import annotations
 
@@ -99,28 +113,30 @@ def calibrate_to_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
                       calib: list[dict], arch: str, smoke: bool,
                       stats_impl: str = "jit", log_every: int = 0,
                       loss_fn=None, extra: dict | None = None,
-                      xprof: bool = False):
+                      xprof: bool = False, rules=None):
     """Run the full calibration once and write the MaskBank artifact.
 
     Returns the in-memory :class:`~repro_torch.sparse.bank.MaskBank`
     backed by the artifact just written to ``out_dir``; its meta records
     the stage seconds (``obs.timer``s, fenced on each stage's outputs)
     and the search history.  ``xprof``: each stage under a
-    ``record_function`` of its name, for an active profiler."""
+    ``record_function`` of its name, for an active profiler.  ``rules``:
+    every rank calls; stats and search run sharded, and rank 0 writes the
+    bank and gets it (the other ranks None: ``MaskBank.save``)."""
     from repro_torch.core import calibrate
     from repro_torch.sparse.bank import MaskBank
     with stage_annotation("calibrate.stats", xprof), \
             obs.timer("calibrate.stats", arch=arch,
                       stats_impl=stats_impl) as t_stats:
         stats = calibrate.collect_stats(cfg, params, calib, pcfg=pcfg,
-                                        impl=stats_impl)
+                                        impl=stats_impl, rules=rules)
         t_stats.fence(stats)
     with stage_annotation("calibrate.search", xprof), \
             obs.timer("calibrate.search", arch=arch,
                       steps=pcfg.steps) as t_search:
         state, history = calibrate.run_search(cfg, pcfg, params, calib,
                                               stats, log_every=log_every,
-                                              loss_fn=loss_fn)
+                                              loss_fn=loss_fn, rules=rules)
         t_search.fence(state)
     meta = {"params_fingerprint": params_fingerprint(params),
             "stats_impl": stats_impl,
@@ -129,7 +145,8 @@ def calibrate_to_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
             "history": history, **(extra or {})}
     with obs.timer("calibrate.save_bank", arch=arch) as t_save:
         bank = MaskBank.save(out_dir, arch=arch, smoke=smoke, state=state,
-                             stats=stats, pcfg=pcfg, cfg=cfg, extra=meta)
+                             stats=stats, pcfg=pcfg, cfg=cfg, extra=meta,
+                             rules=rules)
     obs.log("calibrate.done", arch=arch, out_dir=str(out_dir),
             stats_seconds=t_stats.seconds, search_seconds=t_search.seconds,
             save_seconds=t_save.seconds)
@@ -151,6 +168,34 @@ def ensure_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
         pass  # absent/stale/corrupt bank: calibrate and rewrite
     return calibrate_to_bank(out_dir, cfg=cfg, pcfg=pcfg, params=params,
                              calib=calib, arch=arch, smoke=smoke, **kw)
+
+
+def host_rules(device_arg):
+    """(rules over the host mesh, the rank's device, whether the process
+    group was made here) for ``--mesh host``: the caller's default group,
+    else ``torchrun``'s environment's (``env://``), else none (one
+    rank)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.dist.ranks import pick_backend
+    from repro_torch.dist.sharding import make_production_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    made = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        kind = "cpu" if device_arg == "cpu" else "cuda"
+        if kind == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(pick_backend(kind, world, None),
+                                init_method="env://")
+        made = True
+    if device_arg is None and dist.is_initialized():
+        device_arg = f"cuda:{os.environ.get('LOCAL_RANK', 0)}" \
+            if "LOCAL_RANK" in os.environ else None
+    return (make_production_rules(make_host_mesh()),
+            resolve_device(device_arg), made)
 
 
 def main(argv=None) -> None:
@@ -178,6 +223,10 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", default=None, choices=[None, "host"],
+                    help="'host': shard stats + search state over the "
+                         "host mesh of the default process group's ranks "
+                         "via dist.sharding rules")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain CPU path)")
@@ -190,10 +239,27 @@ def main(argv=None) -> None:
                          "record_function mark per pipeline stage")
     args = ap.parse_args(argv)
 
+    rules, made = None, False
+    if args.mesh == "host":
+        rules, device, made = host_rules(args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        _run(args, device, rules)
+    finally:
+        if made:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, device, rules) -> None:
+    """The launcher's work on this rank (rank 0 alone records, writes and
+    prints)."""
+    from repro_torch.analysis import recompile
     from repro_torch.data.synthetic import batches_for
     from repro_torch.models import model as M
-    device = resolve_device(args.device)
-    if args.trace_dir:
+    lead = rules is None or rules.mesh.rank == 0
+    if args.trace_dir and lead:
         obs.configure(trace_dir=args.trace_dir)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = M.init_params(cfg, 0, device=device)
@@ -203,13 +269,18 @@ def main(argv=None) -> None:
                        steps=args.steps, stats_batches=args.stats_batches,
                        scan_chunk=args.scan_chunk,
                        grad_accum=args.grad_accum)
-    with profiling(args.xprof_dir, device):
+    # the sentinel counts rank 0's dispatches only
+    with (contextlib.nullcontext() if lead else recompile.paused()), \
+            profiling(args.xprof_dir if lead else None, device):
         bank = calibrate_to_bank(args.out, cfg=cfg, pcfg=pcfg, params=params,
                                  calib=calib, arch=args.arch,
                                  smoke=args.smoke,
                                  stats_impl=args.stats_impl,
                                  log_every=args.log_every,
-                                 xprof=bool(args.xprof_dir))
+                                 xprof=bool(args.xprof_dir) and lead,
+                                 rules=rules)
+    if not lead:
+        return
     n_pr = sum(g.numel() for g in tree.leaves(bank.Gamma) if g is not None)
     print(f"device {device}"
           + (f" ({torch.cuda.get_device_name(device)})"

@@ -20,7 +20,10 @@ rank's ``dist.sharding.DenseBlock``: :func:`dense` and
 the rank's vocab block and sums the blocks exactly
 (``kernels.shard.lookup_sharded``), :func:`unembed` multiplies by the
 block and sums or gathers, and the MoE router is gathered whole where it
-is used; each rank stores only its block.
+is used; each rank stores only its block.  Under
+``kernels.shard.whole_weights`` (calibration) each of them gathers the
+leaf's bf16 cast whole where it is used (the bits one process computes
+with) and computes as one process does.
 """
 from __future__ import annotations
 
@@ -133,13 +136,15 @@ def dense(params: PyTree, x: torch.Tensor, *,
         # 2:4-compressed kernel: the hand-written nm_matmul
         from repro_torch.sparse import apply as sparse_apply
         return sparse_apply.sparse_dense(k, x)
-    if isinstance(k, DenseBlock):
-        from repro_torch.kernels import shard as ksh
-        return ksh.dense_sharded(k.to(COMPUTE_DTYPE), x)
     from repro_torch.core import tape as _tape
     t = _tape.current_tape()
-    if t is not None:
+    if t is not None:   # under rules (a DenseBlock), x is whole too
         t.record(k, x if tape_x is None else tape_x)
+    if isinstance(k, DenseBlock):
+        from repro_torch.kernels import shard as ksh
+        if not ksh.weights_whole():
+            return ksh.dense_sharded(k.to(COMPUTE_DTYPE), x)
+        k = ksh.gathered(k.to(COMPUTE_DTYPE))
     return x @ k.to(COMPUTE_DTYPE).to(torch.promote_types(COMPUTE_DTYPE,
                                                           x.dtype))
 
@@ -169,7 +174,9 @@ def expert_dense(params: PyTree, buf: torch.Tensor) -> torch.Tensor:
     x3 = sparse_apply.per_expert(buf)
     if isinstance(k, DenseBlock):
         from repro_torch.kernels import shard as ksh
-        y = ksh.dense_sharded(k.to(COMPUTE_DTYPE), x3, expert=True)
+        y = (torch.bmm(x3, ksh.gathered(k.to(COMPUTE_DTYPE)))
+             if ksh.weights_whole() else
+             ksh.dense_sharded(k.to(COMPUTE_DTYPE), x3, expert=True))
     else:
         y = torch.bmm(x3, k.to(COMPUTE_DTYPE))
     return sparse_apply.from_per_expert(y, buf.shape[0])
@@ -342,7 +349,9 @@ def embed_lookup(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
     t = params["table"]
     if isinstance(t, DenseBlock):
         from repro_torch.kernels import shard as ksh
-        return ksh.lookup_sharded(t, tokens, COMPUTE_DTYPE)
+        if not ksh.weights_whole():
+            return ksh.lookup_sharded(t, tokens, COMPUTE_DTYPE)
+        t = ksh.gathered(t.to(COMPUTE_DTYPE))
     return t.to(COMPUTE_DTYPE)[tokens]
 
 
@@ -358,6 +367,8 @@ def unembed(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     t = params["table"]
     if isinstance(t, DenseBlock):
         from repro_torch.kernels import shard as ksh
-        return ksh.dense_sharded(DenseBlock(t.data.T, t.spec[::-1])
-                                 .to(COMPUTE_DTYPE), x).float()
+        if not ksh.weights_whole():
+            return ksh.dense_sharded(DenseBlock(t.data.T, t.spec[::-1])
+                                     .to(COMPUTE_DTYPE), x).float()
+        t = ksh.gathered(t.to(COMPUTE_DTYPE))
     return (x @ t.to(COMPUTE_DTYPE).T).float()

@@ -58,17 +58,19 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: not ported: {', '.join(missing)}")
 
 
-# the families served under rules (tensor parallelism across ranks); the
-# other eight wait for ROADMAP A item 3
+# the families served and calibrated under rules (tensor parallelism across
+# ranks); the other eight wait for ROADMAP A item 3
 TP_FAMILIES = ("llama", "mixtral")
 
 
-def check_tp_supported(cfg: ModelConfig) -> None:
+def check_tp_supported(cfg: ModelConfig,
+                       what: str = "tensor-parallel serving") -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a family the port
-    serves under rules: no family drops quietly to a replicated model."""
+    serves (or, ``what``, calibrates) under rules: no family drops quietly
+    to a replicated model."""
     if not cfg.name.startswith(TP_FAMILIES):
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving (rules) is ported for "
+            f"{cfg.name}: {what} (rules) is ported for "
             f"{' and '.join(TP_FAMILIES)} only; the other families wait for "
             "ROADMAP A item 3")
 
@@ -198,7 +200,9 @@ def _unstack(stacked: PyTree, repeats: int) -> list[PyTree]:
     full-size gradient per layer)."""
     cols = tree.tree_map(
         lambda a: tuple(a.select(i) for i in range(repeats))
-        if isinstance(a, (SparseTensor, DenseBlock)) else a.unbind(0),
+        if isinstance(a, SparseTensor) else
+        tuple(DenseBlock(d, a.spec[1:]) for d in a.data.unbind(0))
+        if isinstance(a, DenseBlock) else a.unbind(0),
         stacked)
     return [tree.tree_map(lambda c: c[i], cols) for i in range(repeats)]
 

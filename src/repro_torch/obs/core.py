@@ -130,8 +130,9 @@ def events() -> list[dict]:
 
 def _cuda_devices(tree, out: set) -> set:
     """The CUDA devices of every tensor in ``tree``: dicts, lists, tuples,
-    dataclasses (``SearchState``) and objects with ``vals`` / ``idx``
-    planes (``SparseTensor``) are walked."""
+    dataclasses (``SearchState``), objects with ``vals`` / ``idx``
+    planes (``SparseTensor``) and rank blocks (``DenseBlock``) are
+    walked."""
     if isinstance(tree, torch.Tensor):
         if tree.is_cuda:
             out.add(tree.device)
@@ -146,6 +147,9 @@ def _cuda_devices(tree, out: set) -> set:
             _cuda_devices(getattr(tree, f.name), out)
     elif hasattr(tree, "vals") and hasattr(tree, "idx"):
         _cuda_devices((tree.vals, tree.idx), out)
+    elif hasattr(tree, "spec") and isinstance(getattr(tree, "data", None),
+                                              torch.Tensor):
+        _cuda_devices(tree.data, out)       # dist.sharding.DenseBlock
     return out
 
 

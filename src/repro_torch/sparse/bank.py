@@ -74,12 +74,25 @@ class MaskBank:
     @classmethod
     def save(cls, directory, *, arch: str, smoke: bool, state,
              stats: PyTree = None, pcfg: PruneConfig,
-             extra: dict | None = None, cfg=None) -> "MaskBank":
+             extra: dict | None = None, cfg=None,
+             rules=None) -> "MaskBank | None":
         """state: ``core.mirror.SearchState`` (or anything with Gamma/V).
 
         cfg: explicit ModelConfig for archs outside the registry; registry
-        archs resolve from ``arch``."""
-        t = {"Gamma": state.Gamma, "V": state.V, "stats": stats}
+        archs resolve from ``arch``.  ``rules``: ``state`` and ``stats``
+        hold each rank's blocks (``core.calibrate.run_search(rules=)``);
+        every rank calls, the whole trees are gathered to rank 0
+        (``dist.sharding.gather_state``), and rank 0 alone writes the
+        artifact and gets the bank; the other ranks write nothing and get
+        None."""
+        Gamma, V = state.Gamma, state.V
+        if rules is not None:
+            from repro_torch.dist.sharding import gather_state
+            whole = gather_state(state, stats, rules)
+            if whole is None:
+                return None
+            Gamma, V, stats = whole
+        t = {"Gamma": Gamma, "V": V, "stats": stats}
         meta = {"schema": SCHEMA, "format_version": FORMAT_VERSION,
                 "arch": arch, "smoke": bool(smoke),
                 "pcfg": dataclasses.asdict(pcfg),
@@ -89,7 +102,7 @@ class MaskBank:
                 **(extra or {})}
         ckpt.save_artifact(directory, t, metadata=meta)
         return cls(cfg if cfg is not None else _cfg_for(arch, smoke),
-                   pcfg, state.Gamma, state.V, stats, meta)
+                   pcfg, Gamma, V, stats, meta)
 
     @classmethod
     def load(cls, directory, *, cfg=None, device=None) -> "MaskBank":

@@ -1498,3 +1498,39 @@ def test_tp_engine_over_gloo_on_one_card(cuda_device):
     for streams, refused in got:
         assert streams == want
         assert "gloo" in refused and "eager()" in refused
+
+
+@pytest.mark.cuda
+def test_sharded_search_over_gloo_on_one_card(cuda_device):
+    """2 ranks on this card over gloo: tests/test_calibrate.py's STACKED
+    shape, wanda 2:4 for 3 steps on (1, 2), each rank's blocks through
+    ``saliency_fused_step``, ``prox24`` and ``nm_mask24``: the gathered
+    Gamma and V within rtol 1e-5 / atol 1e-7 of the single-process card
+    search, the 2:4 masks and the history's loss equal."""
+    import _torch_calib_ranks as R
+    from repro_torch import tree
+    from repro_torch.core import calibrate as C
+    from repro_torch.core import mirror
+    from repro_torch.dist.ranks import run_ranks
+    cfg, params, batches = R.inputs("stacked")
+    params = tree.to_device(params, cuda_device)
+    pcfg = R.pcfg_for("wanda", 3)
+    stats = C.collect_stats(cfg, params, batches)
+    state, hist = C.run_search(cfg, pcfg, params, batches, stats,
+                               log_every=1)
+    masks = mirror.export_masks(pcfg, state.Gamma, 0.5, V=state.V)
+    got = run_ranks(R.card_rank, 2, device="cuda", backend="gloo",
+                    timeout=120.0, deadline=300.0)
+    for name, want in (("Gamma", state.Gamma), ("V", state.V),
+                       ("masks", masks)):
+        for path, w in tree.flatten_with_path(want):
+            if w is None:
+                continue
+            g, w = got[0][name][path], w.cpu().numpy()
+            if name == "masks":
+                np.testing.assert_array_equal(g.astype(bool), w, path)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7,
+                                           err_msg=name + path)
+    for r in got:
+        assert [h["loss"] for h in r["history"]] == [h["loss"] for h in hist]
