@@ -311,7 +311,34 @@ result line):
               call held against its plain version bit for bit, the bank the
               ranks wrote reloaded with the single process's masks, peak
               memory a rank.
-20. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
+20. train_tp - training over ``torch.distributed`` ranks: llama3.2-1b at
+              its published widths (phase 18's 4 of 16 layers) and smoke
+              mixtral-8x22b (its full-width expert banks with their AdamW
+              state and every rank's whole gathers pass the card), phase
+              16's train step (AdamW, remat, 2 steps of 2 x 256 tokens;
+              mixtral 4 x 32) on phase 18's 4 ranks under rules on meshes
+              (1, 4) and (2, 2), each rank's params and AdamW state its
+              blocks, made leaf by leaf; the single-process card steps
+              shared by CUDA IPC (mixtral on (2, 2) against one process
+              dispatching in the mesh's two groups).  Each case: every
+              rank's blocks of params, mu, nu and count equal the single
+              process's bit for bit, the loss and grad_norm of every step
+              equal on every rank, each rank's params + mu + nu bytes ==
+              ``params_sharding``'s blocks, peak memory a rank, every
+              kernel wrapper's count 0 (the path runs no hand-written
+              kernel).  Then the (1, 4) state checkpointed by the
+              launcher's path (gathered, rank 0 writes) is restored onto
+              (2, 2) and into one process, and one more step on each
+              equals the single process's third step bit for bit.  The
+              train launcher itself (``launch.train --model-axis``, smoke
+              llama: it takes the published 16 layers or the smoke
+              config) runs over the ranks on (1, 4) and on (2, 2) with
+              ``save_async`` checkpoints, its log and final blocks equal
+              to one process's launcher run; then host 3 fails and
+              ``ckpt.straggler.resume`` restores its last checkpoint onto
+              the survivors' (1, 2) mesh, one step there at accum x 2
+              equal to one process's step at accum 2, bit for bit.
+21. summary - the card's line, a ``{"kernels": [...]}`` line (the eight
               kernels, launches by path, and the launches the profiler saw
               on the graph engines by path), then the ``{"ok": true, ...}``
               line last.
@@ -1842,8 +1869,9 @@ def serving_prompts(cfg) -> list:
 # tracer loses a window's first records, in full runs on the H100 up to
 # all of a 32-kernel warm-up and then 2 to 8 of the work's own, so 1024
 PROFILER_WARMUP = 1024
-# windows profiled at most while a window shows lost records (no spin
-# kernel seen, a per-step count not the same in every step, or off != on)
+# windows profiled at most while a window shows lost records (a spin
+# kernel not seen, a per-step count not the same in every step, or off !=
+# on)
 PROFILE_TRIES = 3
 
 
@@ -1940,9 +1968,10 @@ def graph_engine_runs(torch, eng, prompts, want: list, counts: dict,
                     torch, lambda: box.update(out=eng.run()))
                 warm = launches.pop("warm-up")
                 out = box["out"]
-                # the lost records stop inside the warm-up, or the window
-                # is served and profiled again
-                if warm or tries == PROFILE_TRIES:
+                # a window that lost any of its warm-up's records may have
+                # lost the work's too (seen once: 658 of 1024 spin kernels,
+                # 32 of 108 2:4 launches): it is served and profiled again
+                if warm == PROFILER_WARMUP or tries == PROFILE_TRIES:
                     break
                 rids = [eng.submit(p, m) for p in prompts[:n]]
                 eng._admit()
@@ -6387,7 +6416,7 @@ def analysis_capture(torch, fns, eng, dev) -> tuple:
     rec.finish((eng.params, eng.caches), g.out)
     for _ in range(PROFILE_TRIES):
         launches = profiled_launches(torch, lambda: g.run(inp, inp))
-        if launches.pop("warm-up"):
+        if launches.pop("warm-up") == PROFILER_WARMUP:   # no record lost
             break
     return rec.rep, launches
 
@@ -7401,6 +7430,584 @@ def phase_calib_tp(torch, dev, card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: training over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# phase 18's 4 ranks on cuda:0 over gloo and its llama3.2-1b cut (4 of 16
+# layers); phase 16's train step (AdamW, remat, 2 steps of 2 x 256 tokens)
+TRAIN_TP_MESHES = ((1, 4), (2, 2))
+TRAIN_TP_STEPS = 2
+TRAIN_TP_ROWS, TRAIN_TP_TOKENS = 2, 256
+# smoke mixtral at the CPU tests' batch: its full-width expert banks, their
+# AdamW state and every rank's whole gathers pass the card at 1 layer
+TRAIN_TP_SMOKE_ROWS, TRAIN_TP_SMOKE_TOKENS = 4, 32
+TRAIN_TP_DIR = ROOT / "build" / "chip_smoke_train_tp"
+# the train launcher over the ranks (it takes llama3.2-1b's published
+# config, all 16 layers, or the smoke one): smoke llama, 4 steps of 2 x 32
+# tokens, on (1, 4) straight and on (2, 2) with a checkpoint every 2 steps
+TRAIN_TP_LAUNCH_ARGS = ["--arch", "llama3.2-1b", "--smoke", "--steps", "4",
+                        "--batch", "2", "--seq", "32", "--log-every", "1"]
+TRAIN_TP_LAUNCH_DIR = ROOT / "build" / "chip_smoke_train_tp_launcher"
+# then host 3 of the (2, 2) mesh's 4 one-rank hosts fails: the survivors'
+# plan keeps the model axis, (1, 2) over hosts 0 and 1, accum x 2
+TRAIN_TP_RECOVERY = dict(surviving=(0, 1, 2), hosts_total=4,
+                         old_mesh=(2, 2), model_axis=2, chips_per_host=1)
+
+
+def train_tp_wrappers() -> dict:
+    """Every hand-written kernel's wrapper, by name (each counts its
+    launches)."""
+    from repro_torch.kernels import flash_decode as fd
+    return {**_kernel_fns(), "flash_decode": fd.flash_decode,
+            "flash_decode_partial": fd.flash_decode_partial,
+            "combine_partials": fd.combine_partials}
+
+
+def train_tp_ocfg():
+    """Phase 16's schedule for its 2 steps."""
+    from repro_torch.optim import optimizers as opt
+    return opt.AdamWConfig(lr=3e-4, total_steps=TRAIN_TP_STEPS,
+                           warmup_steps=1)
+
+
+def train_tp_steps(torch, step, state, batches) -> tuple:
+    """``step`` over the batches from ``state``, each fenced: (params,
+    ostate, [(loss, grad_norm)], [ms])."""
+    params, ostate = state
+    metrics, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ostate, m = step(params, ostate, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return params, ostate, metrics, ms
+
+
+def train_tp_compare(torch, state, ref, mesh) -> dict:
+    """This rank's blocks of (params, AdamWState) against the same blocks
+    of the single process's leaves (``ref``, whole): leaves compared, the
+    leaves that differ and the largest |difference|."""
+    from repro_torch.ckpt.checkpoint import flatten_state
+    from repro_torch.dist import sharding as shd
+    differ, worst, n = [], 0.0, 0
+    for (path, x), (_, w) in zip(flatten_state(state), flatten_state(ref),
+                                 strict=True):
+        got = shd.block_data(x)
+        want = (shd.local_block(w, x.spec, mesh)
+                if isinstance(x, shd.DenseBlock) else w)
+        n += 1
+        if not torch.equal(got, want):
+            differ.append(path)
+            worst = max(worst, float((got.double() - want.double())
+                                     .abs().max()))
+    return {"leaves": n, "differ": differ[:4], "n_differ": len(differ),
+            "max_abs_err": worst}
+
+
+def train_tp_planned_bytes(cfg, rules) -> int:
+    """This rank's params + mu + nu bytes by ``params_sharding``'s spec
+    tree alone (from shapes): three f32 blocks of every leaf."""
+    from repro_torch import tree
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import model as M
+    shapes = M.param_shapes(cfg)
+    specs = shd.params_sharding(M.param_axes(cfg), shapes, rules)
+    return 3 * sum(4 * math.prod(shd.block_shape(s, spec, rules.mesh))
+                   for s, spec in zip(tree.leaves(shapes),
+                                      tree.leaves(specs), strict=True))
+
+
+def train_tp_case(torch, dev, rank: int, job: dict, shape,
+                  save: bool = False) -> dict:
+    """One mesh: the placed init (leaf by leaf), the train step under
+    rules over the job's batches, every kernel wrapper's count set to 0
+    just before and read just after (the path launches none); this rank's
+    blocks against the single process's, its metrics, bytes and peak; with
+    ``save`` the state checkpointed by the launcher's path (gathered, rank
+    0 writes, a barrier)."""
+    from repro_torch import tree
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.axes import make_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    cfg, ref = job["cfg"], job["ref"][shape]
+    mesh = Mesh(shape, ("data", "model"))
+    rules = make_rules(mesh)
+    fns = train_tp_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device=dev, rules=rules)
+    ostate = opt.adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, train_tp_ocfg(), remat=True, rules=rules)
+    params, ostate, metrics, ms = train_tp_steps(
+        torch, step, (params, ostate), job["batches"][:TRAIN_TP_STEPS])
+    s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check(not any(launches.values()), f"rank {rank} train_tp {shape}: the "
+          f"training path launched {launches}")
+    check(metrics == ref["metrics"], f"rank {rank} train_tp {cfg.name} "
+          f"{shape}: (loss, grad_norm) {metrics}, the single process "
+          f"{ref['metrics']}")
+    held = sum(shd.block_data(x).untyped_storage().nbytes()
+               for t in (params, ostate.mu, ostate.nu)
+               for x in tree.leaves(t))
+    planned = train_tp_planned_bytes(cfg, rules)
+    check(held == planned, f"rank {rank} train_tp {cfg.name} {shape}: "
+          f"params + mu + nu hold {held} B, params_sharding's blocks "
+          f"{planned} B")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t1 = time.perf_counter()
+    cmp = train_tp_compare(torch, (params, ostate), ref["state"], mesh)
+    check(cmp["n_differ"] == 0, f"rank {rank} train_tp {cfg.name} {shape}: "
+          f"{cmp['n_differ']} of {cmp['leaves']} leaves differ from the "
+          f"single process's ({cmp['differ']}, max |err| "
+          f"{cmp['max_abs_err']:.3e})")
+    out = {"metrics": metrics, "step_ms": ms, "init_s": init_s, "s": s,
+           "bytes": held, "planned": planned, "peak_gib": peak,
+           "launches": launches, "compare": cmp,
+           "check_s": time.perf_counter() - t1}
+    if save:
+        t1 = time.perf_counter()
+        mgr = CheckpointManager(job["ckpt"])
+        mgr.save(TRAIN_TP_STEPS, (params, ostate),
+                 metadata={"next_step": TRAIN_TP_STEPS}, rules=rules)
+        mgr.close()
+        out["save_s"] = time.perf_counter() - t1
+    del params, ostate, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_restore(torch, dev, rank: int, job: dict, shape) -> dict:
+    """The checkpoint the (1, 4) case wrote, restored onto ``shape`` (each
+    rank's blocks of it, memory-mapped) and one more step on the next
+    batch, against the single process's third step."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist.axes import make_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    cfg, ref = job["cfg"], job["ref3"]
+    mesh = Mesh(shape, ("data", "model"))
+    rules = make_rules(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    template = M.empty_params(cfg, device=dev, rules=rules)
+    (params, ostate), meta = CheckpointManager(job["ckpt"]).restore(
+        (template, opt.adamw_init(template)), rules=rules)
+    del template
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    step = make_train_step(cfg, train_tp_ocfg(), remat=True, rules=rules)
+    params, ostate, metrics, ms = train_tp_steps(
+        torch, step, (params, ostate),
+        job["batches"][meta["next_step"]:][:1])
+    check(metrics == ref["metrics"], f"rank {rank} train_tp restored onto "
+          f"{shape}: (loss, grad_norm) {metrics}, the single process's "
+          f"third step {ref['metrics']}")
+    cmp = train_tp_compare(torch, (params, ostate), ref["state"], mesh)
+    check(cmp["n_differ"] == 0, f"rank {rank} train_tp restored onto "
+          f"{shape}: {cmp['n_differ']} leaves differ from the single "
+          f"process's third step ({cmp['differ']})")
+    del params, ostate, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "step_ms": ms, "restore_s": restore_s,
+            "compare": cmp, "s": time.perf_counter() - t0}
+
+
+def train_tp_launcher(torch, dev, rank: int, job: dict) -> dict:
+    """The train launcher over the ranks (``launch.train.main``, every
+    rank with the same arguments, the host mesh over this process group,
+    ``host_rules`` resolving the card): straight on (1, 4), then on (2, 2)
+    with its checkpoints (``save_async`` gathering on the calling thread
+    while rank 0's worker thread writes, the barrier in ``wait``), every
+    kernel wrapper's count set to 0 just before and read just after; rank
+    0's log and this rank's final blocks against one process's run.  Then
+    host 3 fails: ``ckpt.straggler.resume`` restores the latest
+    checkpoint onto the survivors' (1, 2) mesh (ranks 2 and 3 idle), and
+    one step there at accum x 2 equals one process's step from its own
+    final state at accum 2."""
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import straggler
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.synthetic import DataCursor, ShardedLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    cfg, ref = job["cfg"], job["ref"]
+    fns = train_tp_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        straight = launch_train.main(TRAIN_TP_LAUNCH_ARGS
+                                     + ["--model-axis", "4"])
+        t1 = time.perf_counter()
+        saved = launch_train.main(TRAIN_TP_LAUNCH_ARGS + [
+            "--model-axis", "2", "--ckpt-dir", job["ckpt"],
+            "--ckpt-every", "2"])
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check(not any(launches.values()), f"rank {rank} train_tp launcher: "
+          f"the training path launched {launches}")
+    for name, run in (("(1, 4)", straight), ("(2, 2)", saved)):
+        got = [x[:3] for x in run["log"]]
+        check(got == ref["log"], f"rank {rank} train_tp launcher on "
+              f"{name}: log {got}, one process's {ref['log']}")
+    cmp = train_tp_compare(torch, (saved["params"], saved["ostate"]),
+                           ref["state"], Mesh((2, 2), ("data", "model")))
+    check(cmp["n_differ"] == 0, f"rank {rank} train_tp launcher on (2, 2):"
+          f" {cmp['n_differ']} of {cmp['leaves']} final leaf blocks differ "
+          f"from one process's ({cmp['differ']})")
+    steps = CheckpointManager(job["ckpt"]).all_steps()
+    check(steps == [2, 4], f"rank {rank} train_tp launcher: checkpoints "
+          f"{steps}, not [2, 4]")
+    out["launcher"] = {"metrics": [x[1:3] for x in saved["log"]],
+                       "s": time.perf_counter() - t0,
+                       "straight_s": t1 - t0, "saved_s":
+                       time.perf_counter() - t1, "launches": launches,
+                       "compare": cmp}
+    del straight, saved
+    t0 = time.perf_counter()
+    plan = straggler.plan_recovery(**TRAIN_TP_RECOVERY)
+    r = straggler.resume(plan, CheckpointManager(job["ckpt"]), cfg,
+                         accum=1, device=dev)
+    check((r is not None) == (rank < 2), f"rank {rank} train_tp "
+          f"straggler: member of the recovered mesh {r is not None}")
+    row = {"plan": [list(plan.mesh_shape), list(plan.hosts),
+                    plan.accum_scale], "member": r is not None}
+    if r is not None:
+        want = job["straggler"]
+        check(r.accum == 2 and r.next_step == 4, f"rank {rank} train_tp "
+              f"straggler: accum {r.accum}, next step {r.next_step}")
+        step = make_train_step(cfg, launch_ocfg(), accum=r.accum,
+                               remat=True, rules=r.rules)
+        batch = next(ShardedLoader(cfg, global_batch=2, seq=32,
+                                   cursor=DataCursor(index=r.next_step)))
+        params, ostate, metrics, ms = train_tp_steps(
+            torch, step, (r.params, r.ostate), [batch])
+        check(metrics == want["metrics"], f"rank {rank} train_tp straggler:"
+              f" (loss, grad_norm) {metrics}, one process's at accum 2 "
+              f"{want['metrics']}")
+        cmp = train_tp_compare(torch, (params, ostate), want["state"],
+                               r.rules.mesh)
+        check(cmp["n_differ"] == 0, f"rank {rank} train_tp straggler: "
+              f"{cmp['n_differ']} leaf blocks differ from one process's "
+              f"({cmp['differ']})")
+        row.update(metrics=metrics, step_ms=ms, compare=cmp)
+        del params, ostate, step, r
+    dist.barrier()       # the idle ranks wait for the survivors' step
+    row["s"] = time.perf_counter() - t0
+    out["straggler"] = row
+    return out
+
+
+def launch_ocfg():
+    """The train launcher's schedule for ``TRAIN_TP_LAUNCH_ARGS``."""
+    from repro_torch.optim import optimizers as opt
+    return opt.AdamWConfig(lr=3e-4, total_steps=4, warmup_steps=1)
+
+
+def train_tp_launch_single(torch) -> dict:
+    """One process's launcher run (``TRAIN_TP_LAUNCH_ARGS`` on the card):
+    its log and final state, and one step from a copy of that state at
+    accum 2 on the next batch (the straggler's resume)."""
+    import io
+
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import DataCursor, ShardedLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import optimizers as opt
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = launch_train.main(TRAIN_TP_LAUNCH_ARGS)
+    cfg = get_smoke_config("llama3.2-1b")
+    params, ostate = run["params"], run["ostate"]
+    copy = lambda t: tree.tree_map(torch.clone, t)  # noqa: E731
+    state = (copy(params), opt.AdamWState(mu=copy(ostate.mu),
+                                          nu=copy(ostate.nu),
+                                          count=ostate.count.clone()))
+    step = make_train_step(cfg, launch_ocfg(), accum=2, remat=True)
+    batch = next(ShardedLoader(cfg, global_batch=2, seq=32,
+                               cursor=DataCursor(index=4)))
+    p, o, metrics, _ = train_tp_steps(torch, step, state, [batch])
+    return {"cfg": cfg, "ckpt": str(TRAIN_TP_LAUNCH_DIR),
+            "ref": {"log": [x[:3] for x in run["log"]],
+                    "state": (params, ostate)},
+            "straggler": {"metrics": metrics, "state": (p, o)}}
+
+
+def train_tp_rank(rank: int, world: int, dev, jobs: dict) -> dict:
+    """One rank of phase 20 (``dist.ranks.run_ranks``: cuda:0, gloo): the
+    single-process states stay in the parent's memory, mapped here by CUDA
+    IPC."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    out = {"entered": time.time()}
+    llama = jobs["llama"]
+    for shape in TRAIN_TP_MESHES:
+        out[f"llama {shape[0]}x{shape[1]}"] = train_tp_case(
+            torch, dev, rank, llama, shape, save=shape == (1, 4))
+    out["llama restored 2x2"] = train_tp_restore(torch, dev, rank, llama,
+                                                 (2, 2))
+    out.update(train_tp_launcher(torch, dev, rank, jobs["launcher"]))
+    for shape in TRAIN_TP_MESHES:
+        out[f"mixtral smoke {shape[0]}x{shape[1]}"] = train_tp_case(
+            torch, dev, rank, jobs["mixtral"], shape)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def train_tp_single(torch, dev, cfg, batches, shapes, extra: bool) -> dict:
+    """The single-process card step's reference for each mesh shape
+    (mixtral on a mesh with "data" > 1 dispatches in that many groups, as
+    its ranks do: rules over a layout-only mesh, no block); with ``extra``
+    one more step from the first shape's state (the restored resume's
+    reference)."""
+    from repro_torch import tree
+    from repro_torch.dist.axes import make_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    out, keyed = {}, {}
+    for shape in shapes:
+        groups = cfg.num_experts and shape[0] > 1
+        key = shape[0] if groups else 1
+        if key in keyed:
+            out[shape] = keyed[key]
+            continue
+        rules = make_rules(Mesh(shape, ("data", "model"), rank=0)) \
+            if groups else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, 0, device=dev)
+        ostate = opt.adamw_init(params)
+        step = make_train_step(cfg, train_tp_ocfg(), remat=True,
+                               rules=rules)
+        params, ostate, metrics, ms = train_tp_steps(
+            torch, step, (params, ostate), batches[:TRAIN_TP_STEPS])
+        keyed[key] = out[shape] = {
+            "state": (params, ostate), "metrics": metrics, "step_ms": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "s": time.perf_counter() - t0}
+    if extra:
+        params, ostate = out[shapes[0]]["state"]
+        copy = lambda t: tree.tree_map(torch.clone, t)  # noqa: E731
+        state = (copy(params), opt.AdamWState(
+            mu=copy(ostate.mu), nu=copy(ostate.nu),
+            count=ostate.count.clone()))
+        step = make_train_step(cfg, train_tp_ocfg(), remat=True)
+        params, ostate, metrics, ms = train_tp_steps(
+            torch, step, state, batches[TRAIN_TP_STEPS:][:1])
+        out["third"] = {"state": (params, ostate), "metrics": metrics,
+                        "step_ms": ms}
+    return out
+
+
+def phase_train_tp(torch, dev, card: str) -> dict:
+    """Phase 20: see the module docstring."""
+    from repro_torch import tree
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    t0 = time.perf_counter()
+    jobs = {}
+    for name, cfg, rows, seq in (
+            ("llama", dataclasses.replace(get_config("llama3.2-1b"),
+                                          num_layers=TP_LLAMA_LAYERS),
+             TRAIN_TP_ROWS, TRAIN_TP_TOKENS),
+            ("mixtral", get_smoke_config("mixtral-8x22b"),
+             TRAIN_TP_SMOKE_ROWS, TRAIN_TP_SMOKE_TOKENS)):
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                   for b in batches_for(cfg, n=TRAIN_TP_STEPS + 1,
+                                        batch=rows, seq=seq, split="train")]
+        refs = train_tp_single(torch, dev, cfg, batches, TRAIN_TP_MESHES,
+                               extra=name == "llama")
+        n_params = sum(math.prod(s) for s in tree.leaves(
+            M.param_shapes(cfg)))
+        r = refs[TRAIN_TP_MESHES[0]]
+        print(f"  {cfg.name} ({cfg.num_layers} layers, {n_params} params, "
+              f"params + AdamW state {12 * n_params / 1e9:.2f} GB): one "
+              f"process, {TRAIN_TP_STEPS} steps of {rows} x {seq} tokens "
+              f"with remat: (loss, grad_norm) {r['metrics']}, step ms "
+              f"{', '.join(f'{x:.1f}' for x in r['step_ms'])}, peak "
+              f"{r['peak_gib']:.2f} GiB"
+              + (f"; a third step {refs['third']['metrics']}"
+                 if "third" in refs else ""))
+        job = {"cfg": cfg, "batches": batches,
+               "ref": {s: {k: refs[s][k] for k in ("state", "metrics")}
+                       for s in TRAIN_TP_MESHES}}
+        if "third" in refs:
+            job["ref3"] = {k: refs["third"][k] for k in ("state", "metrics")}
+            job["ckpt"] = str(TRAIN_TP_DIR)
+            ckpt_bytes = 12 * n_params
+            shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+            TRAIN_TP_DIR.parent.mkdir(parents=True, exist_ok=True)
+            free = shutil.disk_usage(TRAIN_TP_DIR.parent).free
+            check(free >= ckpt_bytes + 2 ** 30, f"{TRAIN_TP_DIR}: "
+                  f"{free / 1e9:.1f} GB free, phase 20's checkpoint needs "
+                  f"{ckpt_bytes / 1e9:.1f} GB")
+        jobs[name] = job
+    shutil.rmtree(TRAIN_TP_LAUNCH_DIR, ignore_errors=True)
+    jobs["launcher"] = train_tp_launch_single(torch)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    print(f"  {TP_WORLD} ranks on cuda:0 over gloo (phase 18's): each rank "
+          "holds its blocks of the params and of the AdamW state (made leaf "
+          "by leaf), runs the whole batch with each block gathered whole as "
+          "its bf16 cast where the model uses it, and gathers each sharded "
+          "gradient whole for the global norm; the single process's states "
+          "shared by CUDA IPC; the training path launches no hand-written "
+          "kernel (every wrapper's count 0 on every rank)")
+    t1, spawned = time.perf_counter(), time.time()
+    ranks = run_ranks(train_tp_rank, TP_WORLD, args=(jobs,), device="cuda",
+                      backend="gloo", timeout=300.0, deadline=600.0)
+    t_ranks = time.perf_counter() - t1
+    summary = {"cases": {}, "launches": {}}
+    launcher = [r.pop("launcher") for r in ranks]
+    strag = [r.pop("straggler") for r in ranks]
+    summary["launches"]["train_tp launcher"] = {
+        k: sum(r["launches"][k] for r in launcher)
+        for k in launcher[0]["launches"]}
+    summary["launcher"] = {
+        "metrics": launcher[0]["metrics"],
+        "s": max(r["s"] for r in launcher),
+        "straight_s": max(r["straight_s"] for r in launcher),
+        "saved_s": max(r["saved_s"] for r in launcher),
+        "leaves_equal": sum(r["compare"]["leaves"] - r["compare"]["n_differ"]
+                            for r in launcher)}
+    print(f"  the train launcher over the {TP_WORLD} ranks (smoke "
+          f"llama3.2-1b, {' '.join(TRAIN_TP_LAUNCH_ARGS[3:])}): on (1, 4) "
+          f"and on (2, 2) with a checkpoint every 2 steps, every rank's "
+          f"log == one process's launcher run "
+          f"{summary['launcher']['metrics']}, the (2, 2) final blocks equal "
+          f"its state ({summary['launcher']['leaves_equal']} leaf blocks "
+          f"over {TP_WORLD} ranks), no kernel launched; "
+          f"{summary['launcher']['straight_s']:.2f} s and "
+          f"{summary['launcher']['saved_s']:.2f} s")
+    members = [r for r in strag if r["member"]]
+    summary["straggler"] = {"plan": strag[0]["plan"],
+                            "members": len(members),
+                            "metrics": members[0]["metrics"],
+                            "step_ms": max(r["step_ms"][0] for r in members),
+                            "s": max(r["s"] for r in strag)}
+    print(f"  host 3 fails: plan (mesh, hosts, accum scale) "
+          f"{strag[0]['plan']}; ckpt.straggler.resume restores the "
+          f"launcher's step-4 checkpoint onto ranks 0 and 1 (2 and 3 idle), "
+          f"one step there at accum 2 {members[0]['metrics']} == one "
+          f"process's at accum 2, every block equal; step "
+          f"{summary['straggler']['step_ms']:.1f} ms, case "
+          f"{summary['straggler']['s']:.2f} s")
+    for case in ranks[0]:
+        if case in ("entered", "s"):
+            continue
+        rs = [r[case] for r in ranks]
+        row = {"metrics": rs[0]["metrics"],
+               "step_ms": [max(r["step_ms"][i] for r in rs)
+                           for i in range(len(rs[0]["step_ms"]))],
+               "s": max(r["s"] for r in rs),
+               "leaves_equal": sum(r["compare"]["leaves"]
+                                   - r["compare"]["n_differ"] for r in rs)}
+        for k in ("bytes", "peak_gib", "init_s", "save_s", "restore_s"):
+            if k in rs[0]:
+                row[k] = [r[k] for r in rs]
+        if "launches" in rs[0]:
+            summary["launches"][f"train_tp {case}"] = {
+                k: sum(r["launches"][k] for r in rs)
+                for k in rs[0]["launches"]}
+        summary["cases"][case] = row
+        print(f"  {case}: every rank's blocks equal the single process's "
+              f"({row['leaves_equal']} leaf blocks over {TP_WORLD} ranks, "
+              f"params, mu, nu and count), (loss, grad_norm) "
+              f"{row['metrics']} == one process's on every rank; step ms "
+              f"{', '.join(f'{x:.1f}' for x in row['step_ms'])} (the "
+              f"slowest rank; gloo through the host on one card: not a TP "
+              f"speed)"
+              + (f"; state bytes a rank {row['bytes']} == params_sharding's "
+                 "blocks" if "bytes" in row else "")
+              + (f"; init leaf by leaf {max(row['init_s']):.2f} s"
+                 if "init_s" in row else "")
+              + (f"; checkpoint written in {max(row['save_s']):.2f} s"
+                 if "save_s" in row else "")
+              + (f"; restored onto the mesh in "
+                 f"{max(row['restore_s']):.2f} s" if "restore_s" in row
+                 else "")
+              + (f"; peak {max(row['peak_gib']):.2f} GiB a rank"
+                 if "peak_gib" in row else "")
+              + f"; case {row['s']:.2f} s")
+    # the checkpoint the ranks wrote on (1, 4), into one process
+    llama = jobs["llama"]
+    t1 = time.perf_counter()
+    cfg = llama["cfg"]
+    template = M.empty_params(cfg, device=dev)
+    (params, ostate), meta = CheckpointManager(TRAIN_TP_DIR).restore(
+        (template, opt.adamw_init(template)))
+    del template
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    from repro_torch.ckpt.checkpoint import flatten_state
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_state((params, ostate)),
+        flatten_state(llama["ref"][(1, 4)]["state"]), strict=True))
+    check(same, "train_tp: the ranks' checkpoint restored into one process "
+          "differs from the state the single process reached")
+    step = make_train_step(cfg, train_tp_ocfg(), remat=True)
+    params, ostate, metrics, _ = train_tp_steps(
+        torch, step, (params, ostate),
+        llama["batches"][meta["next_step"]:][:1])
+    want = llama["ref3"]
+    check(metrics == want["metrics"] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_state((params, ostate)), flatten_state(want["state"]),
+            strict=True)), "train_tp: one more step of one process from "
+          "the ranks' checkpoint differs from its own third step")
+    summary["one_process_resume"] = {"metrics": metrics,
+                                     "restore_s": restore_s}
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    print(f"  the ranks' (1, 4) checkpoint ({12 * n_params / 1e9:.2f} GB) "
+          f"restored into one process in {restore_s:.2f} s equals its own "
+          f"state; one more step from it {metrics} == its third step, bit "
+          "for bit (and the (2, 2) ranks' step from it above)")
+    print(f"  the single processes {t_ref:.1f} s, the ranks {t_ranks:.1f} s "
+          f"(started and joined in "
+          f"{max(r['entered'] for r in ranks) - spawned:.1f} s, their work "
+          f"{max(r['s'] for r in ranks):.1f} s)")
+    del jobs, llama, params, ostate, ranks, step
+    shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_TP_LAUNCH_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t0
+    return summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7415,7 +8022,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[1/20] device")
+    print("[1/21] device")
     card = card_line()
     print("  card (name, power limit):")
     print(card)
@@ -7427,7 +8034,7 @@ def main() -> int:
           "allow_bf16_reduced_precision_reduction = False")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2/20] build")
+    print("[2/21] build")
     from repro_torch.kernels._build import ENTRY_POINTS, build, library
     t0 = time.perf_counter()
     build()
@@ -7441,7 +8048,7 @@ def main() -> int:
           "with the build: " + "; ".join(f"{k} {v}"
                                         for k, v in sorted(spills.items())))
 
-    print(f"[3/20] kernels against their plain versions [{card}]")
+    print(f"[3/21] kernels against their plain versions [{card}]")
     from repro_torch.configs.base import (ModelConfig, get_config,
                                          get_smoke_config)
     t0 = time.perf_counter()
@@ -7470,14 +8077,14 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[4/20] full-width llama3.2-1b 2:4 serving [{card}]")
+    print(f"[4/21] full-width llama3.2-1b 2:4 serving [{card}]")
     t0 = time.perf_counter()
     llama = phase_serve(torch, dev, card, get_config("llama3.2-1b"),
                         long_cache=True)
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[5/20] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
+    print(f"[5/21] full-width mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) "
           f"2:4 MoE serving [{card}]")
     t0 = time.perf_counter()
     moe = phase_serve(torch, dev, card, dataclasses.replace(
@@ -7485,7 +8092,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[6/20] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
+    print(f"[6/21] full-width llama3.2-1b calibration -> bank -> 2:4 serving "
           f"[{card}]")
     t0 = time.perf_counter()
     phase_calibrate_card_vs_cpu(torch, dev)
@@ -7494,7 +8101,7 @@ def main() -> int:
     print(f"  phase took {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[7/20] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
+    print(f"[7/21] the fleet: phase 6's bank at budgets {FLEET_BUDGETS}, "
           f"pinned, A/B and self-speculative [{card}]")
     t0 = time.perf_counter()
     fleet = phase_fleet(torch, dev, card, calib["bank"])
@@ -7502,7 +8109,7 @@ def main() -> int:
     print(f"  phase took {t_fleet:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[8/20] the paper's evaluation at full width: eval_ppl, the "
+    print(f"[8/21] the paper's evaluation at full width: eval_ppl, the "
           f"unstructured search, baselines, the Eq. 8 ablation, the "
           f"launcher's --sparse and --temperature, MoE calibration [{card}]")
     t0 = time.perf_counter()
@@ -7514,7 +8121,7 @@ def main() -> int:
     print(f"  phase took {t_eval:.1f} s")
 
     torch.cuda.empty_cache()
-    print(f"[9/20] training: the launcher at full width, its resume, the "
+    print(f"[9/21] training: the launcher at full width, its resume, the "
           f"system test on a model the card trained, moe-tiny [{card}]")
     t0 = time.perf_counter()
     trained = phase_train(torch, dev, card)
@@ -7523,7 +8130,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    print(f"[10/20] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
+    print(f"[10/21] gemma and yi: gemma3-1b, yi-6b and gemma2-2b 2:4 serving "
           f"at their published widths, the trained gemma-tiny card vs CPU "
           f"[{card}]")
     t0 = time.perf_counter()
@@ -7532,12 +8139,12 @@ def main() -> int:
     print(f"  phase took {t_gemma:.1f} s")
 
     torch.cuda.empty_cache()
-    print("[11/20] committed mask bank at smoke width, card vs CPU")
+    print("[11/21] committed mask bank at smoke width, card vs CPU")
     phase_bank(torch, dev)
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[12/20] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
+    print(f"[12/21] {DEEPSEEK} ({DEEPSEEK_LAYERS} of its 27 layers, MLA, 64 "
           f"experts top-6 + 2 shared) 2:4 serving at its published widths, "
           f"the smoke config card vs CPU [{card}]")
     t0 = time.perf_counter()
@@ -7547,7 +8154,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[13/20] the flight recorder (obs): its decode overhead, launches "
+    print(f"[13/21] the flight recorder (obs): its decode overhead, launches "
           f"and captures off vs on, the decode-step clock, dist.psum at "
           f"kv_shards 1 / 4, the fleet's percentiles, both launchers' "
           f"traces [{card}]")
@@ -7560,7 +8167,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[14/20] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
+    print(f"[14/21] the recurrent families: {ZAMBA} ({ZAMBA_LAYERS} of 81 "
           f"layers: Mamba2 + the LoRA-shared attention, decode attention at "
           f"G 1, D 112) "
           f"and {XLSTM} whole (mLSTM / sLSTM) 2:4 serving at their "
@@ -7575,7 +8182,7 @@ def main() -> int:
     # phase 17's dry run on this host's CPU, beside phases 15-17's card work
     dry = start_dryrun(torch, dev)
     try:
-        print(f"[15/20] the last two families: {WHISPER} whole (12 encoder "
+        print(f"[15/21] the last two families: {WHISPER} whole (12 encoder "
               f"layers over {WHISPER_FRAMES} frames + 12 decoder layers, "
               f"decode attention at G 1, D 64 on its self ring and cross "
               f"cache) and {PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, the "
@@ -7589,7 +8196,7 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[16/20] the train step at the published widths of gemma3-1b "
+        print(f"[16/21] the train step at the published widths of gemma3-1b "
               f"(6 of 26 layers), {DEEPSEEK} (2 of 27), {ZAMBA} (6 of 81), "
               f"{XLSTM} and {WHISPER} whole, then each smoke config card vs "
               f"CPU [{card}]")
@@ -7600,7 +8207,7 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[17/20] static analysis at llama3.2-1b's published widths: "
+        print(f"[17/21] static analysis at llama3.2-1b's published widths: "
               f"the decode surface audited and planned on meta, then held "
               f"on the card (launches per step against the profiler, host "
               f"syncs and upcasts of the captured step, params + caches, "
@@ -7615,7 +8222,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[18/20] tensor parallelism: llama3.2-1b ({TP_LLAMA_LAYERS} of 16 "
+    print(f"[18/21] tensor parallelism: llama3.2-1b ({TP_LLAMA_LAYERS} of 16 "
           f"layers) and mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers) 2:4 at "
           f"their published widths served by {TP_WORLD} ranks "
           f"under rules on meshes {TP_MESHES} (llama also forced "
@@ -7627,7 +8234,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[19/20] the UniPruning search over ranks: llama3.2-1b "
+    print(f"[19/21] the UniPruning search over ranks: llama3.2-1b "
           f"({TP_LLAMA_LAYERS} of 16 layers) at its published widths, wanda "
           f"2:4, {CALIB_TP_STEPS} steps, on {TP_WORLD} ranks under rules on "
           f"meshes {CALIB_TP_MESHES} and the calibrate launcher's --mesh "
@@ -7637,7 +8244,21 @@ def main() -> int:
     t_ctp = time.perf_counter() - t0
     print(f"  phase took {t_ctp:.1f} s")
 
-    print("[20/20] summary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[20/21] training over ranks: llama3.2-1b ({TP_LLAMA_LAYERS} of 16 "
+          f"layers) at its published widths and smoke mixtral-8x22b, "
+          f"{TRAIN_TP_STEPS} AdamW steps on {TP_WORLD} ranks under rules on "
+          f"meshes {TRAIN_TP_MESHES}, a checkpoint written on (1, 4) "
+          f"restored onto (2, 2) and into one process, the train launcher "
+          f"over the ranks and the straggler's recovered mesh, against "
+          f"the single-process train step [{card}]")
+    t0 = time.perf_counter()
+    ttp = phase_train_tp(torch, dev, card)
+    t_ttp = time.perf_counter() - t0
+    print(f"  phase took {t_ttp:.1f} s")
+
+    print("[21/21] summary")
     served = {"llama3.2-1b": llama, "mixtral-8x22b": moe,
               **{arch: gemma[arch] for arch, _ in GEMMA_YI},
               DEEPSEEK: deep, ZAMBA: rec[ZAMBA], XLSTM: rec[XLSTM],
@@ -7792,7 +8413,8 @@ def main() -> int:
           f"{t_rec:.1f} s, the encoder-decoder and vision phase "
           f"{t_encdec:.1f} s, the train-families phase {t_trainf:.1f} s, "
           f"the analysis phase {t_ana:.1f} s, the tensor-parallel phase "
-          f"{t_tp:.1f} s, the sharded search phase {t_ctp:.1f} s)")
+          f"{t_tp:.1f} s, the sharded search phase {t_ctp:.1f} s, the "
+          f"sharded training phase {t_ttp:.1f} s)")
     # phase 8's evaluation, on a line of its own
     print(json.dumps({"evaluation": {
         "llama3.2-1b": {k: {x: r[x] for x in ("ppl", "nll", "s", "tok_s")}
@@ -7877,6 +8499,9 @@ def main() -> int:
                                           "s": t_tp}}))
     # phase 19's sharded search, on a line of its own
     print(json.dumps({"calib_tp": {"cases": ctp["cases"], "s": t_ctp}}))
+    # phase 20's sharded training, on a line of its own (no kernel: every
+    # wrapper's launches over the ranks, all 0)
+    print(json.dumps({"train_tp": {**ttp, "s": t_ttp}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,20 @@ A crash mid-save leaves only a .tmp dir, never a torn commit.
 training step may update its tensors in place at once) and writes it on a
 worker thread; ``wait`` (or the next save) joins it.  Leaves are saved
 whole and restored onto the template's device: a checkpoint restores
-onto any card.  Restoring onto a mesh comes with tensor parallelism
-(ROADMAP A item 7).
+onto any card.
+
+On a mesh (``rules=``; every rank of the mesh calls): ``save`` /
+``save_async`` gather each ``dist.sharding.DenseBlock`` leaf whole on
+rank 0 on the calling thread, one leaf at a time, and rank 0 alone copies
+it to the host and writes; the other ranks write nothing.  The commit is
+followed by a barrier over the mesh (in ``save``, or in the ``wait``
+that joins ``save_async``'s write), so no rank reads a half-committed
+step.  ``restore(template, rules=)`` is the reference's
+``restore(..., shardings=)``: each rank reads every leaf file
+memory-mapped and keeps its block of the leaf where the template leaf is
+a ``DenseBlock`` (``mu`` and ``nu`` take their parameter's).  A
+checkpoint written on any mesh, by one process or by the reference
+restores onto any other mesh.
 
 A checkpoint state is a tree (:mod:`repro_torch.tree`) or the step state
 ``(params, AdamWState)`` the reference saves, whose paths read
@@ -37,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.dist.sharding import DenseBlock, local_block
 from repro_torch.optim.optimizers import AdamWState
 
 PyTree = Any
@@ -86,9 +99,17 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def _to_host(t: PyTree) -> list[tuple[str, Any]]:
-    return [(p, None if x is None else _host(x))
-            for p, x in flatten_state(t)]
+def _to_host(t: PyTree, mesh=None) -> list[tuple[str, Any]] | None:
+    """The state's leaves on the host.  On a mesh: each ``DenseBlock``
+    gathered whole on rank 0 in turn (a collective), so no rank holds
+    more than one whole leaf; None on the other ranks."""
+    lead = mesh is None or mesh.rank == 0
+    out = []
+    for p, x in flatten_state(t):
+        if isinstance(x, DenseBlock):
+            x = mesh.gather_whole(x.data, x.spec, dst=0)
+        out.append((p, None if x is None or not lead else _host(x)))
+    return out if lead else None
 
 
 def _write_tree(tmp: pathlib.Path, final: pathlib.Path,
@@ -149,29 +170,48 @@ class CheckpointManager:
         self.keep = keep
         self._pool = futures.ThreadPoolExecutor(max_workers=1)
         self._pending: futures.Future | None = None
+        self._barrier = None      # the mesh of a save_async not joined
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, state: PyTree, *, metadata: dict | None = None
-             ) -> None:
+    def save(self, step: int, state: PyTree, *, metadata: dict | None = None,
+             rules=None) -> None:
+        """Write ``state`` now (on a mesh: module docstring)."""
         self.wait()
-        self._write(step, _to_host(state), metadata or {})
+        mesh = None if rules is None else rules.mesh
+        flat = _to_host(state, mesh)
+        if flat is not None:
+            self._write(step, flat, metadata or {})
+        if mesh is not None:
+            mesh.barrier()
 
     def save_async(self, step: int, state: PyTree, *,
-                   metadata: dict | None = None) -> None:
-        """Copy ``state`` to the host now, write it on the worker thread."""
+                   metadata: dict | None = None, rules=None) -> None:
+        """Copy ``state`` to the host now, write it on the worker thread
+        (on a mesh: the gathers now, on every rank; rank 0 writes)."""
         self.wait()
-        self._pending = self._pool.submit(self._write, step, _to_host(state),
-                                          metadata or {})
+        mesh = None if rules is None else rules.mesh
+        flat = _to_host(state, mesh)
+        if flat is not None:
+            self._pending = self._pool.submit(self._write, step, flat,
+                                              metadata or {})
+        self._barrier = mesh
 
     def wait(self) -> None:
-        """Join the pending write; re-raises its error."""
-        if self._pending is not None:
-            pending, self._pending = self._pending, None
+        """Join the pending write (re-raising its error); on a mesh, then
+        wait for every rank."""
+        pending, self._pending = self._pending, None
+        mesh, self._barrier = self._barrier, None
+        if pending is not None:
             pending.result()
+        if mesh is not None:
+            mesh.barrier()
 
     def close(self) -> None:
-        """Join the pending write and stop the worker thread."""
+        """Join the pending write and stop the worker thread.  No barrier:
+        it also runs where a rank unwinds from an error, and its peers may
+        never come (a save before it waited for them already)."""
+        self._barrier = None
         try:
             self.wait()
         finally:
@@ -204,12 +244,14 @@ class CheckpointManager:
             return steps[-1] if steps else None
         return int(f.read_text().strip())
 
-    def restore(self, template: PyTree, *, step: int | None = None
-                ) -> tuple[PyTree, dict]:
+    def restore(self, template: PyTree, *, step: int | None = None,
+                rules=None) -> tuple[PyTree, dict]:
         """Restore into the structure of ``template`` (default: the latest
         step).  Each leaf comes back a tensor on the template leaf's device
         (the CPU where the template leaf is not a tensor); None where the
-        checkpoint has no file for its path.  Returns (tree, metadata)."""
+        checkpoint has no file for its path.  ``rules``: a ``DenseBlock``
+        template leaf comes back as this rank's block of the saved leaf,
+        of its spec.  Returns (tree, metadata)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.dir}")
@@ -221,6 +263,16 @@ class CheckpointManager:
             ent = by_path.get(path)
             if ent is None:
                 return None
+            if isinstance(tmpl, DenseBlock):
+                if rules is None:
+                    raise ValueError(f"{path}: a DenseBlock template leaf "
+                                     "restores under rules")
+                # copy-on-write map: a writable array, read where the
+                # block lies, the file never written
+                arr = torch.from_numpy(np.load(d / ent["file"],
+                                               mmap_mode="c"))
+                return DenseBlock(local_block(arr, tmpl.spec, rules.mesh)
+                                  .to(tmpl.device, copy=True), tmpl.spec)
             dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
             return torch.from_numpy(np.load(d / ent["file"])).to(dev)
 

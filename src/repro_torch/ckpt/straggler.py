@@ -14,14 +14,18 @@ launcher-side policy, fully unit-testable without hardware:
   gradient accumulation so the GLOBAL batch is unchanged.
 * The training loop reacts by restoring the latest checkpoint onto the new
   mesh and skipping the data cursor forward - no replayed or dropped
-  batches.  (This package trains on one card; restoring onto a mesh comes
-  with tensor parallelism, ROADMAP A item 7.)
+  batches: :func:`recovered_mesh` lays the plan's mesh over the
+  survivors' ranks (a subgroup of the ranks running, the others idle; or
+  a smaller spawn's), and :func:`resume` restores the latest checkpoint
+  onto it with the accumulation scaled by ``accum_scale``, so the global
+  batch is unchanged, and the cursor at the checkpoint's ``next_step``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Iterable
+from typing import Any, Iterable
 
 
 @dataclasses.dataclass
@@ -104,3 +108,51 @@ def plan_recovery(surviving: Iterable[int], *, hosts_total: int,
         hosts=tuple(surviving[:used_hosts]),
         accum_scale=old_data // data_axis,
         dropped_hosts=dropped)
+
+
+def recovered_mesh(plan: RecoveryPlan):
+    """The plan's (data, model) mesh over the surviving hosts' ranks: the
+    plan keeps whole hosts, so a host holds prod(mesh_shape) / len(hosts)
+    chips, and host h ranks h * chips ... + chips - 1, the plan's hosts
+    in mesh order.  Every rank of the default process group makes it; one
+    outside it gets ``member`` False (``launch.mesh.Mesh``)."""
+    from repro_torch.launch.mesh import Mesh
+    if not plan.hosts:
+        raise ValueError(f"{plan}: the plan keeps no whole host")
+    chips = math.prod(plan.mesh_shape) // len(plan.hosts)
+    ranks = [h * chips + c for h in plan.hosts for c in range(chips)]
+    return Mesh(plan.mesh_shape, ("data", "model"), ranks=ranks)
+
+
+@dataclasses.dataclass
+class Resumed:
+    """Where training goes on after a recovery, on one rank of the new
+    mesh: its rules, its blocks of the params and the AdamW state, the
+    accumulation and the data cursor's index."""
+    rules: Any
+    params: Any
+    ostate: Any
+    accum: int
+    next_step: int
+
+
+def resume(plan: RecoveryPlan, mgr, cfg, *, accum: int,
+           device=None) -> Resumed | None:
+    """Restore ``mgr``'s latest checkpoint onto the recovered mesh
+    (:func:`recovered_mesh`) under the production rules: each rank's
+    blocks of the params and of the AdamW state, ``accum * accum_scale``
+    microbatches a step (the global batch unchanged) and the cursor at the
+    checkpoint's ``next_step``.  None on a rank outside the mesh."""
+    from repro_torch.dist.sharding import make_production_rules
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import adamw_init
+    mesh = recovered_mesh(plan)
+    if not mesh.member:
+        return None
+    rules = make_production_rules(mesh)
+    template = M.empty_params(cfg, device=device, rules=rules)
+    (params, ostate), meta = mgr.restore((template, adamw_init(template)),
+                                         rules=rules)
+    return Resumed(rules=rules, params=params, ostate=ostate,
+                   accum=accum * plan.accum_scale,
+                   next_step=meta["next_step"])

@@ -52,6 +52,7 @@ from repro_torch.core.prunable import prunable_map
 from repro_torch.dist.axes import current_rules
 from repro_torch.dist.sharding import DenseBlock, LeafLayout
 from repro_torch.dist.sharding import block_data as _data
+from repro_torch.dist.sharding import like_block as _like
 from repro_torch.kernels.nm_prox import prox24
 from repro_torch.kernels.saliency_fuse import saliency_fused_step
 
@@ -177,11 +178,6 @@ def _task_value_and_grad(pcfg: PruneConfig, loss_fn: Callable, W: PyTree,
     div = lambda x: x / _scalar(float(accum), x.device)
     return ((div(tot[0]), {k: div(v) for k, v in tot[1].items()}),
             tree.unflatten_like(W, [div(g) for g in tot[2]]))
-
-
-def _like(leaf, t):
-    """``t`` in ``leaf``'s form: a ``DenseBlock`` of the same spec."""
-    return DenseBlock(t, leaf.spec) if isinstance(leaf, DenseBlock) else t
 
 
 def _fused_leaf(pcfg: PruneConfig, w, gamma, v, a, key, lay=None) -> None:

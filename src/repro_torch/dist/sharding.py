@@ -556,6 +556,12 @@ def block_data(x):
     return x.data if isinstance(x, DenseBlock) else x
 
 
+def like_block(leaf, t: torch.Tensor):
+    """``t`` in ``leaf``'s form: a :class:`DenseBlock` of its spec where
+    ``leaf`` is one, else ``t``."""
+    return DenseBlock(t, leaf.spec) if isinstance(leaf, DenseBlock) else t
+
+
 def whole(x, mesh) -> torch.Tensor:
     """The whole leaf of a :class:`DenseBlock` (its blocks gathered along
     every sharded dim, on every rank), or the tensor itself."""

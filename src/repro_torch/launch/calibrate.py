@@ -55,6 +55,7 @@ import torch
 from repro_torch import obs, tree
 from repro_torch.configs.base import PruneConfig, get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import host_rules
 
 PyTree = Any
 
@@ -168,34 +169,6 @@ def ensure_bank(out_dir, *, cfg, pcfg: PruneConfig, params: PyTree,
         pass  # absent/stale/corrupt bank: calibrate and rewrite
     return calibrate_to_bank(out_dir, cfg=cfg, pcfg=pcfg, params=params,
                              calib=calib, arch=arch, smoke=smoke, **kw)
-
-
-def host_rules(device_arg):
-    """(rules over the host mesh, the rank's device, whether the process
-    group was made here) for ``--mesh host``: the caller's default group,
-    else ``torchrun``'s environment's (``env://``), else none (one
-    rank)."""
-    import os
-
-    import torch.distributed as dist
-
-    from repro_torch.dist.ranks import pick_backend
-    from repro_torch.dist.sharding import make_production_rules
-    from repro_torch.launch.mesh import make_host_mesh
-    made = False
-    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
-        world = int(os.environ["WORLD_SIZE"])
-        kind = "cpu" if device_arg == "cpu" else "cuda"
-        if kind == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(pick_backend(kind, world, None),
-                                init_method="env://")
-        made = True
-    if device_arg is None and dist.is_initialized():
-        device_arg = f"cuda:{os.environ.get('LOCAL_RANK', 0)}" \
-            if "LOCAL_RANK" in os.environ else None
-    return (make_production_rules(make_host_mesh()),
-            resolve_device(device_arg), made)
 
 
 def main(argv=None) -> None:

@@ -8,7 +8,10 @@
 
 A step takes and returns the reference's values; where the reference's
 launcher donates the params and optimizer state to a jitted step, the
-train step here updates them in place.
+train step here updates them in place.  Under ``rules`` (one process a
+rank, ``dist.axes.use_rules``) the train step's params and AdamW state
+are each rank's blocks (``models.model.init_params(rules=)``,
+``optim.optimizers.adamw_init``), for llama and mixtral.
 
 The input specs of a (config, shape cell) - :func:`token_specs`,
 :func:`cache_specs`, :func:`input_specs` - are the reference's
@@ -19,12 +22,16 @@ whisper splits a cell's sequence as encoder S/2 + decoder S/2.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.dist.axes import use_rules
+from repro_torch.dist.sharding import block_data, like_block
+from repro_torch.kernels.shard import whole_weights
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim.losses import lm_loss
@@ -82,7 +89,7 @@ def choose_accum(cfg: ModelConfig, cell: ShapeCell, dp: int,
 
 def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,
                     accum: int = 1, remat: bool = True,
-                    cast_bf16: bool = False):
+                    cast_bf16: bool = False, rules=None):
     """``train_step(params, ostate, batch) -> (params, ostate, {"loss",
     "grad_norm", "lr"})``, the reference's step:
 
@@ -99,7 +106,21 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,
     * ``loss`` is the mean of the microbatch losses.
 
     Metrics are device scalars: the step reads nothing back to the host.
+
+    ``rules``: the params and ``ostate`` are this rank's blocks (a leaf the
+    mesh shards a ``dist.sharding.DenseBlock``, the others whole), every
+    rank runs the whole batch (activations replicated, ROADMAP R26) with
+    each block gathered whole, as its bf16 cast, where the model uses it
+    (``kernels.shard.whole_weights``), and keeps its block of each
+    gradient; the AdamW update runs on the blocks and the global norm is
+    the whole tree's (``optim.optimizers``).  The ranks compute one
+    process's step bit for bit (ROADMAP R28).  llama and mixtral only
+    (``models.model.check_tp_supported``).
     """
+    if rules is not None:
+        M.check_tp_supported(cfg, "tensor-parallel training")
+    mesh = None if rules is None else rules.mesh
+
     def train_step(params, ostate, batch):
         dev = tree.device_of(params)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -108,15 +129,19 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,
             raise ValueError(f"accum={accum} must divide the batch's "
                              f"{rows} rows")
         m = rows // accum
+        flat = tree.leaves(params)
         leaves = [
             (p.to(torch.bfloat16) if cast_bf16 and p.dtype == torch.float32
              and p.dim() >= 2 else p).detach().requires_grad_(True)
-            for p in tree.leaves(params)]
-        compute = tree.unflatten_like(params, leaves)
+            for p in map(block_data, flat)]
+        compute = tree.unflatten_like(params, [
+            like_block(p, x) for p, x in zip(flat, leaves)])
         acc, losses = None, []
         for j in range(accum):
             mb = {k: v[j * m:(j + 1) * m] for k, v in batch.items()}
-            with torch.enable_grad():
+            with torch.enable_grad(), use_rules(rules), (
+                    whole_weights() if rules is not None
+                    else contextlib.nullcontext()):
                 loss, _ = lm_loss(cfg, compute, mb, remat=remat)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros(x.shape, dtype=torch.float32, device=dev)
@@ -127,9 +152,11 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,
             losses.append(loss.detach())
         del compute, leaves
         div = torch.full((), float(accum), dtype=torch.float32, device=dev)
-        g = tree.unflatten_like(params, [a / div for a in acc]
-                                if accum > 1 else acc)
-        params, ostate, om = opt.adamw_update(ocfg, g, ostate, params)
+        g = tree.unflatten_like(params, [
+            like_block(p, a / div if accum > 1 else a)
+            for p, a in zip(flat, acc)])
+        params, ostate, om = opt.adamw_update(ocfg, g, ostate, params,
+                                              mesh=mesh)
         return params, ostate, {"loss": torch.stack(losses).mean(), **om}
 
     return train_step

@@ -23,6 +23,7 @@ asks for beyond that.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -31,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import DenseBlock
+from repro_torch.dist.axes import current_rules, use_rules
+from repro_torch.dist.sharding import DenseBlock, place_leaf
 from repro_torch.kernels import shard as ksh
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
@@ -131,17 +133,45 @@ def _build(cfg: ModelConfig, b: Builder) -> PyTree:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device=None) -> PyTree:
+                device=None, rules=None) -> PyTree:
     """Fan-in truncated-normal init from ``torch.Generator(device)`` seeded
-    with ``seed``, on the card unless ``device`` names another.  (These are
-    not the reference's params: ``core/prng.py`` replays its threefry bits,
-    but not ``jax.random.truncated_normal``'s inverse-erf transform of
-    them, so a test that needs the reference's params converts them with
-    ``repro_torch.convert``.)"""
+    with ``seed``, on the card unless ``device`` names another: each
+    :func:`param_specs` leaf drawn in turn.  (These are not the
+    reference's params: ``core/prng.py`` replays its threefry bits, but
+    not ``jax.random.truncated_normal``'s inverse-erf transform of them,
+    so a test that needs the reference's params converts them with
+    ``repro_torch.convert``.)
+
+    ``rules``: this rank's blocks of the same params
+    (``dist.sharding.place_leaf``, the specs ``params_sharding`` gives),
+    each leaf replaced by its block as soon as it is drawn, so the whole
+    f32 tree is never held."""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    return _build(cfg, Builder("init", g, device))
+    return _from_specs(cfg, lambda spec: spec.draw(g, device), rules)
+
+
+def empty_params(cfg: ModelConfig, *, device=None, rules=None) -> PyTree:
+    """Uninitialised leaves of :func:`init_params`' shapes, dtypes and,
+    under ``rules``, blocks: a template to restore a checkpoint into,
+    with no values drawn."""
+    device = resolve_device(device)
+    return _from_specs(cfg, lambda spec: torch.empty(
+        spec.shape, dtype=spec.dtype, device=device), rules)
+
+
+def _from_specs(cfg: ModelConfig, make, rules) -> PyTree:
+    """``make(spec)`` over :func:`param_specs` in the tree's insertion
+    order (the order ``Builder`` draws in), each leaf placed under
+    ``rules`` before the next is made."""
+    specs = param_specs(cfg)
+    if rules is None:
+        return tree.tree_map(make, specs)
+    axes = dict(tree.flatten_with_path(param_axes(cfg)))
+    return tree.map_with_path(
+        lambda path, spec: place_leaf(path, axes[path], make(spec), rules),
+        specs)
 
 
 def param_axes(cfg: ModelConfig) -> PyTree:
@@ -159,7 +189,7 @@ def param_specs(cfg: ModelConfig) -> PyTree:
     """Tree (same structure as params) of ``common.ParamSpec``: what
     :func:`init_params` draws, drawn by the caller leaf by leaf, a
     stacked leaf layer by layer (``ParamSpec.draw(index=(i,))``).
-    Drawn in the tree's insertion order from one generator, they give
+    Drawn in the tree's insertion order from one generator, they are
     ``init_params``' values."""
     return _build(cfg, Builder("spec"))
 
@@ -330,6 +360,23 @@ def _layer_apply(cfg: ModelConfig, pattern, lp: PyTree, x: torch.Tensor,
     return x.to(cm.COMPUTE_DTYPE), aux_total, out
 
 
+@contextlib.contextmanager
+def _as_in_forward(rules, whole: bool):
+    with use_rules(rules), (ksh.whole_weights() if whole
+                            else contextlib.nullcontext()):
+        yield
+
+
+def _remat_context():
+    """``checkpoint``'s context_fn: the layer's recomputation runs under
+    the rules and ``kernels.shard.whole_weights`` state of its forward.
+    Both are thread-local, and on the card the backward (so the
+    recomputation) runs on autograd's device thread, where neither is
+    set."""
+    return contextlib.nullcontext(), _as_in_forward(current_rules(),
+                                                   ksh.weights_whole())
+
+
 def _trunk(cfg: ModelConfig, params: PyTree, batch: dict,
            cache_capacity: int, unroll: bool = False, remat: bool = False):
     """Embed (and the encoder, or the image prefix) + every decoder layer:
@@ -365,7 +412,8 @@ def _trunk(cfg: ModelConfig, params: PyTree, batch: dict,
                 tape.register_layer(lp, f"['stages'][{s}]", i)
             if remat:
                 x, aux, out = checkpoint(_layer_apply, cfg, pattern, lp, x,
-                                         ctx, shared, use_reentrant=False)
+                                         ctx, shared, use_reentrant=False,
+                                         context_fn=_remat_context)
             else:
                 x, aux, out = _layer_apply(cfg, pattern, lp, x, ctx, shared)
             if aux is not None:

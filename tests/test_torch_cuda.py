@@ -1534,3 +1534,30 @@ def test_sharded_search_over_gloo_on_one_card(cuda_device):
                                            err_msg=name + path)
     for r in got:
         assert [h["loss"] for h in r["history"]] == [h["loss"] for h in hist]
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_over_gloo_on_one_card(cuda_device):
+    """2 ranks on this card over gloo: smoke llama's 2 AdamW steps with
+    remat on (1, 2), each rank's params and AdamW state its blocks (the
+    layers' recomputation runs on autograd's device thread, under the
+    forward's rules): the gathered state and every step's loss and
+    grad_norm equal the single-process card step's bit for bit."""
+    import _torch_train_ranks as R
+    from repro_torch.ckpt.checkpoint import flatten_state
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.dist.ranks import run_ranks
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    cfg = get_smoke_config(R.ARCHS["llama"])
+    params = M.init_params(cfg, 0, device=cuda_device)
+    params, ostate, metrics = R.train(
+        cfg, None, R.batches(cfg)[:R.STEPS],
+        state=(params, opt.adamw_init(params)))
+    got = run_ranks(R.card_rank, 2, device="cuda", backend="gloo",
+                    timeout=120.0, deadline=300.0)
+    for r in got:
+        assert r["metrics"] == metrics
+    for path, w in flatten_state((params, ostate)):
+        np.testing.assert_array_equal(got[0]["state"][path],
+                                      w.cpu().numpy(), err_msg=path)

@@ -4,7 +4,8 @@ The loader's batches equal the reference's ``ShardedLoader``'s token for
 token, across hosts and on cursor resume.  The launcher prints the
 reference's log lines, checkpoints and resumes (a resumed run's steps equal
 a straight run's, bit for bit on the CPU), refuses to run without a card
-unless asked for the CPU, and refuses ``--model-axis`` other than 1.  (The
+unless asked for the CPU, and refuses ``--model-axis`` > 1 without a
+process group (tests/test_torch_train_tp.py runs it over ranks).  (The
 reference's own launcher fails on jax 0.9 with the production sharding
 rules in the embedding gather, ROADMAP R13, so its line format is taken
 from its source.)"""
@@ -112,7 +113,10 @@ def test_launcher_prints_reference_lines_and_resumes(tmp_path, capsys,
 
 
 def test_launcher_raises_without_card_and_on_model_axis(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 7"):
+    # --model-axis 2 asks for a mesh of a multiple of 2 ranks; without a
+    # process group there is one
+    with pytest.raises(ValueError, match="model=2 does not divide the 1 "
+                                         "ranks"):
         launch_train.main(SMOKE + ["--steps", "1", "--model-axis", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
